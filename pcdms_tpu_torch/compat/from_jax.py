@@ -1,0 +1,179 @@
+"""JAX parameter pytrees -> the port's modules.
+
+The inverse of ``pcdms_tpu/compat/torch_convert.py``: turns the JAX
+package's parameter pytrees (leaves as numpy arrays) into diffusers-named
+state dicts for ``UNet2DConditionModel``, ``AutoencoderKL``,
+``ImageProjModel`` and ``PoseCondEmbedding``:
+
+  * Linear kernel (in, out) -> weight (out, in)
+  * Conv kernel HWIO        -> weight OIHW
+  * Norm scale / bias       -> weight / bias
+
+So one set of weights drives both packages.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, np.ndarray]
+
+
+def _linear(sd: StateDict, prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = np.asarray(p["kernel"]).T
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _conv(sd: StateDict, prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _norm(sd: StateDict, prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = np.asarray(p["scale"])
+    sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _timestep_embedding(sd, prefix, p):
+    _linear(sd, f"{prefix}.linear_1", p["linear_1"])
+    _linear(sd, f"{prefix}.linear_2", p["linear_2"])
+    if "cond_proj" in p:
+        _linear(sd, f"{prefix}.cond_proj", p["cond_proj"])
+
+
+def _resnet(sd, prefix, p):
+    _norm(sd, f"{prefix}.norm1", p["norm1"])
+    _conv(sd, f"{prefix}.conv1", p["conv1"])
+    _norm(sd, f"{prefix}.norm2", p["norm2"])
+    _conv(sd, f"{prefix}.conv2", p["conv2"])
+    if "time_emb_proj" in p:
+        _linear(sd, f"{prefix}.time_emb_proj", p["time_emb_proj"])
+    if "conv_shortcut" in p:
+        _conv(sd, f"{prefix}.conv_shortcut", p["conv_shortcut"])
+
+
+def _attention(sd, prefix, p):
+    for name in ("to_q", "to_k", "to_v"):
+        _linear(sd, f"{prefix}.{name}", p[name])
+    _linear(sd, f"{prefix}.to_out.0", p["to_out"])
+
+
+def _transformer_block(sd, prefix, p):
+    _norm(sd, f"{prefix}.norm1", p["norm1"])
+    _attention(sd, f"{prefix}.attn1", p["attn1"])
+    if "attn2" in p:
+        _norm(sd, f"{prefix}.norm2", p["norm2"])
+        _attention(sd, f"{prefix}.attn2", p["attn2"])
+    _norm(sd, f"{prefix}.norm3", p["norm3"])
+    _linear(sd, f"{prefix}.ff.net.0.proj", p["ff"]["proj_in"])
+    _linear(sd, f"{prefix}.ff.net.2", p["ff"]["proj_out"])
+
+
+def _transformer2d(sd, prefix, p):
+    _norm(sd, f"{prefix}.norm", p["norm"])
+    _linear(sd, f"{prefix}.proj_in", p["proj_in"])
+    for i, block in enumerate(p["blocks"]):
+        _transformer_block(sd, f"{prefix}.transformer_blocks.{i}", block)
+    _linear(sd, f"{prefix}.proj_out", p["proj_out"])
+
+
+def _unet_block(sd, prefix, p, sampler):
+    for j, r in enumerate(p["resnets"]):
+        _resnet(sd, f"{prefix}.resnets.{j}", r)
+    for j, a in enumerate(p.get("attentions", ())):
+        _transformer2d(sd, f"{prefix}.attentions.{j}", a)
+    if sampler in p:
+        _conv(sd, f"{prefix}.{sampler}s.0.conv", p[sampler]["conv"])
+
+
+def unet_state_dict(p) -> StateDict:
+    """``unet_init`` pytree -> ``UNet2DConditionModel`` state dict."""
+    sd: StateDict = {}
+    _timestep_embedding(sd, "time_embedding", p["time_embedding"])
+    if "class_embedding" in p:
+        _timestep_embedding(sd, "class_embedding", p["class_embedding"])
+    _conv(sd, "conv_in", p["conv_in"])
+    for i, block in enumerate(p["down_blocks"]):
+        _unet_block(sd, f"down_blocks.{i}", block, "downsampler")
+    mid = p["mid_block"]
+    _resnet(sd, "mid_block.resnets.0", mid["resnet1"])
+    _transformer2d(sd, "mid_block.attentions.0", mid["attention"])
+    _resnet(sd, "mid_block.resnets.1", mid["resnet2"])
+    for i, block in enumerate(p["up_blocks"]):
+        _unet_block(sd, f"up_blocks.{i}", block, "upsampler")
+    _norm(sd, "conv_norm_out", p["conv_norm_out"])
+    _conv(sd, "conv_out", p["conv_out"])
+    return sd
+
+
+def _vae_mid(sd, prefix, p):
+    _resnet(sd, f"{prefix}.resnets.0", p["resnet1"])
+    attn = p["attention"]
+    _norm(sd, f"{prefix}.attentions.0.group_norm", attn["norm"])
+    _attention(sd, f"{prefix}.attentions.0", attn)
+    _resnet(sd, f"{prefix}.resnets.1", p["resnet2"])
+
+
+def vae_state_dict(p) -> StateDict:
+    """``vae_init`` pytree -> ``AutoencoderKL`` state dict."""
+    sd: StateDict = {}
+    enc, dec = p["encoder"], p["decoder"]
+    _conv(sd, "encoder.conv_in", enc["conv_in"])
+    for i, block in enumerate(enc["down_blocks"]):
+        for j, r in enumerate(block["resnets"]):
+            _resnet(sd, f"encoder.down_blocks.{i}.resnets.{j}", r)
+        if "downsampler" in block:
+            _conv(sd, f"encoder.down_blocks.{i}.downsamplers.0.conv",
+                  block["downsampler"])
+    _vae_mid(sd, "encoder.mid_block", enc["mid"])
+    _norm(sd, "encoder.conv_norm_out", enc["norm_out"])
+    _conv(sd, "encoder.conv_out", enc["conv_out"])
+    _conv(sd, "decoder.conv_in", dec["conv_in"])
+    _vae_mid(sd, "decoder.mid_block", dec["mid"])
+    for i, block in enumerate(dec["up_blocks"]):
+        for j, r in enumerate(block["resnets"]):
+            _resnet(sd, f"decoder.up_blocks.{i}.resnets.{j}", r)
+        if "upsampler" in block:
+            _conv(sd, f"decoder.up_blocks.{i}.upsamplers.0.conv",
+                  block["upsampler"])
+    _norm(sd, "decoder.conv_norm_out", dec["norm_out"])
+    _conv(sd, "decoder.conv_out", dec["conv_out"])
+    _conv(sd, "quant_conv", p["quant_conv"])
+    _conv(sd, "post_quant_conv", p["post_quant_conv"])
+    return sd
+
+
+def image_proj_state_dict(p) -> StateDict:
+    """``image_proj_mlp_init`` pytree -> ``ImageProjModel`` state dict."""
+    sd: StateDict = {}
+    _linear(sd, "net.0", p["fc1"])
+    _norm(sd, "net.3", p["norm"])
+    _linear(sd, "net.4", p["fc2"])
+    return sd
+
+
+def pose_proj_state_dict(p) -> StateDict:
+    """``pose_cond_embedding_init`` pytree -> ``PoseCondEmbedding`` state
+    dict."""
+    sd: StateDict = {}
+    _conv(sd, "conv_in", p["conv_in"])
+    for i, block in enumerate(p["blocks"]):
+        _conv(sd, f"blocks.{i}", block)
+    _conv(sd, "conv_out", p["conv_out"])
+    return sd
+
+
+def load_numpy_state_dict(module: torch.nn.Module, sd: StateDict):
+    """Load a numpy state dict into ``module`` (every key must match) in
+    the module's own dtype and device; returns the module."""
+    ref = next(module.parameters())
+    module.load_state_dict({
+        k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(
+            device=ref.device, dtype=ref.dtype)
+        for k, v in sd.items()}, strict=True)
+    return module

@@ -1,0 +1,74 @@
+"""The SD-2.1 noise schedule as precomputed coefficient tables (counterpart
+of ``pcdms_tpu/diffusion/schedules.py``, a jax-free copy of the part the
+stage-2 sampler uses: the tables are numpy there too, but that module
+imports ``jax.numpy``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+def scaled_linear_betas(num_train_timesteps: int = 1000,
+                        beta_start: float = 0.00085,
+                        beta_end: float = 0.012) -> np.ndarray:
+    return np.linspace(beta_start ** 0.5, beta_end ** 0.5,
+                       num_train_timesteps, dtype=np.float64) ** 2
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseSchedule:
+    """Precomputed diffusion coefficient tables, host (numpy float32)
+    arrays."""
+    betas: np.ndarray
+    alphas: np.ndarray
+    alphas_cumprod: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
+    num_train_timesteps: int
+    prediction_type: str = "epsilon"   # 'epsilon' | 'sample' | 'v_prediction'
+
+
+def sd21_schedule(prediction_type: str = "epsilon") -> NoiseSchedule:
+    """The SD-2.1-base scheduler config (beta 0.00085 -> 0.012, scaled
+    linear, 1000 steps) used for stage-2/3 training and inference."""
+    betas = scaled_linear_betas(1000)
+    alphas = 1.0 - betas
+    ac = np.cumprod(alphas)
+    return NoiseSchedule(
+        betas=np.asarray(betas, np.float32),
+        alphas=np.asarray(alphas, np.float32),
+        alphas_cumprod=np.asarray(ac, np.float32),
+        sqrt_alphas_cumprod=np.asarray(np.sqrt(ac), np.float32),
+        sqrt_one_minus_alphas_cumprod=np.asarray(np.sqrt(1.0 - ac),
+                                                 np.float32),
+        num_train_timesteps=1000,
+        prediction_type=prediction_type,
+    )
+
+
+def pred_to_x0(model_out, x_t, sqrt_ac_t, sqrt_1mac_t, prediction_type: str):
+    """Convert a model output to an x0 estimate at timestep t.
+
+    sqrt_ac_t / sqrt_1mac_t must broadcast against x_t.
+    """
+    if prediction_type == "epsilon":
+        return (x_t - sqrt_1mac_t * model_out) / sqrt_ac_t
+    if prediction_type == "sample":
+        return model_out
+    if prediction_type == "v_prediction":
+        return sqrt_ac_t * x_t - sqrt_1mac_t * model_out
+    raise ValueError(prediction_type)
+
+
+def pred_to_eps(model_out, x_t, sqrt_ac_t, sqrt_1mac_t, prediction_type: str):
+    """Convert a model output to an epsilon estimate at timestep t."""
+    if prediction_type == "epsilon":
+        return model_out
+    if prediction_type == "sample":
+        return (x_t - sqrt_ac_t * model_out) / sqrt_1mac_t
+    if prediction_type == "v_prediction":
+        return sqrt_1mac_t * x_t + sqrt_ac_t * model_out
+    raise ValueError(prediction_type)

@@ -1,0 +1,236 @@
+"""Flash-attention forward: CUDA kernels, their plain versions, the router.
+
+Counterpart of ``pcdms_tpu/ops/flash_attention.py``. The three Pallas TPU
+kernels there (frozen-max, online-softmax and short-kv) are hand-written
+CUDA C++ for Hopper here (``csrc/flash_attention.cu``). Each has a wrapper
+that launches the kernel for a CUDA tensor (or raises) and takes the plain
+PyTorch version, which repeats the kernel's arithmetic, for a CPU tensor.
+Each wrapper counts its launches in ``LAUNCHES``.
+
+The router ``flash_attention`` keeps the JAX package's routes and switches:
+
+* lk <= 384 (the 258-token cross-attention, the mid block's 128 tokens)
+  takes ``attention_reference``, unless ``PCDMS_SHORTKV=pallas`` selects
+  the short-kv kernel;
+* longer kv takes the frozen-max kernel, or the online-softmax kernel
+  under ``PCDMS_FROZEN_MAX=0``; ``PCDMS_EXP_BF16=1`` demotes the online
+  kernel's score tile to bf16 before max / exp2.
+
+The switches are read on every call. The TPU block picking (``_pick_blocks``,
+``_Q_UNROLL``) has no counterpart: the kernels choose their own tiles.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import torch
+
+from pcdms_tpu_torch.ops import _build
+
+_NEG_INF = -1e30
+_LOG2E = 1.4426950408889634
+# frozen-max headroom (exp2 domain) over the max of the first 128 scores:
+# overflow then needs a later score ~104 nats above that estimate
+_FROZEN_MARGIN = 24.0
+_FROZEN_KEYS = 128
+_SHORTKV_MAX = 384
+_BLOCK_K = 64          # the kernels' k tile; the plain online version walks it
+_HEAD_DIM = 64         # the kernels' head_dim
+
+LAUNCHES = {"flash_frozen": 0, "flash_online": 0, "flash_shortkv": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def attention_reference(q, k, v, scale=None):
+    """Plain attention. q: (B, H, Lq, D), k/v: (B, H, Lk, D): f32 scores,
+    softmax, p cast to v's dtype, f32 accumulate, output in q's dtype."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    p = torch.softmax(s * scale, dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the kernels, on (BH, L, D) tensors
+# ---------------------------------------------------------------------------
+
+def _scores_log2(q, k, scale):
+    """f32 scores in the exp2 domain: q.k^T * scale * log2(e)."""
+    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
+        scale * _LOG2E)
+
+
+def _normalised(p, v, dtype):
+    """sum_j p_j v_j / max(sum_j p_j, 1e-30), with p rounded to v's dtype
+    for both sums (the kernels' P.V operand) and f32 accumulation."""
+    p = p.to(v.dtype).float()
+    acc = torch.matmul(p, v.float())
+    return (acc / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(dtype)
+
+
+def flash_frozen_plain(q, k, v, scale: float):
+    """``_flash_kernel_frozen``: the row max is fixed in advance at
+    m0 = max(first <= 128 scores) + 24, so softmax is exp2(s - m0) / sum."""
+    s = _scores_log2(q, k, scale)
+    m0 = s[..., :_FROZEN_KEYS].amax(-1, keepdim=True) + _FROZEN_MARGIN
+    return _normalised(torch.exp2(s - m0), v, q.dtype)
+
+
+def shortkv_plain(q, k, v, scale: float):
+    """``_shortkv_kernel``: one-pass softmax with the exact row max."""
+    s = _scores_log2(q, k, scale)
+    return _normalised(torch.exp2(s - s.amax(-1, keepdim=True)), v, q.dtype)
+
+
+def flash_online_plain(q, k, v, scale: float, exp_bf16: bool = False):
+    """``_flash_kernel``: running max and alpha-rescale over k tiles of 64.
+    ``exp_bf16`` demotes each score tile to bf16 before max / exp2."""
+    bh, lq, d = q.shape
+    m = torch.full((bh, lq, 1), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    acc = torch.zeros((bh, lq, d), dtype=torch.float32, device=q.device)
+    l = torch.zeros((bh, lq, 1), dtype=torch.float32, device=q.device)
+    for j in range(0, k.shape[1], _BLOCK_K):
+        s = _scores_log2(q, k[:, j:j + _BLOCK_K], scale)
+        if exp_bf16:
+            sb = s.to(torch.bfloat16)
+            m_new = torch.maximum(m, sb.float().amax(-1, keepdim=True))
+            p = torch.exp2(sb - m_new.to(torch.bfloat16))
+        else:
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp2(s - m_new)
+        alpha = torch.exp2(m - m_new)
+        p = p.to(v.dtype).float()
+        acc = acc * alpha + torch.matmul(p, v[:, j:j + _BLOCK_K].float())
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers: CUDA tensor -> kernel (or raise), CPU tensor -> plain
+# ---------------------------------------------------------------------------
+
+def _check(q, k, v):
+    for t in (q, k, v):
+        if not t.is_cuda:
+            raise ValueError(f"flash attention kernels take CUDA tensors, "
+                             f"got a tensor on {t.device}")
+        if t.dtype != q.dtype or t.dtype not in (torch.bfloat16,
+                                                 torch.float32):
+            raise TypeError(f"flash attention kernels take bf16 or f32 "
+                            f"q/k/v of one dtype, got {t.dtype}")
+        if t.dim() != 3 or t.shape[-1] != _HEAD_DIM:
+            raise ValueError(f"flash attention kernels take (BH, L, "
+                             f"{_HEAD_DIM}) tensors, got {tuple(t.shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("flash attention kernels take contiguous, "
+                             "16-byte aligned tensors")
+        if t.device != q.device:
+            raise ValueError("q, k and v must lie on one device")
+    if k.shape != v.shape or k.shape[0] != q.shape[0]:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.shape[1] == 0 or k.shape[1] == 0:
+        raise ValueError("flash attention needs lq > 0 and lk > 0")
+
+
+def _launch(entry: str, q, k, v, scale: float, *extra):
+    _check(q, k, v)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = getattr(_build.library(), entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.shape[0], q.shape[1], k.shape[1], scale * _LOG2E,
+            int(q.dtype == torch.bfloat16), *extra, stream)
+    _build.check(status, entry)
+    return out
+
+
+def flash_frozen(q, k, v, scale: float):
+    """Frozen-max flash attention on (BH, L, 64) tensors."""
+    if q.device.type == "cpu":
+        return flash_frozen_plain(q, k, v, scale)
+    out = _launch("pcdms_flash_frozen", q, k, v, scale)
+    LAUNCHES["flash_frozen"] += 1
+    return out
+
+
+def flash_online(q, k, v, scale: float, exp_bf16: bool = False):
+    """Online-softmax flash attention on (BH, L, 64) tensors."""
+    if q.device.type == "cpu":
+        return flash_online_plain(q, k, v, scale, exp_bf16)
+    out = _launch("pcdms_flash_online", q, k, v, scale, int(exp_bf16))
+    LAUNCHES["flash_online"] += 1
+    return out
+
+
+def shortkv_attention(q, k, v, scale: float):
+    """Short-kv (one-pass softmax) attention on (BH, L, 64) tensors."""
+    if q.device.type == "cpu":
+        return shortkv_plain(q, k, v, scale)
+    out = _launch("pcdms_flash_shortkv", q, k, v, scale)
+    LAUNCHES["flash_shortkv"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# router
+# ---------------------------------------------------------------------------
+
+def attention_route(lk: int) -> str:
+    """Which route ``flash_attention`` takes for kv length ``lk``:
+    'reference', 'shortkv', 'frozen' or 'online'."""
+    if lk <= _SHORTKV_MAX:
+        if os.environ.get("PCDMS_SHORTKV", "xla") == "pallas":
+            return "shortkv"
+        return "reference"
+    if os.environ.get("PCDMS_FROZEN_MAX", "1") == "1":
+        return "frozen"
+    return "online"
+
+
+def flash_attention(q, k, v, scale=None):
+    """Multi-head attention. q: (B, H, Lq, D), k/v: (B, H, Lk, D)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    route = attention_route(k.shape[2])
+    if route == "reference":
+        return attention_reference(q, k, v, scale)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    q3 = q.reshape(b * h, lq, d).contiguous()
+    k3 = k.reshape(b * h, lk, d).contiguous()
+    v3 = v.reshape(b * h, lk, d).contiguous()
+    if route == "shortkv":
+        out = shortkv_attention(q3, k3, v3, float(scale))
+    elif route == "frozen":
+        out = flash_frozen(q3, k3, v3, float(scale))
+    else:
+        exp_bf16 = os.environ.get("PCDMS_EXP_BF16", "0") == "1"
+        out = flash_online(q3, k3, v3, float(scale), exp_bf16)
+    return out.reshape(b, h, lq, d)
+
+
+def flash_attention_packed(q, k, v, heads: int, scale=None,
+                           use_flash: bool = True):
+    """Attention on packed (B, L, H*D) tensors (the Linear projections'
+    layout). ``use_flash=False`` takes ``attention_reference`` for every
+    kv length."""
+    b, lq, hd = q.shape
+    lk = k.shape[1]
+    d = hd // heads
+    qh = q.reshape(b, lq, heads, d).transpose(1, 2)
+    kh = k.reshape(b, lk, heads, d).transpose(1, 2)
+    vh = v.reshape(b, lk, heads, d).transpose(1, 2)
+    attn = flash_attention if use_flash else attention_reference
+    o = attn(qh, kh, vh, scale)
+    return o.transpose(1, 2).reshape(b, lq, hd)

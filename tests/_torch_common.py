@@ -1,0 +1,88 @@
+"""Shared helpers for the ``test_torch_*`` parity tests: random JAX
+parameter pytrees made non-zero everywhere, and the port's modules built
+from them through ``pcdms_tpu_torch.compat.from_jax``."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import torch
+
+from pcdms_tpu.cli.common import tiny_configs
+from pcdms_tpu.models.projections import (
+    image_proj_mlp_init, pose_cond_embedding_init,
+)
+from pcdms_tpu.models.unet2d import unet_init
+from pcdms_tpu.models.vae import vae_init
+
+from pcdms_tpu_torch.compat.from_jax import (
+    image_proj_state_dict, load_numpy_state_dict, pose_proj_state_dict,
+    unet_state_dict, vae_state_dict,
+)
+from pcdms_tpu_torch.models.projections import (
+    ImageProjModel, PoseCondEmbedding,
+)
+from pcdms_tpu_torch.models.unet2d import (
+    UNet2DConditionModel, UNetConfig as TUNetConfig,
+)
+from pcdms_tpu_torch.models.vae import AutoencoderKL, VAEConfig as TVAEConfig
+
+TOL = dict(atol=1e-4, rtol=1e-3)
+TINY = tiny_configs()
+
+
+def nonzero(tree, seed: int, scale: float = 0.05):
+    """Every leaf as f32 numpy plus seeded noise: no weight stays zero
+    (the pose encoder's zero-initialised conv_out would hide the pose path,
+    zero norm biases would hide their wiring)."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda x: (np.asarray(x, np.float32) + scale * rng.standard_normal(
+            np.shape(x)).astype(np.float32)), tree)
+
+
+def port_config(cfg, cls):
+    return cls(**dataclasses.asdict(cfg))
+
+
+def unet_pair(cfg, seed: int):
+    """(JAX params, port UNet) with the same non-zero random weights."""
+    params = nonzero(unet_init(jax.random.PRNGKey(seed), cfg), seed)
+    model = UNet2DConditionModel(port_config(cfg, TUNetConfig))
+    load_numpy_state_dict(model, unet_state_dict(params))
+    return params, model.eval()
+
+
+def vae_pair(cfg, seed: int):
+    params = nonzero(vae_init(jax.random.PRNGKey(seed), cfg), seed)
+    model = AutoencoderKL(port_config(cfg, TVAEConfig))
+    load_numpy_state_dict(model, vae_state_dict(params))
+    return params, model.eval()
+
+
+def image_proj_pair(seed: int, **kwargs):
+    params = nonzero(image_proj_mlp_init(jax.random.PRNGKey(seed), **kwargs),
+                     seed)
+    model = ImageProjModel(**kwargs)
+    load_numpy_state_dict(model, image_proj_state_dict(params))
+    return params, model.eval()
+
+
+def pose_proj_pair(seed: int, **kwargs):
+    params = nonzero(
+        pose_cond_embedding_init(jax.random.PRNGKey(seed), **kwargs), seed)
+    model = PoseCondEmbedding(**kwargs)
+    load_numpy_state_dict(model, pose_proj_state_dict(params))
+    return params, model.eval()
+
+
+def t(x):
+    """numpy -> CPU torch tensor."""
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def n(x):
+    """torch tensor or jax array -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)

@@ -1,0 +1,54 @@
+"""The port stands alone: no module of ``pcdms_tpu_torch`` (nor
+``chip_smoke.py``) imports JAX, Flax, Optax or the JAX package, and the
+package never calls ``scaled_dot_product_attention`` or ``torch.compile``
+(library kernels are not ports of the repository's kernels)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "pcdms_tpu_torch"
+FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pcdms_tpu")
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def _called_names(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            f = node.func
+            if isinstance(f, ast.Attribute):
+                yield f.attr
+                if isinstance(f.value, ast.Name):
+                    yield f"{f.value.id}.{f.attr}"
+            elif isinstance(f, ast.Name):
+                yield f.id
+
+
+def test_files_found():
+    assert len(FILES) > 15 and all(p.exists() for p in FILES)
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    tree = ast.parse(path.read_text(), str(path))
+    bad = [m for m in _imports(tree)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_library_attention_or_compile(path):
+    tree = ast.parse(path.read_text(), str(path))
+    called = set(_called_names(tree))
+    assert not called & {"scaled_dot_product_attention", "torch.compile"}
