@@ -3,17 +3,36 @@
     python3 chip_smoke.py
 
 Phases, each reported on its own lines:
-  1. build the CUDA kernels from ``pcdms_tpu_torch/ops/csrc`` with nvcc;
-  2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (bf16, with f32 spot checks), and time the kernel,
-     the plain version, and ``scaled_dot_product_attention`` as a yardstick;
+  1. build the CUDA kernels from ``pcdms_tpu_torch/ops/csrc`` with nvcc (one
+     process per source, started together);
+  2. hold each forward kernel against its plain PyTorch version on the card
+     at the main path's shapes (bf16, with f32 spot checks), and time the
+     kernel, the plain version, and ``scaled_dot_product_attention`` as a
+     yardstick;
   3. one full-width stage-2 UNet forward (512x1024 canvas, one pair,
      CFG-doubled to 2, bf16, random weights) with the kernels and with plain
      attention, compared by the relative L2 error of eps;
-  4. the main path: ``stage2_generate`` at full width (DDIM 4 steps and
+  4. the sampler path: ``stage2_generate`` at full width (DDIM 4 steps and
      UniPC 3 steps at default routing, then DDIM 2 steps under
-     PCDMS_FROZEN_MAX=0 PCDMS_SHORTKV=pallas), with decode. Launch counters
-     are reset just before each run and read just after it.
+     PCDMS_FROZEN_MAX=0 PCDMS_SHORTKV=pallas), with decode;
+  5. the backward kernels (LSE forward, dq, dk/dv) against their plain
+     versions at the training shapes and a ragged one (bf16, one f32 spot
+     check), timed against the plain versions and SDPA's forward / backward;
+  6. one full-width UNet gradient (batch 1, 64x128 latents, bf16 compute,
+     f32 master weights) through the kernels and through plain attention:
+     relative L2 of the whole gradient and of level 0's to_q / to_k / to_v,
+     every trainable parameter's gradient finite, 15 launches of each
+     backward kernel;
+  7. the training path at full width (512x1024 canvas, batch 2, bf16,
+     lr 1e-4, warmup 1): from the random init, 5 steps on one batch with
+     fixed draws (the loss must fall); then, from the same init,
+     ``run_training`` with the stage-2 loss as ``cli/stage2_train.main``
+     calls it: 4 steps, 2 steps with ``remat``, and 7 steps with a
+     ``profile_dir`` trace of steps 3-6 (device time by kernel, busy
+     share);
+  8. ``cli/stage2_train.main`` at the tiny config on the card, 2 steps, then
+     resumed from its checkpoint to step 3.
+Launch counters are reset just before each path runs and read just after.
 
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with one record per kernel, and ``{"ok": true, "device": ...}``.
@@ -23,12 +42,15 @@ CUDA and the repository beside it; it imports nothing of JAX.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import gc
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -58,11 +80,32 @@ BAR_REL, BAR_F32 = 1e-2, 2e-5
 # that is wrong on any one layer.
 BAR_UNET_REL_L2 = 5e-2
 
-SOURCE = "pcdms_tpu_torch/ops/csrc/flash_attention.cu"
-KERNELS = {
-    "flash_frozen": "pcdms_tpu/ops/flash_attention.py:154",
-    "flash_online": "pcdms_tpu/ops/flash_attention.py:71",
-    "flash_shortkv": "pcdms_tpu/ops/flash_attention.py:316",
+# backward kernels vs plain versions, each bar scaled to its output: bf16
+# dq / dk / dv max abs error <= 1e-2 x max|plain| (one bf16 ulp, as above)
+# and relative L2 <= 5e-3 (measured about 5e-4; a kernel that drops one of
+# the 128 k or q tiles at level 0 is off by about sqrt(1/128) = 9e-2);
+# f32 max abs error <= 2e-5 x max|plain|; the LSE (f32 in both cases) max
+# abs error <= 1e-4 x max|plain|.
+BAR_BWD_REL_L2, BAR_F32_REL, BAR_LSE_REL = 5e-3, 2e-5, 1e-4
+# the full-width UNet gradient, kernels vs plain attention (relative L2)
+BAR_GRAD_REL_L2 = 5e-2
+# (B*H, Lq, Lk) of the training self-attention, batch 2 at 512x1024
+TRAIN_SHAPES = PATH_SHAPES + [(10, 640, 600)]
+
+CSRC = "pcdms_tpu_torch/ops/csrc/"
+KERNELS = {   # name -> (source, TPU kernel it replaces)
+    "flash_frozen": (CSRC + "flash_attention.cu",
+                     "pcdms_tpu/ops/flash_attention.py:154"),
+    "flash_online": (CSRC + "flash_attention.cu",
+                     "pcdms_tpu/ops/flash_attention.py:71"),
+    "flash_shortkv": (CSRC + "flash_attention.cu",
+                      "pcdms_tpu/ops/flash_attention.py:316"),
+    "flash_fwd_lse": (CSRC + "flash_attention.cu",
+                      "pcdms_tpu/ops/flash_attention_bwd.py:53"),
+    "flash_dq": (CSRC + "flash_attention_bwd.cu",
+                 "pcdms_tpu/ops/flash_attention_bwd.py:154"),
+    "flash_dkv": (CSRC + "flash_attention_bwd.cu",
+                  "pcdms_tpu/ops/flash_attention_bwd.py:190"),
 }
 
 
@@ -84,24 +127,28 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(bh: int, lq: int, lk: int, d: int = 64, itemsize: int = 2):
-    """Least time for the function on an H100 SXM: bytes (q, k, v read
-    once, o written once) over HBM rate vs bf16 flops over the tensor-core
-    peak. Returns (ms, 'bytes' | 'operations')."""
-    nbytes = (2 * bh * lq * d + 2 * bh * lk * d) * itemsize
-    flops = 4 * bh * lq * lk * d
+def bound(flops: float, nbytes: float):
+    """Least time on an H100 SXM: bytes over the HBM rate vs bf16 flops over
+    the tensor-core peak. Returns (ms, 'bytes' | 'operations')."""
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations")
 
 
+def bound_ms(bh: int, lq: int, lk: int, d: int = 64, itemsize: int = 2):
+    """The attention forward: q, k, v read once, o written once; 4.Lq.Lk.d
+    flops per (batch, head)."""
+    return bound(4 * bh * lq * lk * d,
+                 (2 * bh * lq * d + 2 * bh * lk * d) * itemsize)
+
+
 def phase_build():
     from pcdms_tpu_torch.ops import _build
-    seconds = _build.build()
-    print(f"[build] flash_attention.cu: {seconds:.1f} s (nvcc, sm_90a)")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    for stem, seconds in _build.build().items():
+        print(f"[build] {stem}.cu: {seconds:.1f} s (nvcc, sm_90a)")
+        for line in _build.build_log(stem).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build]   {line.strip()}")
 
 
 def phase_kernels(fa):
@@ -312,10 +359,345 @@ def phase_pipeline(fa, models, dev):
     finally:
         for h in hooks:
             h.remove()
-    for name in KERNELS:
+    for name in ("flash_frozen", "flash_online", "flash_shortkv"):
         if not launches.get(name):
-            fail(f"kernel {name} was not launched on the main path")
+            fail(f"kernel {name} was not launched on the sampler path")
     return launches
+
+
+def _max_rel(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def phase_bwd_kernels(fb):
+    """Kernels 4-6 vs their plain versions on the same inputs, timed at the
+    three training levels; returns the level-0 records for the JSON
+    line."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    records = {}
+
+    def check(bh, lq, lk, dtype, timed, record=False):
+        q, k, v, do = (torch.randn((bh, n, 64), generator=gen, device=dev)
+                       .to(dtype) for n in (lq, lk, lk, lq))
+        scale = 1.0 / math.sqrt(64)
+        out, lse2 = fb.flash_fwd_lse(q, k, v, scale)
+        dq, dk, dv = fb.flash_bwd(q, k, v, out, lse2, do, scale)
+        torch.cuda.synchronize()
+        dsum = fb.row_dot(do, out)
+        p_out, p_lse2 = fb.flash_fwd_lse_plain(q, k, v, scale)
+        p_dq = fb.flash_dq_plain(q, k, v, lse2, do, dsum, scale)
+        p_dk, p_dv = fb.flash_dkv_plain(q, k, v, lse2, do, dsum, scale)
+        bf16 = dtype == torch.bfloat16
+        tag = "bf16" if bf16 else "f32"
+        bars = {"out": (1e-2 if bf16 else BAR_F32_REL, None),
+                "lse": (BAR_LSE_REL, None)}
+        for name in ("dq", "dk", "dv"):
+            bars[name] = ((1e-2, BAR_BWD_REL_L2) if bf16
+                          else (BAR_F32_REL, None))
+        pairs = {"out": (out, p_out), "lse": (lse2, p_lse2), "dq": (dq, p_dq),
+                 "dk": (dk, p_dk), "dv": (dv, p_dv)}
+        errs, parts, ok = {}, [], True
+        for name, (got, want) in pairs.items():
+            mr, l2 = _max_rel(got, want), _rel_l2(got, want)
+            errs[name] = (got.float() - want.float()).abs().max().item()
+            bar_max, bar_l2 = bars[name]
+            ok &= bool(torch.isfinite(got).all()) and mr <= bar_max and (
+                bar_l2 is None or l2 <= bar_l2)
+            parts.append(f"{name} max_abs_err={errs[name]:.3e} "
+                         f"err/max|want|={mr:.2e} (bar {bar_max:g}) "
+                         f"rel_l2={l2:.2e}"
+                         + (f" (bar {bar_l2:g})" if bar_l2 else ""))
+        print(f"[bwd] {tag} bh={bh} lq={lq} lk={lk}: " + "; ".join(parts),
+              flush=True)
+        if not ok:
+            fail(f"backward kernels disagree with their plain versions at "
+                 f"{tag} bh={bh} lq={lq} lk={lk}")
+        if not timed:
+            return
+        d = 64
+        fwd_ms = cuda_ms(lambda: fb.flash_fwd_lse(q, k, v, scale), 10)
+        dq_ms = cuda_ms(lambda: fb.launch_dq(q, k, v, lse2, do, dsum, scale),
+                        10)
+        dkv_ms = cuda_ms(
+            lambda: fb.launch_dkv(q, k, v, lse2, do, dsum, scale), 10)
+        bwd_ms = cuda_ms(lambda: fb.flash_bwd(q, k, v, out, lse2, do, scale),
+                         10)
+        plain_fwd = cuda_ms(lambda: fb.flash_fwd_lse_plain(q, k, v, scale),
+                            2, 1)
+        plain_dq = cuda_ms(
+            lambda: fb.flash_dq_plain(q, k, v, lse2, do, dsum, scale), 2, 1)
+        plain_dkv = cuda_ms(
+            lambda: fb.flash_dkv_plain(q, k, v, lse2, do, dsum, scale), 2, 1)
+        q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_fwd = cuda_ms(lambda: sdpa(q4, k4, v4), 10)
+        lib_fwd_bwd = cuda_ms(lambda: sdpa(q4, k4, v4).backward(do[None]), 10)
+        lib_bwd = lib_fwd_bwd - lib_fwd
+        pair = 2 * bh * lq * lk * d           # flops of one L_q x L_k x d mm
+        io = 2 * (bh * lq * d + bh * lk * d)  # bytes of one q-sized + k-sized
+        rows = {
+            "flash_fwd_lse": (fwd_ms, plain_fwd, lib_fwd,
+                              bound(2 * pair, io * 2 + 4 * bh * lq),
+                              errs["out"]),
+            "flash_dq": (dq_ms, plain_dq, lib_bwd,
+                         bound(3 * pair, 2 * (3 * bh * lq * d + 2 * bh * lk
+                                              * d) + 8 * bh * lq),
+                         errs["dq"]),
+            "flash_dkv": (dkv_ms, plain_dkv, lib_bwd,
+                          bound(4 * pair, 2 * (2 * bh * lq * d + 4 * bh * lk
+                                               * d) + 8 * bh * lq),
+                          max(errs["dk"], errs["dv"])),
+        }
+        for name, (ms, plain_ms, lib_ms, (b_ms, b_by), err) in rows.items():
+            if record:
+                records[name] = dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=lib_ms)
+            print(f"[bwd]   {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
+                  f" library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})",
+                  flush=True)
+        both, both_by = bound(5 * pair, 4 * io)
+        print(f"[bwd]   flash_bwd (D + dq + dk/dv): kernel_ms={bwd_ms:.4f} "
+              f"vs SDPA backward (fwd+bwd {lib_fwd_bwd:.4f} - fwd "
+              f"{lib_fwd:.4f}) = {lib_bwd:.4f}; bound_ms={both:.4f} "
+              f"({both_by}, 5 products)", flush=True)
+
+    for i, (bh, lq, lk) in enumerate(TRAIN_SHAPES):
+        check(bh, lq, lk, torch.bfloat16, timed=(bh, lq, lk) in PATH_SHAPES,
+              record=i == 0)
+        torch.cuda.empty_cache()
+    check(2, 640, 600, torch.float32, timed=False)
+    return records
+
+
+def phase_unet_grad(fa, dev):
+    """One loss and one backward of the full-width UNet (f32 master weights,
+    bf16 compute) through the kernels, then through plain attention."""
+    from pcdms_tpu_torch.models.unet2d import (
+        UNet2DConditionModel, stage2_unet_config,
+    )
+    torch.manual_seed(SEED)
+    with torch.device(dev):
+        unet = UNet2DConditionModel(stage2_unet_config())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    bf = torch.bfloat16
+    sample, pose = rand(1, 64, 128, 9).to(bf), rand(1, 64, 128, 320).to(bf)
+    ctx, labels = rand(1, 258, 1024).to(bf), rand(1, 1024).to(bf)
+    target, ts = rand(1, 64, 128, 4), torch.tensor([500], device=dev)
+
+    def grads(use_flash):
+        unet.cfg = dataclasses.replace(unet.cfg, use_flash=use_flash)
+        unet.zero_grad(set_to_none=True)
+        eps = unet(sample, ts, ctx, labels, pose)
+        loss = torch.mean(torch.square(eps.float() - target))
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {n: p.grad for n, p in unet.named_parameters()}
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    loss_k, g_k = grads(True)
+    k_s = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    missing = [n for n, g in g_k.items()
+               if g is None or not bool(torch.isfinite(g).all())]
+    loss_p, g_p = grads(False)
+    num = sum((g_k[n].float() - g_p[n].float()).square().sum() for n in g_p)
+    den = sum(g_p[n].float().square().sum() for n in g_p)
+    rel = (num.sqrt() / den.sqrt()).item()
+    level0 = "down_blocks.0.attentions.0.transformer_blocks.0.attn1."
+    rels = {w: _rel_l2(g_k[level0 + w + ".weight"], g_p[level0 + w
+                                                          + ".weight"])
+            for w in ("to_q", "to_k", "to_v")}
+    print(f"[grad] stage2 UNet 64x128 latents batch 1 bf16 / f32 weights: "
+          f"loss kernels {loss_k:.6f} plain {loss_p:.6f}; gradient rel_l2 "
+          f"{rel:.3e} (bar {BAR_GRAD_REL_L2:g}); level-0 attn1 "
+          + " ".join(f"{w} {r:.3e}" for w, r in rels.items())
+          + f"; {len(g_k)} parameters, {len(missing)} without a finite "
+          f"gradient; launches {launches}; loss+backward {k_s:.2f} s "
+          f"(first call)", flush=True)
+    if missing:
+        fail(f"parameters without a finite gradient: {missing[:5]}")
+    if not max([rel, *rels.values()]) <= BAR_GRAD_REL_L2:
+        fail("full-width UNet gradient: kernels disagree with plain "
+             "attention")
+    want = {"flash_fwd_lse": 15, "flash_dq": 15, "flash_dkv": 15}
+    if {n: c for n, c in launches.items() if c} != want:
+        fail(f"expected {want} launches for one UNet gradient, got "
+             f"{launches}")
+
+
+def phase_train(fa, dev):
+    """The training path at full width, as ``cli/stage2_train.main`` drives
+    it (without an output_dir: no 14 GB checkpoint). Returns the launches of
+    its first run."""
+    from pcdms_tpu_torch.cli import stage2_train as cli
+    from pcdms_tpu_torch.cli.common import (
+        compute_dtype_from_args, train_config_from_args,
+    )
+    from pcdms_tpu_torch.train.common import (
+        init_train_state, make_train_step,
+    )
+    from pcdms_tpu_torch.train.loop import device_batches, run_training
+    from pcdms_tpu_torch.train.stage2 import stage2_loss_fn
+
+    args = cli.parse_args([
+        "--output_dir", "unused", "--random_init", "--synthetic_data",
+        "--img_height", "512", "--img_width", "512", "--train_batch_size",
+        "2", "--learning_rate", "1e-4", "--lr_warmup_steps", "1",
+        "--mixed_precision", "bf16", "--seed", str(SEED)])
+    cli.check_supported(args)
+    _, trainable, vae, aux = cli.build_models(args, dev)
+    loss_fn = stage2_loss_fn(vae, noise_offset=args.noise_offset,
+                             compute_dtype=compute_dtype_from_args(args))
+    tcfg = train_config_from_args(args)
+    n_params = sum(p.numel() for m in trainable.values()
+                   for p in m.parameters())
+    print(f"[train] stage-2 full width: {n_params / 1e6:.1f}M trainable "
+          f"parameters (f32), VAE frozen, batch {args.train_batch_size} at "
+          f"{args.img_height}x{2 * args.img_width}, bf16", flush=True)
+
+    def drive(label, steps, lse_per_step):
+        rows = []
+
+        def on_step(step, metrics):
+            loss = metrics["loss"].item()     # waits for the step
+            rows.append((step, loss, metrics["grad_norm"].item(),
+                         time.perf_counter()))
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        state = run_training(loss_fn, trainable, cli.synthetic_batches(
+            args, aux), tcfg, device=dev, seed=args.seed,
+            max_train_steps=steps, log_every=args.log_every,
+            on_step=on_step)
+        torch.cuda.synchronize()
+        counts = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del state
+        prev = t0
+        for step, loss, gnorm, t in rows:
+            print(f"[train] {label} step {step}: loss {loss:.5f} grad_norm "
+                  f"{gnorm:.4f} {t - prev:.3f} s/step "
+                  f"{args.train_batch_size / (t - prev):.3f} examples/s",
+                  flush=True)
+            prev = t
+        print(f"[train] {label}: {steps} steps, peak {peak:.2f} GiB, "
+              f"launches {counts}", flush=True)
+        want = {"flash_fwd_lse": lse_per_step * steps,
+                "flash_dq": 15 * steps, "flash_dkv": 15 * steps}
+        if len(rows) != steps or not all(math.isfinite(r[1]) and
+                                         math.isfinite(r[2]) for r in rows):
+            fail(f"{label}: expected {steps} finite steps, got {rows}")
+        if {n: c for n, c in counts.items() if c} != want:
+            fail(f"{label}: expected launches {want}, got {counts}")
+        return counts, peak
+
+    # first, from the random init: one batch, the same draws every step
+    # (the loss must fall); the runs below start from the same init
+    init = {k: copy.deepcopy(m.state_dict()) for k, m in trainable.items()}
+    state = init_train_state(trainable, tcfg)
+    step_fn = make_train_step(loss_fn, tcfg)
+    batch = next(device_batches(cli.synthetic_batches(args, aux), dev))
+    losses = [step_fn(state, batch, torch.Generator(device=dev).manual_seed(
+        SEED))["loss"].item() for _ in range(5)]
+    print(f"[train] fixed batch and draws, 5 steps (the first update has lr "
+          f"0): losses {[round(x, 6) for x in losses]}", flush=True)
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        fail("training on a fixed batch did not lower the loss")
+    del state, batch
+    for k, m in trainable.items():
+        m.load_state_dict(init[k])
+    del init
+
+    launches, peak = drive("run_training", 4, 15)
+    unet = trainable["unet"]
+    unet.cfg = dataclasses.replace(unet.cfg, remat=True)
+    _, peak_remat = drive("run_training remat", 2, 30)
+    unet.cfg = dataclasses.replace(unet.cfg, remat=False)
+    print(f"[train] peak memory without / with remat: {peak:.2f} / "
+          f"{peak_remat:.2f} GiB", flush=True)
+    profile_window(run_training, loss_fn, trainable, cli, args, aux, tcfg,
+                   dev)
+    del trainable, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: c for n, c in launches.items() if c}
+
+
+def profile_window(run_training, loss_fn, trainable, cli, args, aux, tcfg,
+                   dev):
+    """``run_training``'s ``profile_dir`` trace of steps 3-6 (7 steps):
+    device time by kernel, and the device's busy share of the window."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_training(loss_fn, trainable, cli.synthetic_batches(args, aux),
+                     tcfg, device=dev, seed=args.seed, max_train_steps=7,
+                     log_every=args.log_every, profile_dir=tmp)
+        torch.cuda.synchronize()
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                     if e.get("cat") == "kernel" and "dur" in e)
+    if not kernels:
+        fail("the profiler trace holds no device kernels")
+    by_name, busy, end = {}, 0.0, kernels[0][0]
+    for t0, t1, name in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    window = (end - kernels[0][0]) / 1e3
+    total = sum(by_name.values()) / 1e3
+    flash = sum(v for k, v in by_name.items() if "flash_" in k) / 1e3
+    print(f"[profile] steps 3-6 of run_training (torch.profiler, "
+          f"profile_dir): {len(kernels)} kernels, window {window:.1f} ms "
+          f"({window / 4:.1f} ms/step), device busy {busy / 1e3:.1f} ms = "
+          f"{busy / 1e3 / window:.1%}, kernel time {total:.1f} ms, of which "
+          f"the flash kernels {flash:.1f} ms ({flash / total:.1%})",
+          flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[profile]   {us / 1e3:9.2f} ms {us / 1e3 / total:6.1%}  "
+              f"{name[:110]}", flush=True)
+
+
+def phase_cli():
+    """``cli/stage2_train.main`` on the card at the tiny config: 2 steps,
+    then resumed from its checkpoint to step 3."""
+    from pcdms_tpu_torch.cli.stage2_train import main as train_main
+    from pcdms_tpu_torch.train.checkpoint import latest_step
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--tiny_config", "--synthetic_data", "--random_init",
+                "--output_dir", tmp, "--img_height", "64", "--img_width",
+                "64", "--train_batch_size", "2", "--lr_warmup_steps", "1",
+                "--log_every", "1"]
+        first = train_main(argv + ["--max_train_steps", "2"]).step
+        saved = latest_step(tmp)
+        state = train_main(argv + ["--max_train_steps", "3",
+                                   "--resume_from_checkpoint"])
+        on_card = state.params[0].is_cuda
+        print(f"[cli] stage2_train --tiny_config on the card: {first} steps "
+              f"(checkpoint {saved}), resumed to {state.step} (checkpoint "
+              f"{latest_step(tmp)}), parameters on CUDA: {on_card}",
+              flush=True)
+        if (first, saved, state.step, latest_step(tmp), on_card) != (
+                2, 2, 3, 3, True):
+            fail("the trainer CLI did not train and resume on the card")
 
 
 def main() -> int:
@@ -323,13 +705,14 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from pcdms_tpu_torch.ops import flash_attention as fa
+    from pcdms_tpu_torch.ops import flash_attention_bwd as fb
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     print(f"[setup] torch {torch.__version__} cuda {torch.version.cuda} "
-          f"on {name}; TF32 off for matmul and cuDNN (reference side)",
+          f"on {device_name}; TF32 off for matmul and cuDNN (reference side)",
           flush=True)
     t0 = time.perf_counter()
     phase_build()
@@ -337,6 +720,16 @@ def main() -> int:
     models = build_models(dev)
     phase_unet(fa, models, dev)
     launches = phase_pipeline(fa, models, dev)
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    records.update(phase_bwd_kernels(fb))
+    phase_unet_grad(fa, dev)
+    launches.update(phase_train(fa, dev))
+    phase_cli()
+    for kernel in KERNELS:
+        if not launches.get(kernel):
+            fail(f"kernel {kernel} was not launched on its path")
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
 
     smi = subprocess.run(
@@ -345,10 +738,11 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi)
     print(json.dumps({"kernels": [
-        dict(name=k, route="cuda", source=SOURCE, replaces=KERNELS[k],
-             launches=launches[k], **records[k]) for k in KERNELS]}))
+        dict(name=k, route="cuda", source=src, replaces=tpu,
+             launches=launches[k], **records[k])
+        for k, (src, tpu) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -1,0 +1,124 @@
+"""Shared CLI plumbing, training part (counterpart of
+``pcdms_tpu/cli/common.py``): the reference's trainer flags, the
+``TrainConfig`` they make, the compute dtype, and the port's own copy of the
+tiny stage-2 geometry (``--tiny_config``)."""
+
+from __future__ import annotations
+
+import argparse
+import logging
+from types import SimpleNamespace
+
+import torch
+
+
+def setup_logging():
+    logging.basicConfig(
+        format="%(asctime)s - %(levelname)s - %(name)s - %(message)s",
+        datefmt="%m/%d/%Y %H:%M:%S", level=logging.INFO)
+
+
+def add_common_train_flags(p: argparse.ArgumentParser):
+    p.add_argument("--pretrained_model_name_or_path", type=str, default=None,
+                   help="local SD-2.1 model dir (not ported yet: pass "
+                        "--random_init)")
+    p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--img_height", type=int, default=512)
+    p.add_argument("--img_width", type=int, default=512)
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--train_batch_size", type=int, default=8)
+    p.add_argument("--max_train_steps", type=int, default=1_000_000)
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    p.add_argument("--checkpointing_steps", type=int, default=5000)
+    p.add_argument("--noise_offset", type=float, default=0.1)
+    p.add_argument("--lr_warmup_steps", type=int, default=5000)
+    p.add_argument("--lr_scheduler", type=str,
+                   default="constant_with_warmup")
+    p.add_argument("--max_grad_norm", type=float, default=1.0)
+    p.add_argument("--adam_beta1", type=float, default=0.9)
+    p.add_argument("--adam_beta2", type=float, default=0.999)
+    p.add_argument("--adam_weight_decay", type=float, default=1e-2)
+    p.add_argument("--adam_epsilon", type=float, default=1e-8)
+    p.add_argument("--mixed_precision", type=str, default="bf16",
+                   choices=["no", "fp16", "bf16"],
+                   help="fp16 is accepted for flag parity; bf16 is used")
+    p.add_argument("--resume_from_checkpoint", action="store_true")
+    p.add_argument("--gradient_checkpointing", action="store_true",
+                   help="rematerialise UNet blocks in the backward pass")
+    p.add_argument("--json_path", type=str, default=None)
+    p.add_argument("--synthetic_data", action="store_true",
+                   help="train on random tensors of the right shapes "
+                        "(the only data path ported so far)")
+    p.add_argument("--image_root_path", type=str, default="")
+    p.add_argument("--report_to", type=str, default=None,
+                   help="metrics sink (not ported yet)")
+    p.add_argument("--zero1", action="store_true",
+                   help="shard optimizer state (not ported yet)")
+    p.add_argument("--use_ema", action="store_true",
+                   help="track an EMA of the trainable params, "
+                        "checkpointed and exported by load_trained_params")
+    p.add_argument("--ema_decay", type=float, default=0.9999)
+    p.add_argument("--dcn_slices", type=int, default=1,
+                   help="multi-slice training (not ported yet; must be 1)")
+    p.add_argument("--random_init", action="store_true",
+                   help="random-init all models (no local checkpoints)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of steps 3-6 here")
+    p.add_argument("--dataloader_num_workers", type=int, default=-1)
+    p.add_argument("--frozen_dir", type=str, default=None,
+                   help="frozen-encoder bundle dir (train/frozen.py): load "
+                        "the VAE from it if it exists, else save the built "
+                        "one there")
+    p.add_argument("--cache_embeddings", type=str, default=None,
+                   help="frozen-encoder embedding cache (not ported yet)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cuda' (default; raises without a card) or 'cpu'")
+
+
+def train_config_from_args(args):
+    from pcdms_tpu_torch.train.common import TrainConfig
+    return TrainConfig(
+        learning_rate=args.learning_rate,
+        adam_beta1=args.adam_beta1,
+        adam_beta2=args.adam_beta2,
+        adam_weight_decay=args.adam_weight_decay,
+        adam_epsilon=args.adam_epsilon,
+        max_grad_norm=args.max_grad_norm,
+        lr_warmup_steps=args.lr_warmup_steps,
+        max_train_steps=args.max_train_steps,
+        lr_scheduler=args.lr_scheduler,
+        gradient_accumulation_steps=args.gradient_accumulation_steps,
+        noise_offset=args.noise_offset,
+        use_ema=args.use_ema,
+        ema_decay=args.ema_decay,
+    )
+
+
+def compute_dtype_from_args(args) -> torch.dtype:
+    return torch.float32 if args.mixed_precision == "no" else torch.bfloat16
+
+
+def tiny_configs() -> SimpleNamespace:
+    """Tiny stage-2 geometry for ``--tiny_config`` (the JAX package's
+    ``tiny_configs`` for the parts stage-2 training uses): CPU smoke runs of
+    the full CLI path without SD-2.1-scale models."""
+    from pcdms_tpu_torch.models.unet2d import UNetConfig
+    from pcdms_tpu_torch.models.vae import VAEConfig
+
+    def unet2(with_class_embed=True):
+        return UNetConfig(
+            in_channels=9, block_out_channels=(8, 16, 16, 16),
+            layers_per_block=1, cross_attention_dim=16, head_dim=8,
+            class_embed_proj_dim=16 if with_class_embed else None,
+            norm_groups=4, use_flash=False)
+
+    return SimpleNamespace(
+        unet2=unet2,
+        vae=VAEConfig(block_out_channels=(4, 8, 8, 8), layers_per_block=1,
+                      norm_groups=2),
+        image_proj_kwargs=dict(in_dim=24, hidden_dim=16, out_dim=16),
+        pose_proj_kwargs=dict(out_channels=8,
+                              block_out_channels=(4, 4, 4, 4)),
+        dino_tokens=5, dino_dim=24, clip_dim=16,
+    )

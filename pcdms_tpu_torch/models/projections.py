@@ -16,7 +16,7 @@ from typing import Tuple
 
 import torch.nn as nn
 
-from pcdms_tpu_torch.nn.layers import LayerNorm, gelu, silu
+from pcdms_tpu_torch.nn.layers import Conv2d, LayerNorm, Linear, gelu, silu
 
 
 class ImageProjModel(nn.Module):
@@ -25,8 +25,8 @@ class ImageProjModel(nn.Module):
         super().__init__()
         # indices follow Sequential(Linear, GELU, Dropout, LayerNorm, Linear)
         self.net = nn.ModuleList([
-            nn.Linear(in_dim, hidden_dim), nn.Identity(), nn.Identity(),
-            LayerNorm(hidden_dim), nn.Linear(hidden_dim, out_dim)])
+            Linear(in_dim, hidden_dim), nn.Identity(), nn.Identity(),
+            LayerNorm(hidden_dim), Linear(hidden_dim, out_dim)])
 
     def forward(self, x):
         return self.net[4](self.net[3](gelu(self.net[0](x))))
@@ -37,15 +37,15 @@ class PoseCondEmbedding(nn.Module):
                  block_out_channels: Tuple[int, ...] = (16, 32, 96, 256),
                  in_channels: int = 3):
         super().__init__()
-        self.conv_in = nn.Conv2d(in_channels, block_out_channels[0], 3,
+        self.conv_in = Conv2d(in_channels, block_out_channels[0], 3,
                                  padding=1)
         blocks = []
         for i in range(len(block_out_channels) - 1):
             cin, cout = block_out_channels[i], block_out_channels[i + 1]
-            blocks.append(nn.Conv2d(cin, cin, 3, padding=1))
-            blocks.append(nn.Conv2d(cin, cout, 3, padding=1, stride=2))
+            blocks.append(Conv2d(cin, cin, 3, padding=1))
+            blocks.append(Conv2d(cin, cout, 3, padding=1, stride=2))
         self.blocks = nn.ModuleList(blocks)
-        self.conv_out = nn.Conv2d(block_out_channels[-1], out_channels, 3,
+        self.conv_out = Conv2d(block_out_channels[-1], out_channels, 3,
                                   padding=1)
         nn.init.zeros_(self.conv_out.weight)
         nn.init.zeros_(self.conv_out.bias)

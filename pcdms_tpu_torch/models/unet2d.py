@@ -15,9 +15,10 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from pcdms_tpu_torch.nn.layers import (
-    GroupNorm, TimestepEmbedding, silu, timestep_sinusoidal_embedding,
+    Conv2d, GroupNorm, TimestepEmbedding, silu, timestep_sinusoidal_embedding,
 )
 from pcdms_tpu_torch.nn.unet_blocks import DownBlock, MidBlock, UpBlock
 
@@ -35,8 +36,10 @@ class UNetConfig:
     class_embed_proj_dim: Optional[int] = None   # 1024 for stage-2
     norm_groups: int = 32
     use_flash: bool = True
-    # the options below are not ported yet; the model raises if set
+    # rematerialise each down / mid / up block in the backward pass
+    # (torch.utils.checkpoint, the counterpart of jax.checkpoint)
     remat: bool = False
+    # the options below are not ported yet; the model raises if set
     freeu: Optional[Tuple[float, float, float, float]] = None
     time_cond_proj_dim: Optional[int] = None
     fused_conv: bool = False
@@ -60,8 +63,7 @@ def stage3_unet_config() -> UNetConfig:
 
 
 def _check_supported(cfg: UNetConfig) -> None:
-    for name, off in (("remat", False), ("freeu", None),
-                      ("fused_conv", False)):
+    for name, off in (("freeu", None), ("fused_conv", False)):
         if getattr(cfg, name) != off:
             raise NotImplementedError(
                 f"UNetConfig.{name} is not ported to pcdms_tpu_torch yet")
@@ -81,7 +83,7 @@ class UNet2DConditionModel(nn.Module):
         if cfg.class_embed_proj_dim is not None:
             self.class_embedding = TimestepEmbedding(
                 cfg.class_embed_proj_dim, temb_dim)
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, ch0, 3, padding=1)
 
         down, in_ch = [], ch0
         for i, out_ch in enumerate(cfg.block_out_channels):
@@ -108,7 +110,7 @@ class UNet2DConditionModel(nn.Module):
             prev_ch = rev[i]
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = GroupNorm(groups, ch0, 1e-5)
-        self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
     def time_embed(self, timesteps, class_labels=None, timestep_cond=None,
                    dtype=torch.float32):
@@ -124,6 +126,12 @@ class UNet2DConditionModel(nn.Module):
             emb = emb + self.class_embedding(class_labels.to(dtype))
         return emb
 
+    def _block(self, block, *args, **kwargs):
+        """Run one UNet block, rematerialised under ``cfg.remat``."""
+        if self.cfg.remat:
+            return checkpoint(block, *args, use_reentrant=False, **kwargs)
+        return block(*args, **kwargs)
+
     def encode(self, sample, emb, ctx, pose_cond=None,
                zero_ctx_prefix: int = 0):
         """conv_in + pose map + down blocks + mid block (``unet_encode``).
@@ -134,11 +142,11 @@ class UNet2DConditionModel(nn.Module):
         flash = self.cfg.use_flash
         skips = [x]
         for block in self.down_blocks:
-            x, block_skips = block(x, emb, ctx, use_flash=flash,
-                                   zero_ctx_prefix=zero_ctx_prefix)
+            x, block_skips = self._block(block, x, emb, ctx, use_flash=flash,
+                                         zero_ctx_prefix=zero_ctx_prefix)
             skips.extend(block_skips)
-        x = self.mid_block(x, emb, ctx, use_flash=flash,
-                           zero_ctx_prefix=zero_ctx_prefix)
+        x = self._block(self.mid_block, x, emb, ctx, use_flash=flash,
+                        zero_ctx_prefix=zero_ctx_prefix)
         return x, tuple(skips)
 
     def decode(self, x, skips, emb, ctx, zero_ctx_prefix: int = 0):
@@ -148,8 +156,9 @@ class UNet2DConditionModel(nn.Module):
             nres = len(block.resnets)
             block_skips = skips[-nres:]
             del skips[-nres:]
-            x = block(x, block_skips, emb, ctx, use_flash=self.cfg.use_flash,
-                      zero_ctx_prefix=zero_ctx_prefix)
+            x = self._block(block, x, block_skips, emb, ctx,
+                            use_flash=self.cfg.use_flash,
+                            zero_ctx_prefix=zero_ctx_prefix)
         x = self.conv_out(silu(self.conv_norm_out(x)))
         return x.permute(0, 2, 3, 1)
 

@@ -18,7 +18,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pcdms_tpu_torch.nn.layers import GroupNorm, silu, upsample2x_conv3x3
+from pcdms_tpu_torch.nn.layers import (
+    Conv2d, GroupNorm, Linear, silu, upsample2x_conv3x3,
+)
 from pcdms_tpu_torch.nn.unet_blocks import ResnetBlock2D
 
 SD_VAE_SCALING = 0.18215
@@ -41,10 +43,10 @@ class VAEAttention(nn.Module):
     def __init__(self, ch: int, groups: int):
         super().__init__()
         self.group_norm = GroupNorm(groups, ch, 1e-6)
-        self.to_q = nn.Linear(ch, ch)
-        self.to_k = nn.Linear(ch, ch)
-        self.to_v = nn.Linear(ch, ch)
-        self.to_out = nn.ModuleList([nn.Linear(ch, ch)])
+        self.to_q = Linear(ch, ch)
+        self.to_k = Linear(ch, ch)
+        self.to_v = Linear(ch, ch)
+        self.to_out = nn.ModuleList([Linear(ch, ch)])
 
     def forward(self, x):
         b, c, h, w = x.shape
@@ -75,7 +77,7 @@ class _Conv(nn.Module):
 
     def __init__(self, ch: int, stride: int = 1, padding: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, stride=stride, padding=padding)
+        self.conv = Conv2d(ch, ch, 3, stride=stride, padding=padding)
 
 
 class _VAEBlock(nn.Module):
@@ -91,7 +93,7 @@ class Encoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         chans, g = cfg.block_out_channels, cfg.norm_groups
-        self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, chans[0], 3, padding=1)
         blocks, in_ch = [], chans[0]
         for i, out_ch in enumerate(chans):
             block = _VAEBlock(in_ch, out_ch, cfg.layers_per_block, g)
@@ -103,7 +105,7 @@ class Encoder(nn.Module):
         self.down_blocks = nn.ModuleList(blocks)
         self.mid_block = VAEMidBlock(chans[-1], g)
         self.conv_norm_out = GroupNorm(g, chans[-1], 1e-6)
-        self.conv_out = nn.Conv2d(chans[-1], 2 * cfg.latent_channels, 3,
+        self.conv_out = Conv2d(chans[-1], 2 * cfg.latent_channels, 3,
                                   padding=1)
 
     def forward(self, x):
@@ -122,7 +124,7 @@ class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         rev, g = tuple(reversed(cfg.block_out_channels)), cfg.norm_groups
-        self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
         self.mid_block = VAEMidBlock(rev[0], g)
         blocks, in_ch = [], rev[0]
         for i, out_ch in enumerate(rev):
@@ -133,7 +135,7 @@ class Decoder(nn.Module):
             in_ch = out_ch
         self.up_blocks = nn.ModuleList(blocks)
         self.conv_norm_out = GroupNorm(g, rev[-1], 1e-6)
-        self.conv_out = nn.Conv2d(rev[-1], cfg.in_channels, 3, padding=1)
+        self.conv_out = Conv2d(rev[-1], cfg.in_channels, 3, padding=1)
 
     def forward(self, z):
         h = self.mid_block(self.conv_in(z))
@@ -151,9 +153,9 @@ class AutoencoderKL(nn.Module):
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
-        self.quant_conv = nn.Conv2d(2 * cfg.latent_channels,
+        self.quant_conv = Conv2d(2 * cfg.latent_channels,
                                     2 * cfg.latent_channels, 1)
-        self.post_quant_conv = nn.Conv2d(cfg.latent_channels,
+        self.post_quant_conv = Conv2d(cfg.latent_channels,
                                          cfg.latent_channels, 1)
 
     def encode_moments(self, x):

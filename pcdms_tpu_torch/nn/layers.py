@@ -1,7 +1,10 @@
 """Core layers (counterpart of ``pcdms_tpu/nn/layers.py``).
 
-Linear and Conv2d are ``torch.nn``'s own (weights (out, in) and OIHW, where
-the JAX package keeps (in, out) and HWIO; ``compat/from_jax.py`` transposes).
+Linear and Conv2d are ``torch.nn``'s own with one change: they cast their
+weight and bias to the input's dtype, as ``linear_apply`` / ``conv2d_apply``
+do, so f32 master weights train under bf16 compute and their gradients
+flow back through the cast (weights (out, in) and OIHW, where the JAX
+package keeps (in, out) and HWIO; ``compat/from_jax.py`` transposes).
 Convolutions run NCHW inside the modules. The normalisations compute their
 statistics in f32 whatever the input dtype and cast back, as the JAX layers
 do, and GroupNorm uses the same single-pass variance with its clamp at 0.
@@ -15,6 +18,24 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+def _as(t, x):
+    return None if t is None else t.to(x.dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in the input's dtype (``linear_apply``)."""
+
+    def forward(self, x):
+        return F.linear(x, _as(self.weight, x), _as(self.bias, x))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in the input's dtype (``conv2d_apply``)."""
+
+    def forward(self, x):
+        return self._conv_forward(x, _as(self.weight, x), _as(self.bias, x))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -93,10 +114,10 @@ class TimestepEmbedding(nn.Module):
                  out_dim: Optional[int] = None,
                  cond_proj_dim: Optional[int] = None):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, out_dim or time_embed_dim)
+        self.linear_1 = Linear(in_dim, time_embed_dim)
+        self.linear_2 = Linear(time_embed_dim, out_dim or time_embed_dim)
         if cond_proj_dim is not None:
-            self.cond_proj = nn.Linear(cond_proj_dim, in_dim, bias=False)
+            self.cond_proj = Linear(cond_proj_dim, in_dim, bias=False)
 
     def forward(self, x, condition=None):
         if condition is not None and hasattr(self, "cond_proj"):
@@ -104,7 +125,7 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(silu(self.linear_1(x)))
 
 
-def upsample2x_conv3x3(conv: nn.Conv2d, x):
+def upsample2x_conv3x3(conv: Conv2d, x):
     """Nearest-2x upsample then a 3x3 'same' conv, NCHW. The JAX package
     evaluates the same function by output phases (``upsample2x_conv3x3``,
     ``pcdms_tpu/nn/layers.py:276``)."""

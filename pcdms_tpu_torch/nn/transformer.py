@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from pcdms_tpu_torch.nn.layers import LayerNorm, gelu
+from pcdms_tpu_torch.nn.layers import LayerNorm, Linear, gelu
 from pcdms_tpu_torch.ops.flash_attention import flash_attention_packed
 
 
@@ -26,10 +26,10 @@ class Attention(nn.Module):
         inner = heads * head_dim
         ctx = context_dim if context_dim is not None else query_dim
         self.heads = heads
-        self.to_q = nn.Linear(query_dim, inner, bias=qkv_bias)
-        self.to_k = nn.Linear(ctx, inner, bias=qkv_bias)
-        self.to_v = nn.Linear(ctx, inner, bias=qkv_bias)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.to_q = Linear(query_dim, inner, bias=qkv_bias)
+        self.to_k = Linear(ctx, inner, bias=qkv_bias)
+        self.to_v = Linear(ctx, inner, bias=qkv_bias)
+        self.to_out = nn.ModuleList([Linear(inner, query_dim)])
 
     def forward(self, x, context=None, use_flash: bool = True):
         ctx = x if context is None else context
@@ -45,7 +45,7 @@ class _Proj(nn.Module):
     def __init__(self, dim: int, inner: int, geglu: bool):
         super().__init__()
         self.geglu = geglu
-        self.proj = nn.Linear(dim, inner * 2 if geglu else inner)
+        self.proj = Linear(dim, inner * 2 if geglu else inner)
 
     def forward(self, x):
         h = self.proj(x)
@@ -62,7 +62,7 @@ class FeedForward(nn.Module):
         super().__init__()
         inner = dim * mult
         self.net = nn.ModuleList([_Proj(dim, inner, geglu), nn.Identity(),
-                                  nn.Linear(inner, dim)])
+                                  Linear(inner, dim)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))

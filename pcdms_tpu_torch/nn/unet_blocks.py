@@ -11,7 +11,9 @@ from typing import List, Optional
 import torch
 import torch.nn as nn
 
-from pcdms_tpu_torch.nn.layers import GroupNorm, silu, upsample2x_conv3x3
+from pcdms_tpu_torch.nn.layers import (
+    Conv2d, GroupNorm, Linear, silu, upsample2x_conv3x3,
+)
 from pcdms_tpu_torch.nn.transformer import BasicTransformerBlock
 
 
@@ -24,13 +26,13 @@ class ResnetBlock2D(nn.Module):
                  eps: float = 1e-5):
         super().__init__()
         self.norm1 = GroupNorm(groups, in_ch, eps)
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1)
         if temb_dim is not None:
-            self.time_emb_proj = nn.Linear(temb_dim, out_ch)
+            self.time_emb_proj = Linear(temb_dim, out_ch)
         self.norm2 = GroupNorm(groups, out_ch, eps)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1)
         if in_ch != out_ch:
-            self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1)
+            self.conv_shortcut = Conv2d(in_ch, out_ch, 1)
 
     def forward(self, x, temb=None):
         h = self.conv1(silu(self.norm1(x)))
@@ -50,12 +52,12 @@ class Transformer2DModel(nn.Module):
                  depth: int = 1, groups: int = 32):
         super().__init__()
         self.norm = GroupNorm(groups, ch, eps=1e-6)
-        self.proj_in = nn.Linear(ch, ch)
+        self.proj_in = Linear(ch, ch)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(ch, heads, head_dim,
                                   context_dim=context_dim, geglu=True)
             for _ in range(depth)])
-        self.proj_out = nn.Linear(ch, ch)
+        self.proj_out = Linear(ch, ch)
 
     def forward(self, x, context, use_flash: bool = True,
                 zero_ctx_prefix: int = 0):
@@ -72,7 +74,7 @@ class Transformer2DModel(nn.Module):
 class Downsample2D(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, stride=2, padding=1)
+        self.conv = Conv2d(ch, ch, 3, stride=2, padding=1)
 
     def forward(self, x):
         return self.conv(x)
@@ -81,7 +83,7 @@ class Downsample2D(nn.Module):
 class Upsample2D(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, padding=1)
+        self.conv = Conv2d(ch, ch, 3, padding=1)
 
     def forward(self, x):
         return upsample2x_conv3x3(self.conv, x)
@@ -167,7 +169,9 @@ class UpBlock(nn.Module):
     def forward(self, x, skips: List[torch.Tensor], temb, context,
                 use_flash: bool = True, zero_ctx_prefix: int = 0):
         for i, resnet in enumerate(self.resnets):
-            x = resnet(torch.cat([x, skips.pop()], dim=1), temb)
+            # last skip first; the list is left as it was (a rematerialised
+            # block runs twice on it)
+            x = resnet(torch.cat([x, skips[-1 - i]], dim=1), temb)
             if hasattr(self, "attentions"):
                 x = self.attentions[i](x, context, use_flash=use_flash,
                                        zero_ctx_prefix=zero_ctx_prefix)

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/flash_attention.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface and loaded with ``ctypes``. The
-build runs at first use, from the repository's sources only, into
-``build/`` at the repository root; the library's file name carries a hash
-of its source, so an edited source is rebuilt and a stale one never loads.
-Nothing here runs at import time.
+Each source under ``csrc/`` (``flash_attention.cu``: the forward kernels;
+``flash_attention_bwd.cu``: the backward kernels) is compiled by ``nvcc``
+for ``sm_90a`` into a shared library of its own with a plain C interface
+and loaded with ``ctypes``. The builds run at first use, all ``nvcc``
+processes started together, from the repository's sources only, into
+``build/`` at the repository root; a library's file name carries a hash of
+its source and of the shared headers, so an edited source is rebuilt and a
+stale one never loads. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -19,15 +21,23 @@ import subprocess
 import time
 from pathlib import Path
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry -> argtypes; every entry returns cudaGetLastError() as an int
+# source stem -> {C entry -> argtypes}; every entry returns
+# cudaGetLastError() as an int
 _ENTRIES = {
-    "pcdms_flash_frozen": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    "pcdms_flash_online": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
-    "pcdms_flash_shortkv": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "flash_attention": {
+        "pcdms_flash_frozen": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+        "pcdms_flash_online": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+        "pcdms_flash_shortkv": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+        "pcdms_flash_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    },
+    "flash_attention_bwd": {
+        "pcdms_flash_dq": [_P] * 7 + [_I, _I, _I, _F, _F, _I, _P],
+        "pcdms_flash_dkv": [_P] * 8 + [_I, _I, _I, _F, _F, _I, _P],
+    },
 }
 
 
@@ -41,48 +51,62 @@ def _nvcc() -> str:
     return found
 
 
-def _library_path() -> Path:
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{_SOURCE.stem}_{digest[:16]}.so"
+def _library_path(stem: str) -> Path:
+    digest = hashlib.sha256((_CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> float:
-    """Compile the library unless it is there. Returns the seconds the build
-    took (0.0 if it was cached). The compiler's report (registers, shared
-    memory, spills per kernel) is kept beside the library as ``.log``."""
-    lib = _library_path()
-    if lib.exists():
-        return 0.0
+def build() -> dict:
+    """Compile every library that is not there, all at once. Returns
+    {source stem: seconds its nvcc took (0.0 if cached)}. The compiler's
+    report (registers, shared memory, spills per kernel) is kept beside
+    each library as ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    procs, seconds = {}, {}
     start = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-         "-o", str(tmp), str(_SOURCE)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    seconds = time.perf_counter() - start
-    lib.with_suffix(".log").write_text(proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {_SOURCE.name}:\n{proc.stdout}")
-    os.replace(tmp, lib)   # atomic: a concurrent loader sees all or none
+    for stem in _ENTRIES:
+        lib = _library_path(stem)
+        seconds[stem] = 0.0
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs[stem] = (lib, tmp, subprocess.Popen(
+            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+             "-Xptxas=-v", "-o", str(tmp), str(_CSRC / f"{stem}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for stem, (lib, tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        seconds[stem] = time.perf_counter() - start
+        lib.with_suffix(".log").write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {stem}.cu:\n{out}")
+        else:
+            os.replace(tmp, lib)   # atomic: a concurrent loader sees all
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return seconds
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    build()
-    lib = ctypes.CDLL(str(_library_path()))
-    for entry, argtypes in _ENTRIES.items():
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded kernel library built from ``csrc/<stem>.cu``, built (with
+    the others) on first use."""
+    if not _library_path(stem).exists():
+        build()
+    lib = ctypes.CDLL(str(_library_path(stem)))
+    for entry, argtypes in _ENTRIES[stem].items():
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 
 
-def build_log() -> str:
-    path = _library_path().with_suffix(".log")
+def build_log(stem: str) -> str:
+    path = _library_path(stem).with_suffix(".log")
     return path.read_text() if path.exists() else ""
 
 

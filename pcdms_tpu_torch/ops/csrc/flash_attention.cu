@@ -1,4 +1,4 @@
-// Flash-attention forward for Hopper (sm_90a): three variants of one kernel.
+// Flash-attention forward for Hopper (sm_90a): four variants of one kernel.
 //
 // Replaces the Pallas TPU kernels of pcdms_tpu/ops/flash_attention.py:
 //   * FROZEN  -> _flash_kernel_frozen (l.154-204) with its XLA m0 prepass
@@ -10,6 +10,10 @@
 //                max / exp2 (PCDMS_EXP_BF16, l.122-133).
 //   * SHORTKV -> _shortkv_kernel (l.316-333): one-pass softmax with the exact
 //                row max; here a first pass over all (<= 384) keys finds it.
+// and of pcdms_tpu/ops/flash_attention_bwd.py:
+//   * ONLINE with an lse output -> _fwd_lse_kernel (l.53-92): the training
+//                forward, which also writes L = m + log2(l) per row for the
+//                backward kernels (flash_attention_bwd.cu).
 // All compute softmax(q.k^T * scale) . v over (B*H, L, 64), non-causal, in
 // the exp2 domain with f32 scores, f32 accumulators and an f32 row-sum; the
 // output is acc / max(l, 1e-30). Keys past kv_len are masked to -1e30.
@@ -39,81 +43,20 @@
 //
 // The plain-C entries return cudaGetLastError(); they never synchronise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kD = 64;             // head_dim
+using namespace pcdms;
+
 constexpr int kBlockQ = 64;        // q rows per block
-constexpr int kBlockK = 64;        // keys per shared-memory tile
-constexpr int kStride = kD + 8;    // padded bf16 row in shared memory
+constexpr int kBlockK = kTile;     // keys per shared-memory tile
 constexpr int kThreadsBf16 = 128;  // 4 warps x 16 q rows
 constexpr int kThreadsF32 = kBlockQ;
-constexpr float kNegInf = -1e30f;
 constexpr float kFrozenMargin = 24.0f;
 constexpr int kFrozenKeys = 128;
 
 enum Mode { kFrozen = 0, kOnline = 1, kShortKv = 2 };
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a . b, m16n8k16, bf16 inputs, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const __nv_bfloat16* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// the 4 lanes of a quad hold one accumulator row between them
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// rows [row0, row0 + kBlockK) of a (len, kD) bf16 matrix -> shared tile,
-// zero-filled past len (so masked keys multiply zeros, never garbage)
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int row0, int len) {
-  for (int c = threadIdx.x; c < kBlockK * (kD / 8); c += blockDim.x) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < len)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kD +
-                                            col);
-    *reinterpret_cast<uint4*>(dst + r * kStride + col) = val;
-  }
-}
 
 // One warp's 16 x 64 score tile, exp2 domain, masked past `limit`.
 // s[nt][e]: row g (e < 2) or g + 8 (e >= 2), key k0 + nt*8 + 2*t4 + (e & 1).
@@ -122,15 +65,10 @@ __device__ __forceinline__ void tile_scores(float s[8][4],
                                             const __nv_bfloat16* ks, int k0,
                                             int limit, float scale_log2,
                                             int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
+  const int t4 = lane & 3;
+  mma_abt(s, qa, ks, lane);
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      const __nv_bfloat16* p = ks + (nt * 8 + g) * kStride + kc * 16 + t4 * 2;
-      mma_bf16(s[nt], qa[kc], ld32(p), ld32(p + 8));
-    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
@@ -144,7 +82,8 @@ __global__ void __launch_bounds__(kThreadsBf16)
     flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o, int lq, int lk,
+                   __nv_bfloat16* __restrict__ o,
+                   float* __restrict__ lse, int lq, int lk,
                    float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * kStride];
   __shared__ __align__(16) __nv_bfloat16 vs[kBlockK * kStride];
@@ -161,14 +100,7 @@ __global__ void __launch_bounds__(kThreadsBf16)
 
   // Q as mma A fragments (16 rows x 64 d per warp), zero past lq
   uint32_t qa[4][4];
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const int c = kc * 16 + t4 * 2;
-    qa[kc][0] = live0 ? ld32(q + (size_t)r0 * kD + c) : 0u;
-    qa[kc][1] = live1 ? ld32(q + (size_t)r1 * kD + c) : 0u;
-    qa[kc][2] = live0 ? ld32(q + (size_t)r0 * kD + c + 8) : 0u;
-    qa[kc][3] = live1 ? ld32(q + (size_t)r1 * kD + c + 8) : 0u;
-  }
+  load_a_frags(qa, q, blockIdx.x * kBlockQ + warp * 16, lq, lane);
 
   float m[2] = {kNegInf, kNegInf};
   if (MODE != kOnline) {
@@ -251,32 +183,18 @@ __global__ void __launch_bounds__(kThreadsBf16)
       }
     }
     uint32_t pa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
-
-    // acc += P . V: B fragments of V (keys x d) via ldmatrix.trans, two
-    // 8-column d tiles per x4 load
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        uint32_t b[4];
-        const int key = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-        const int col = (dp * 2 + (lane >> 4)) * 8;
-        ldmatrix_x4_trans(b, vs + key * kStride + col);
-        mma_bf16(acc[2 * dp], pa[kk], b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], pa[kk], b[2], b[3]);
-      }
-    }
+    pack_a(pa, s);
+    mma_ab(acc, pa, vs, lane);   // acc += P . V
   }
 
   const float l0 = fmaxf(quad_sum(l[0]), 1e-30f);
   const float l1 = fmaxf(quad_sum(l[1]), 1e-30f);
+  if (lse != nullptr && t4 == 0) {
+    // per-row log2-sum-exp2 L = m + log2(l), which the backward reads
+    lse += (size_t)bh * lq;
+    if (live0) lse[r0] = m[0] + log2f(l0);
+    if (live1) lse[r1] = m[1] + log2f(l1);
+  }
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) {
     const int c = dt * 8 + t4 * 2;
@@ -289,24 +207,11 @@ __global__ void __launch_bounds__(kThreadsBf16)
   }
 }
 
-// rows [row0, row0 + kBlockK) of a (len, kD) f32 matrix -> shared tile
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              int row0, int len) {
-  for (int c = threadIdx.x; c < kBlockK * (kD / 4); c += blockDim.x) {
-    const int r = c >> 4, col = (c & 15) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < len)
-      val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * kD +
-                                             col);
-    *reinterpret_cast<float4*>(dst + r * kD + col) = val;
-  }
-}
-
 template <int MODE, bool EXP_BF16>
 __global__ void __launch_bounds__(kThreadsF32)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int lq,
-                  int lk, float scale_log2) {
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int lq, int lk, float scale_log2) {
   __shared__ __align__(16) float ks[kBlockK * kD];
   __shared__ __align__(16) float vs[kBlockK * kD];
 
@@ -381,12 +286,14 @@ __global__ void __launch_bounds__(kThreadsF32)
     const float ls = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int d = 0; d < kD; ++d) o[(size_t)row * kD + d] = acc[d] / ls;
+    if (lse != nullptr) lse[(size_t)bh * lq + row] = m + log2f(ls);
   }
 }
 
 template <int MODE, bool EXP_BF16>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int lq, int lk, float scale_log2, int is_bf16, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int lq, int lk, float scale_log2, int is_bf16,
+           void* stream) {
   const dim3 grid((lq + kBlockQ - 1) / kBlockQ, bh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
@@ -394,11 +301,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        lq, lk, scale_log2);
+        lse, lq, lk, scale_log2);
   else
     flash_fwd_f32<MODE, EXP_BF16><<<grid, kThreadsF32, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lq, lk,
+        static_cast<const float*>(v), static_cast<float*>(o), lse, lq, lk,
         scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
@@ -411,8 +318,8 @@ extern "C" int pcdms_flash_frozen(const void* q, const void* k, const void* v,
                                   void* o, int bh, int lq, int lk,
                                   float scale_log2, int is_bf16,
                                   void* stream) {
-  return launch<kFrozen, false>(q, k, v, o, bh, lq, lk, scale_log2, is_bf16,
-                                stream);
+  return launch<kFrozen, false>(q, k, v, o, nullptr, bh, lq, lk,
+                                scale_log2, is_bf16, stream);
 }
 
 extern "C" int pcdms_flash_online(const void* q, const void* k, const void* v,
@@ -420,16 +327,27 @@ extern "C" int pcdms_flash_online(const void* q, const void* k, const void* v,
                                   float scale_log2, int is_bf16, int exp_bf16,
                                   void* stream) {
   if (exp_bf16)
-    return launch<kOnline, true>(q, k, v, o, bh, lq, lk, scale_log2, is_bf16,
-                                 stream);
-  return launch<kOnline, false>(q, k, v, o, bh, lq, lk, scale_log2, is_bf16,
-                                stream);
+    return launch<kOnline, true>(q, k, v, o, nullptr, bh, lq, lk,
+                                 scale_log2, is_bf16, stream);
+  return launch<kOnline, false>(q, k, v, o, nullptr, bh, lq, lk,
+                                scale_log2, is_bf16, stream);
 }
 
 extern "C" int pcdms_flash_shortkv(const void* q, const void* k,
                                    const void* v, void* o, int bh, int lq,
                                    int lk, float scale_log2, int is_bf16,
                                    void* stream) {
-  return launch<kShortKv, false>(q, k, v, o, bh, lq, lk, scale_log2, is_bf16,
-                                 stream);
+  return launch<kShortKv, false>(q, k, v, o, nullptr, bh, lq, lk,
+                                 scale_log2, is_bf16, stream);
+}
+
+// The online variant that also writes lse (bh, lq) f32: the per-row
+// log2-sum-exp2 L = m + log2(l) of the exp2-domain scores (the training
+// forward, replacing _fwd_lse_kernel of pcdms_tpu/ops/flash_attention_bwd.py).
+extern "C" int pcdms_flash_fwd_lse(const void* q, const void* k,
+                                   const void* v, void* o, void* lse, int bh,
+                                   int lq, int lk, float scale_log2,
+                                   int is_bf16, void* stream) {
+  return launch<kOnline, false>(q, k, v, o, static_cast<float*>(lse), bh, lq,
+                                lk, scale_log2, is_bf16, stream);
 }

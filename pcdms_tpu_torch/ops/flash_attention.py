@@ -1,11 +1,13 @@
-"""Flash-attention forward: CUDA kernels, their plain versions, the router.
+"""Flash attention: forward CUDA kernels, their plain versions, the router
+and its differentiation.
 
 Counterpart of ``pcdms_tpu/ops/flash_attention.py``. The three Pallas TPU
 kernels there (frozen-max, online-softmax and short-kv) are hand-written
 CUDA C++ for Hopper here (``csrc/flash_attention.cu``). Each has a wrapper
 that launches the kernel for a CUDA tensor (or raises) and takes the plain
 PyTorch version, which repeats the kernel's arithmetic, for a CPU tensor.
-Each wrapper counts its launches in ``LAUNCHES``.
+Each wrapper counts its launches in ``LAUNCHES`` (which also counts the
+backward kernels of ``flash_attention_bwd``).
 
 The router ``flash_attention`` keeps the JAX package's routes and switches:
 
@@ -15,6 +17,15 @@ The router ``flash_attention`` keeps the JAX package's routes and switches:
 * longer kv takes the frozen-max kernel, or the online-softmax kernel
   under ``PCDMS_FROZEN_MAX=0``; ``PCDMS_EXP_BF16=1`` demotes the online
   kernel's score tile to bf16 before max / exp2.
+
+Under autograd (grad enabled and q, k or v requiring grad) the kernel
+routes differentiate as the JAX package's ``custom_vjp``s do:
+``_FlashFunction`` (``_flash_3d_diff``) runs the LSE forward kernel and the
+dq and dk/dv kernels, ignoring ``PCDMS_FROZEN_MAX`` and ``PCDMS_EXP_BF16``
+(the training path stays f32 softmax); ``_ShortKvFunction``
+(``_shortkv_3d_diff``) keeps the short-kv forward kernel with the chunked
+recompute backward. The reference route differentiates through plain
+autograd.
 
 The switches are read on every call. The TPU block picking (``_pick_blocks``,
 ``_Q_UNROLL``) has no counterpart: the kernels choose their own tiles.
@@ -39,7 +50,9 @@ _SHORTKV_MAX = 384
 _BLOCK_K = 64          # the kernels' k tile; the plain online version walks it
 _HEAD_DIM = 64         # the kernels' head_dim
 
-LAUNCHES = {"flash_frozen": 0, "flash_online": 0, "flash_shortkv": 0}
+LAUNCHES = {"flash_frozen": 0, "flash_online": 0, "flash_shortkv": 0,
+            "flash_fwd_lse": 0, "flash_dq": 0, "flash_dkv": 0}
+_BWD_CHUNK = 256       # q rows per step of the short-kv route's backward
 
 
 def reset_launches() -> None:
@@ -89,9 +102,9 @@ def shortkv_plain(q, k, v, scale: float):
     return _normalised(torch.exp2(s - s.amax(-1, keepdim=True)), v, q.dtype)
 
 
-def flash_online_plain(q, k, v, scale: float, exp_bf16: bool = False):
-    """``_flash_kernel``: running max and alpha-rescale over k tiles of 64.
-    ``exp_bf16`` demotes each score tile to bf16 before max / exp2."""
+def _online_softmax(q, k, v, scale: float, exp_bf16: bool = False):
+    """The online-softmax loop over k tiles of 64: returns the unnormalised
+    f32 accumulator, the running max m and the row-sum l, (BH, Lq, 1)."""
     bh, lq, d = q.shape
     m = torch.full((bh, lq, 1), _NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -111,6 +124,13 @@ def flash_online_plain(q, k, v, scale: float, exp_bf16: bool = False):
         acc = acc * alpha + torch.matmul(p, v[:, j:j + _BLOCK_K].float())
         l = l * alpha + p.sum(-1, keepdim=True)
         m = m_new
+    return acc, m, l
+
+
+def flash_online_plain(q, k, v, scale: float, exp_bf16: bool = False):
+    """``_flash_kernel``: running max and alpha-rescale over k tiles of 64.
+    ``exp_bf16`` demotes each score tile to bf16 before max / exp2."""
+    acc, _, l = _online_softmax(q, k, v, scale, exp_bf16)
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
@@ -147,7 +167,7 @@ def _launch(entry: str, q, k, v, scale: float, *extra):
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = getattr(_build.library(), entry)(
+        status = getattr(_build.library("flash_attention"), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             q.shape[0], q.shape[1], k.shape[1], scale * _LOG2E,
             int(q.dtype == torch.bfloat16), *extra, stream)
@@ -183,12 +203,78 @@ def shortkv_attention(q, k, v, scale: float):
 
 
 # ---------------------------------------------------------------------------
+# differentiation
+# ---------------------------------------------------------------------------
+
+def chunked_bwd(q, k, v, out, do, scale: float):
+    """Exact-recompute attention gradients over q chunks of 256
+    (``_chunked_xla_bwd``): softmax rebuilt per chunk in f32, P and dS
+    rounded to k's dtype before their products, f32 accumulation."""
+    dt = k.dtype
+    kf, vf = k.float(), v.float()
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros_like(dk)
+    dqs = []
+    for i in range(0, q.shape[1], _BWD_CHUNK):
+        qc = q[:, i:i + _BWD_CHUNK].float()
+        doc = do[:, i:i + _BWD_CHUNK].float()
+        p = torch.softmax(torch.matmul(qc, kf.transpose(-1, -2)) * scale, -1)
+        dp = torch.matmul(doc, vf.transpose(-1, -2))
+        dsum = (doc * out[:, i:i + _BWD_CHUNK].float()).sum(-1, keepdim=True)
+        ds = (p * (dp - dsum)).to(dt).float()
+        dqs.append(torch.matmul(ds, kf) * scale)
+        dk += torch.matmul(ds.transpose(-1, -2), qc) * scale
+        dv += torch.matmul(p.to(dt).float().transpose(-1, -2), doc)
+    return (torch.cat(dqs, 1).to(q.dtype), dk.to(dt), dv.to(v.dtype))
+
+
+class _FlashFunction(torch.autograd.Function):
+    """Flash attention on (BH, L, 64) tensors under autograd: LSE forward
+    kernel, dq + dk/dv backward kernels (``_flash_3d_diff``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        # imported here: flash_attention_bwd imports this module
+        from pcdms_tpu_torch.ops.flash_attention_bwd import flash_fwd_lse
+        out, lse2 = flash_fwd_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse2)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from pcdms_tpu_torch.ops.flash_attention_bwd import flash_bwd
+        q, k, v, out, lse2 = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse2, do.contiguous(),
+                               ctx.scale)
+        return dq, dk, dv, None
+
+
+class _ShortKvFunction(torch.autograd.Function):
+    """Short-kv attention under autograd: the short-kv forward kernel, the
+    chunked recompute backward (``_shortkv_3d_diff``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out = shortkv_attention(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        return (*chunked_bwd(q, k, v, out, do, ctx.scale), None)
+
+
+# ---------------------------------------------------------------------------
 # router
 # ---------------------------------------------------------------------------
 
 def attention_route(lk: int) -> str:
-    """Which route ``flash_attention`` takes for kv length ``lk``:
-    'reference', 'shortkv', 'frozen' or 'online'."""
+    """Which route ``flash_attention`` takes for kv length ``lk`` without
+    autograd: 'reference', 'shortkv', 'frozen' or 'online' (under autograd
+    'frozen' and 'online' both take ``_FlashFunction``)."""
     if lk <= _SHORTKV_MAX:
         if os.environ.get("PCDMS_SHORTKV", "xla") == "pallas":
             return "shortkv"
@@ -210,8 +296,13 @@ def flash_attention(q, k, v, scale=None):
     q3 = q.reshape(b * h, lq, d).contiguous()
     k3 = k.reshape(b * h, lk, d).contiguous()
     v3 = v.reshape(b * h, lk, d).contiguous()
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
     if route == "shortkv":
-        out = shortkv_attention(q3, k3, v3, float(scale))
+        out = (_ShortKvFunction.apply(q3, k3, v3, float(scale)) if grad
+               else shortkv_attention(q3, k3, v3, float(scale)))
+    elif grad:
+        out = _FlashFunction.apply(q3, k3, v3, float(scale))
     elif route == "frozen":
         out = flash_frozen(q3, k3, v3, float(scale))
     else:

@@ -1,0 +1,184 @@
+"""The training loop (counterpart of ``pcdms_tpu/train/loop.py``).
+
+One process drives one device. Logging, checkpoint cadence, resume and the
+SIGTERM / SIGINT stop follow the JAX package's loop. Host batches (dicts of
+numpy arrays or tensors) are copied to the device from pinned memory with
+non-blocking copies, one batch ahead of the step, standing in for
+``prefetch_to_device``. Each step draws its randomness from a generator
+seeded with (seed, step), so a resumed run draws what an uninterrupted one
+would.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import signal
+import time
+from pathlib import Path
+from typing import Callable, Iterator, Optional
+
+import numpy as np
+import torch
+
+from pcdms_tpu_torch.train import checkpoint as ckpt
+from pcdms_tpu_torch.train.common import (
+    TrainConfig, init_train_state, make_train_step,
+)
+
+logger = logging.getLogger("pcdms_tpu_torch.train")
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of one train step: seeded with (seed, step)."""
+    gen = torch.Generator(device=device)
+    return gen.manual_seed((seed << 32) + step)
+
+
+def _to_device(batch, device):
+    out = {}
+    for k, x in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(x)) \
+            if isinstance(x, np.ndarray) else x
+        if device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def device_batches(batches: Iterator, device) -> Iterator:
+    """Yield each host batch on ``device``, the next one's copy enqueued
+    before the current one is handed out."""
+    pending = None
+    for batch in batches:
+        nxt = _to_device(batch, device)
+        if pending is not None:
+            yield pending
+        pending = nxt
+    if pending is not None:
+        yield pending
+
+
+def run_training(loss_fn: Callable, models, batches: Iterator,
+                 cfg: TrainConfig, *, device=None, seed: int = 0,
+                 output_dir: Optional[str] = None,
+                 checkpointing_steps: int = 5000,
+                 log_every: int = 50,
+                 resume_from_checkpoint: bool = False,
+                 max_train_steps: Optional[int] = None,
+                 profile_dir: Optional[str] = None,
+                 handle_preemption: bool = True,
+                 on_step: Optional[Callable] = None):
+    """Run the train loop on ``models`` (a dict of modules on ``device``,
+    updated in place); returns the final ``TrainState``.
+
+    ``loss_fn(models, batch, generator) -> (loss, metrics)``. ``batches``
+    yields host batches. ``on_step(step, metrics)``, if given, is called
+    after every step. With ``handle_preemption``, SIGTERM / SIGINT stop the
+    loop at the next step boundary and write a final checkpoint.
+    ``profile_dir`` gets a ``torch.profiler`` trace of steps 3-6.
+    """
+    if device is None:
+        device = next(next(iter(models.values())).parameters()).device
+    device = torch.device(device)
+    max_steps = max_train_steps or cfg.max_train_steps
+
+    # draw the first batch before the optimizer state is allocated: a batch
+    # generator that builds a cache and frees its encoders on first next()
+    # must not share the device with the AdamW moments
+    batches = iter(batches)
+    first_batch = next(batches, None)
+
+    state = init_train_state(models, cfg)
+    start_step = 0
+    if resume_from_checkpoint and output_dir:
+        if ckpt.latest_step(output_dir) is not None:
+            state, _, start_step = ckpt.restore_checkpoint(output_dir, state)
+            logger.info("resumed from %s at step %d", output_dir, start_step)
+
+    step_fn = make_train_step(loss_fn, cfg)
+
+    stop = {"signal": None}
+    prev_handlers = {}
+    if handle_preemption:
+        def _on_signal(signum, frame):
+            stop["signal"] = signum
+            logger.warning("signal %d received: stopping at the next step "
+                           "boundary and checkpointing", signum)
+
+        for s in (signal.SIGTERM, signal.SIGINT):
+            try:
+                prev_handlers[s] = signal.signal(s, _on_signal)
+            except ValueError:   # not the main thread; run unguarded
+                break
+
+    if first_batch is not None:
+        batches = itertools.chain([first_batch], batches)
+    t_last = time.perf_counter()
+    examples_since_log = 0
+    step = start_step
+    last_saved = start_step if start_step else None
+    prof = None
+    try:
+        for batch in device_batches(batches, device):
+            if step >= max_steps or stop["signal"] is not None:
+                break
+            if profile_dir and step == start_step + 3:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    *([torch.profiler.ProfilerActivity.CUDA]
+                      if device.type == "cuda" else [])])
+                prof.start()
+            if prof is not None and step == start_step + 6:
+                prof = _stop_profile(prof, profile_dir)
+
+            metrics = step_fn(state, batch, step_generator(seed, step,
+                                                           device))
+            step += 1
+            examples_since_log += len(next(iter(batch.values())))
+            if on_step is not None:
+                on_step(step, metrics)
+
+            if step % log_every == 0 or step == start_step + 1:
+                # reading the loss waits for the step: the window below
+                # spans finished steps
+                loss = float(metrics["loss"])
+                dt = time.perf_counter() - t_last
+                ips = examples_since_log / max(dt, 1e-9)
+                logger.info("step %d loss %.5f | %.2f examples/s", step,
+                            loss, ips)
+                t_last = time.perf_counter()
+                examples_since_log = 0
+
+            if output_dir and step % checkpointing_steps == 0:
+                ckpt.save_checkpoint(output_dir, step, state)
+                last_saved = step
+                logger.info("checkpoint saved at step %d", step)
+        if prof is not None:
+            # a short run can end before step start + 6: flush the trace
+            prof = _stop_profile(prof, profile_dir)
+        if output_dir and step != last_saved:
+            # the cadence may have saved this very step already; this save
+            # also covers a stop by signal (handlers still installed)
+            ckpt.save_checkpoint(output_dir, step, state)
+            last_saved = step
+    finally:
+        for s, h in prev_handlers.items():
+            signal.signal(s, h)
+        if prof is not None:
+            prof.stop()
+    if stop["signal"] is not None:
+        logger.warning("stopped by signal %d at step %d (checkpoint %s)",
+                       stop["signal"], step,
+                       "saved" if output_dir else "not saved: no output_dir")
+    return state
+
+
+def _stop_profile(prof, profile_dir: str):
+    prof.stop()
+    path = Path(profile_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path / "trace.json"))
+    logger.info("profile of steps 3-6 written to %s", path / "trace.json")
+    return None
+

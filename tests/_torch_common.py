@@ -86,3 +86,27 @@ def n(x):
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(x, np.float32)
+
+
+def stage2_batch(b, h, w2, seed=0):
+    """A stage-2 training batch of numpy arrays at the tiny conditioning
+    widths (5 DINOv2 tokens of 24, CLIP embedding of 16)."""
+    rng = np.random.default_rng(seed)
+    return {
+        "st_image": rng.uniform(-1, 1, (b, h, w2, 3)).astype(np.float32),
+        "masked_image": rng.uniform(-1, 1, (b, h, w2, 3)).astype(np.float32),
+        "pose_image": rng.uniform(-1, 1, (b, h, w2, 3)).astype(np.float32),
+        "dino_features": rng.standard_normal((b, 5, 24)).astype(np.float32),
+        "clip_embed": rng.standard_normal((b, 1, 16)).astype(np.float32),
+    }
+
+
+def stage2_models(unet_cfg, seed):
+    """(JAX trainable params, JAX vae params, port trainable modules, port
+    vae) with the same non-zero weights."""
+    ju, tu = unet_pair(unet_cfg, seed)
+    jv, tv = vae_pair(TINY.vae, seed + 1)
+    ji, ti = image_proj_pair(seed + 2, **TINY.image_proj_kwargs)
+    jp, tp = pose_proj_pair(seed + 3, **TINY.pose_proj_kwargs)
+    return ({"unet": ju, "image_proj": ji, "pose_proj": jp}, jv,
+            {"unet": tu, "image_proj": ti, "pose_proj": tp}, tv)

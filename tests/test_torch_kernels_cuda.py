@@ -4,9 +4,12 @@ has no CPU form). JAX-free, so it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 
-Bars: f32 max abs error 2e-5; bf16 (and the bf16-softmax variant) max abs
-error 1e-2 of the output's largest magnitude, which admits the one bf16 ulp
-(at most 2^-7 of a value) by which two accumulation orders may round apart.
+Forward bars: f32 max abs error 2e-5; bf16 (and the bf16-softmax variant)
+max abs error 1e-2 of the output's largest magnitude, which admits the one
+bf16 ulp (at most 2^-7 of a value) by which two accumulation orders may
+round apart. Backward bars, each scaled to its output: bf16 max abs error
+1e-2 of the largest magnitude and relative L2 5e-3; f32 max abs error 2e-5
+of the largest magnitude; the LSE 1e-4 of its largest magnitude.
 """
 
 import math
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from pcdms_tpu_torch.ops import flash_attention as fa
+from pcdms_tpu_torch.ops import flash_attention_bwd as fb
 
 D = 64
 
@@ -77,3 +81,89 @@ def test_kernel_refuses_unsupported_inputs(cuda):
                         v[..., :32].contiguous(), 0.125)
     with pytest.raises(ValueError):
         fa.flash_frozen(q.transpose(1, 2), k, v, 0.125)
+
+
+def _max_rel(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(640, 600), (70, 130), (128, 128),
+                                   (64, 65), (1, 130)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_kernels_match_plain(cuda, dtype, lq, lk):
+    """LSE forward, dq and dk/dv against their plain versions; ragged lq
+    and lk exercise the masked rows and columns."""
+    q, k, v = _qkv(cuda, dtype, 3, lq, lk)
+    do = _qkv(cuda, dtype, 3, lq, lq, seed=12)[0]
+    scale = 1.0 / math.sqrt(D)
+    fa.reset_launches()
+    out, lse2 = fb.flash_fwd_lse(q, k, v, scale)
+    grads = fb.flash_bwd(q, k, v, out, lse2, do, scale)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in fa.LAUNCHES.items() if c} == {
+        "flash_fwd_lse": 1, "flash_dq": 1, "flash_dkv": 1}
+    p_out, p_lse2 = fb.flash_fwd_lse_plain(q, k, v, scale)
+    p_grads = fb.flash_bwd_plain(q, k, v, p_out, p_lse2, do, scale)
+    assert lse2.dtype == torch.float32 and lse2.shape == q.shape[:2]
+    assert _max_rel(lse2, p_lse2) <= 1e-4
+    bf16 = dtype == torch.bfloat16
+    assert _max_rel(out, p_out) <= (1e-2 if bf16 else 2e-5)
+    for got, want in zip(grads, p_grads):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        if bf16:
+            assert _max_rel(got, want) <= 1e-2
+            assert _rel_l2(got, want) <= 5e-3
+        else:
+            assert _max_rel(got, want) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,lk,launched", [
+    ("flash", 600, {"flash_fwd_lse": 1, "flash_dq": 1, "flash_dkv": 1}),
+    ("shortkv", 258, {"flash_shortkv": 1})])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_autograd_through_kernels_matches_plain_route(cuda, monkeypatch,
+                                                      dtype, route, lk,
+                                                      launched):
+    """Backward through the router on CUDA tensors reaches q, k and v
+    through the kernels (the LSE, dq and dk/dv kernels; the short-kv kernel
+    with its torch backward under PCDMS_SHORTKV=pallas), and the gradients
+    equal those of plain attention in f32 (relative L2 2e-2 in bf16, 1e-4
+    in f32)."""
+    monkeypatch.setenv("PCDMS_SHORTKV", "pallas" if route == "shortkv"
+                       else "xla")
+    q, k, v = (x.reshape(1, 3, *x.shape[1:]) for x in
+               _qkv(cuda, dtype, 3, 640, lk))
+    do = _qkv(cuda, dtype, 3, 640, 640, seed=13)[0].reshape(1, 3, 640, D)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = [x.float().clone().requires_grad_() for x in (q, k, v)]
+    fa.reset_launches()
+    out = fa.flash_attention(*leaves)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in fa.LAUNCHES.items() if c} == launched
+    fa.attention_reference(*ref).backward(do.float())
+    bar = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for got, want in zip(leaves, ref):
+        assert got.grad is not None and got.grad.dtype == dtype
+        assert _rel_l2(got.grad, want.grad) <= bar
+
+
+@pytest.mark.cuda
+def test_inference_routing_unchanged(cuda):
+    """Without autograd the long-kv route still launches the frozen kernel
+    only."""
+    q, k, v = (x.reshape(1, 3, *x.shape[1:]) for x in
+               _qkv(cuda, torch.bfloat16, 3, 512, 512))
+    fa.reset_launches()
+    with torch.no_grad():
+        fa.flash_attention(q.requires_grad_(), k, v)
+    assert {n: c for n, c in fa.LAUNCHES.items() if c} == {"flash_frozen": 1}
