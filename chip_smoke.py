@@ -4,17 +4,28 @@
 
 Phases, each reported on its own lines:
   1. build the CUDA kernels from ``pcdms_tpu_torch/ops/csrc`` with nvcc (one
-     process per source, started together);
-  2. hold each forward kernel against its plain PyTorch version on the card
-     at the main path's shapes (bf16, with f32 spot checks), and time the
-     kernel, the plain version, and ``scaled_dot_product_attention`` as a
-     yardstick;
+     process per source, started together: the flash-attention forward and
+     backward kernels and the fused GroupNorm + SiLU + conv3x3 kernel), with
+     each kernel's registers and spills;
+  2. hold each forward attention kernel against its plain PyTorch version on
+     the card at the main path's shapes (bf16, with f32 spot checks; the
+     short-kv kernel also at CLIP ViT-H's head_dim 80), and time the kernel,
+     the plain version, and ``scaled_dot_product_attention`` as a yardstick;
+     then the fused conv kernel against its plain version at the 14 conv
+     shapes of the full-width UNet (bf16, in the mode the UNet uses there),
+     mode 0 and apply_act=False at level 0, f32 and a ragged shape, each UNet
+     shape timed beside the plain version, the port's unfused route
+     (GroupNorm -> SiLU -> cuDNN conv -> add), cuDNN's conv alone and the
+     bound, with the weight re-lay timed on its own;
   3. one full-width stage-2 UNet forward (512x1024 canvas, one pair,
      CFG-doubled to 2, bf16, random weights) with the kernels and with plain
-     attention, compared by the relative L2 error of eps;
+     attention, compared by the relative L2 error of eps; then the same
+     weights with ``fused_conv=True`` (44 fused-conv launches) against the
+     unfused forward;
   4. the sampler path: ``stage2_generate`` at full width (DDIM 4 steps and
-     UniPC 3 steps at default routing, then DDIM 2 steps under
-     PCDMS_FROZEN_MAX=0 PCDMS_SHORTKV=pallas), with decode;
+     UniPC 3 steps at default routing, DDIM 2 steps under
+     PCDMS_FROZEN_MAX=0 PCDMS_SHORTKV=pallas, and DDIM 4 steps with the
+     fused UNet), with decode;
   5. the backward kernels (LSE forward, dq, dk/dv) against their plain
      versions at the training shapes and a ragged one (bf16, one f32 spot
      check), timed against the plain versions and SDPA's forward / backward;
@@ -31,13 +42,22 @@ Phases, each reported on its own lines:
      ``profile_dir`` trace of steps 3-6 (device time by kernel, busy
      share);
   8. ``cli/stage2_train.main`` at the tiny config on the card, 2 steps, then
-     resumed from its checkpoint to step 3.
+     resumed from its checkpoint to step 3;
+  9. ``cli/stage2_batchtest.main`` at full width with random weights
+     (DINOv2-giant, the SD-2.1 stage-2 UNet, the full VAE) on 2 synthetic
+     512x512 pairs in the DeepFashion layout: test mode (UniPC 20 steps,
+     best of 4, batch 2) with host selection and with ``--device_select``
+     (the same files), then train mode (CLIP ViT-H) under
+     PCDMS_SHORTKV=pallas, where the short-kv kernel runs at head_dim 64
+     and 80.
 Launch counters are reset just before each path runs and read just after.
 
 The last three lines are the card's name and power limit (nvidia-smi), a
-JSON object with one record per kernel, and ``{"ok": true, "device": ...}``.
-Any failed check exits non-zero before the result lines. The script needs
-CUDA and the repository beside it; it imports nothing of JAX.
+JSON object with one record per kernel (every TPU kernel of the
+repository: the seven that reach ``pl.pallas_call``), and
+``{"ok": true, "device": ...}``. Any failed check exits non-zero before the
+result lines. The script needs CUDA and the repository beside it; it
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -63,6 +83,8 @@ SEED = 0
 PATH_SHAPES = [(10, 8192, 8192), (20, 2048, 2048), (40, 512, 512)]
 # the 258-token cross-attention at the same levels (short-kv kernel)
 SHORTKV_SHAPES = [(10, 8192, 258), (20, 2048, 258), (40, 512, 258)]
+# CLIP ViT-H's 257-token self-attention, 2 images x 16 heads of 80
+SHORTKV_D80_SHAPE = (32, 257, 257)
 # kernel vs plain version. f32 outputs: max abs error <= 2e-5. bf16 outputs
 # (and the bf16-softmax variant): max abs error <= 1e-2 * max|plain|. The
 # two round the same f32 sum to bf16 after a different accumulation order,
@@ -106,7 +128,30 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                  "pcdms_tpu/ops/flash_attention_bwd.py:154"),
     "flash_dkv": (CSRC + "flash_attention_bwd.cu",
                   "pcdms_tpu/ops/flash_attention_bwd.py:190"),
+    "fused_gn_silu_conv": (CSRC + "fused_conv.cu",
+                           "pcdms_tpu/ops/fused_conv.py:67"),
 }
+
+# the 44 resnet convs of one full-width stage-2 UNet forward (64x128
+# latents, batch 2): (H, W, Cin, Cout, count). conv1 adds the time
+# embedding (mode "temb"), conv2 the shortcut (mode "residual"); the shapes
+# with Cin == Cout are checked in the residual mode, the others are conv1s.
+CONV_SHAPES = [
+    (64, 128, 320, 320, 7), (64, 128, 640, 320, 2), (64, 128, 960, 320, 1),
+    (32, 64, 320, 640, 1), (32, 64, 640, 640, 6), (32, 64, 960, 640, 1),
+    (32, 64, 1280, 640, 1), (32, 64, 1920, 640, 1),
+    (16, 32, 640, 1280, 1), (16, 32, 1280, 1280, 6), (16, 32, 1920, 1280, 1),
+    (16, 32, 2560, 1280, 2),
+    (8, 16, 1280, 1280, 11), (8, 16, 2560, 1280, 3)]
+# fused conv vs its plain version: bf16 max abs error <= 1e-2 x max|plain|
+# (one bf16 ulp after another summation order) and relative L2 <= 5e-3
+# (dropping one of the 9 taps moves it by about 1/3); f32 max abs error
+# <= 2e-5 x max|plain|
+BAR_CONV_REL_L2 = 5e-3
+# the full-width UNet eps, fused_conv=True vs False (same weights, same
+# attention kernels): they differ only where the activation is rounded to
+# bf16, 44 times
+BAR_FUSED_UNET_REL_L2 = 5e-2
 
 
 def fail(msg: str) -> None:
@@ -158,15 +203,15 @@ def phase_kernels(fa):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     records = {}
 
-    def inputs(bh, lq, lk, dtype):
-        return [torch.randn((bh, n, 64), generator=gen, device=dev,
+    def inputs(bh, lq, lk, dtype, d):
+        return [torch.randn((bh, n, d), generator=gen, device=dev,
                             dtype=torch.float32).to(dtype)
                 for n in (lq, lk, lk)]
 
     def check(name, kernel, plain, bh, lq, lk, dtype, timed,
-              bf16_softmax=False):
-        q, k, v = inputs(bh, lq, lk, dtype)
-        scale = 1.0 / math.sqrt(64)
+              bf16_softmax=False, d=64):
+        q, k, v = inputs(bh, lq, lk, dtype, d)
+        scale = 1.0 / math.sqrt(d)
         got = kernel(q, k, v, scale)
         want = plain(q, k, v, scale)
         torch.cuda.synchronize()
@@ -180,7 +225,7 @@ def phase_kernels(fa):
             bar_text = f"{BAR_REL:g} x max|want| {amax:.3e}"
         else:
             bar, bar_text = BAR_F32, "f32"
-        line = (f"[kernel] {name} {tag} bh={bh} lq={lq} lk={lk}: "
+        line = (f"[kernel] {name} {tag} bh={bh} lq={lq} lk={lk} d={d}: "
                 f"max_abs_err={err:.3e} (bar {bar:.3e} = {bar_text}; "
                 f"rms|want| {rms:.3e})")
         rec = None
@@ -190,7 +235,7 @@ def phase_kernels(fa):
             q4, k4, v4 = q[None], k[None], v[None]
             lib_ms = cuda_ms(lambda: torch.nn.functional
                              .scaled_dot_product_attention(q4, k4, v4), 10)
-            b_ms, b_by = bound_ms(bh, lq, lk)
+            b_ms, b_by = bound_ms(bh, lq, lk, d)
             line += (f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                      f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} "
                      f"({b_by})")
@@ -219,11 +264,129 @@ def phase_kernels(fa):
         bh, lq, lk = (2, 640, 258) if name == "flash_shortkv" else (2, 640,
                                                                      600)
         check(name, kernel, plain, bh, lq, lk, f32, False)
+    # CLIP ViT-H's head_dim 80 (the short-kv kernel alone takes it)
+    bh, lq, lk = SHORTKV_D80_SHAPE
+    check("flash_shortkv", fa.shortkv_attention, fa.shortkv_plain, bh, lq,
+          lk, bf16, True, d=80)
+    check("flash_shortkv", fa.shortkv_attention, fa.shortkv_plain, 4, lq, lk,
+          f32, False, d=80)
     ob = (lambda q, k, v, s: fa.flash_online(q, k, v, s, True),
           lambda q, k, v, s: fa.flash_online_plain(q, k, v, s, True))
     check("flash_online[exp_bf16]", *ob, 10, 2048, 2048, bf16, False, True)
     check("flash_online[exp_bf16]", *ob, 2, 640, 600, f32, False, True)
     return records
+
+
+def phase_fused_conv(fc):
+    """The fused conv kernel vs its plain version at the 14 conv shapes of
+    the full-width UNet (bf16, in the mode the UNet uses there), mode 0 and
+    apply_act=False at level 0, one f32 case and a ragged shape; each UNet
+    shape timed against the plain version, the port's unfused route
+    (GroupNorm -> SiLU -> cuDNN conv -> add) and cuDNN's conv alone.
+    Returns the level-0 record for the JSON line."""
+    from pcdms_tpu_torch.nn.layers import GroupNorm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    batch, record, totals = 2, None, {}
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def case(h, w, cin, cout, mode, dtype, b=batch):
+        x = (rand(b, cin, h, w) * 2 + 0.3).to(dtype)
+        scale, shift = 1 + 0.1 * rand(cin), 0.1 * rand(cin)
+        groups = 32 if cin % 32 == 0 else 8
+        a, c = fc.gn_affine_coeffs(x, scale, shift, groups, 1e-5)
+        weight = (rand(cout, cin, 3, 3) / math.sqrt(9 * cin)).to(dtype)
+        bias = (0.1 * rand(cout)).to(dtype)
+        temb = rand(b, cout).to(dtype) if mode == "temb" else None
+        res = rand(b, cout, h, w).to(dtype) if mode == "residual" else None
+        return x, (scale, shift, groups), a, c, weight, bias, temb, res
+
+    def check(label, h, w, cin, cout, mode, dtype, act=True, b=batch):
+        x, gn, a, c, weight, bias, temb, res = case(h, w, cin, cout, mode,
+                                                    dtype, b)
+        got = fc.fused_gn_silu_conv(x, a, c, weight, bias, temb, res, act)
+        want = fc.fused_gn_silu_conv_plain(x, a, c, weight, bias, temb, res,
+                                           act)
+        torch.cuda.synchronize()
+        mr, l2 = _max_rel(got, want), _rel_l2(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        bf = dtype == bf16
+        ok = bool(torch.isfinite(got).all()) and (
+            mr <= BAR_REL and l2 <= BAR_CONV_REL_L2 if bf
+            else mr <= BAR_F32_REL)
+        line = (f"[conv] {label} {'bf16' if bf else 'f32'} B={b} {h}x{w} "
+                f"{cin}->{cout} mode={mode} act={act}: max_abs_err={err:.3e} "
+                f"err/max|want|={mr:.2e} (bar "
+                f"{BAR_REL if bf else BAR_F32_REL:g}) rel_l2={l2:.2e}"
+                + (f" (bar {BAR_CONV_REL_L2:g})" if bf else ""))
+        print(line, flush=True)
+        if not ok:
+            fail(f"the fused conv disagrees with its plain version: {line}")
+        return x, gn, a, c, weight, bias, temb, res, err
+
+    for h, w, cin, cout, count in CONV_SHAPES:
+        mode = "residual" if cin == cout else "temb"
+        x, (scale, shift, groups), a, c, weight, bias, temb, res, err = check(
+            "unet", h, w, cin, cout, mode, bf16)
+        extra = temb if temb is not None else res
+        mode_id = 1 if temb is not None else 2
+        wk = fc.relayout_weight(weight, bf16)
+        a32, c32, b32 = a.contiguous(), c.contiguous(), bias.float()
+        ms = cuda_ms(lambda: fc.launch_fused_conv(x, a32, c32, wk, b32, extra,
+                                                  mode_id, True), 10)
+        wrapper_ms = cuda_ms(lambda: fc.gn_silu_conv3x3(
+            x, scale, shift, weight, bias, num_groups=groups, temb=temb,
+            residual=res), 10)
+        relayout_ms = cuda_ms(lambda: fc.relayout_weight(weight, bf16), 10)
+        plain_ms = cuda_ms(lambda: fc.fused_gn_silu_conv_plain(
+            x, a, c, weight, bias, temb, res), 3, 1)
+        norm = GroupNorm(groups, cin).to(dev)
+        with torch.no_grad():
+            norm.weight.copy_(scale)
+            norm.bias.copy_(shift)
+
+        def unfused():
+            y = torch.nn.functional.conv2d(
+                torch.nn.functional.silu(norm(x)), weight, bias, padding=1)
+            return y + (temb[:, :, None, None] if temb is not None else res)
+
+        with torch.no_grad():
+            xa = torch.nn.functional.silu(norm(x))
+            unfused_ms = cuda_ms(unfused, 10)
+            lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+                xa, weight, bias, padding=1), 10)
+        flops = 2 * batch * h * w * cin * cout * 9
+        nbytes = 2 * (batch * h * w * (cin + cout) + 9 * cin * cout) + (
+            2 * batch * h * w * cout if res is not None else 2 * batch * cout)
+        b_ms, b_by = bound(flops, nbytes)
+        for key, v in (("kernel", ms), ("wrapper", wrapper_ms),
+                       ("unfused", unfused_ms), ("cudnn", lib_ms),
+                       ("bound", b_ms)):
+            totals[key] = totals.get(key, 0.0) + count * v
+        print(f"[conv]   {h}x{w} {cin}->{cout} x{count}: kernel_ms={ms:.4f} "
+              f"wrapper_ms={wrapper_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"unfused_route_ms={unfused_ms:.4f} library_ms={lib_ms:.4f} "
+              f"(cuDNN conv alone) bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        print(f"[conv]   {h}x{w} {cin}->{cout}: weight re-lay (Cout, Cin, 3, "
+              f"3) -> (Cout, 3, 3, Cin) bf16, inside wrapper_ms: "
+              f"{relayout_ms:.4f} ms", flush=True)
+        if record is None:
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del x, a, c, weight, bias, temb, res, wk, xa, norm
+    print("[conv] the 44 convs of one UNet forward, summed (ms): "
+          + " ".join(f"{k}={v:.3f}" for k, v in totals.items()), flush=True)
+    check("level0", 64, 128, 320, 320, "none", bf16)
+    check("level0", 64, 128, 320, 320, "none", bf16, act=False)
+    check("level0", 64, 128, 320, 320, "temb", bf16, act=False)
+    check("spot", 16, 32, 640, 1280, "temb", f32)
+    check("ragged", 7, 9, 40, 24, "residual", bf16, b=3)
+    check("ragged", 7, 9, 40, 24, "temb", f32, b=3)
+    torch.cuda.empty_cache()
+    return record
 
 
 def build_models(dev, with_class_embed=True):
@@ -282,6 +445,29 @@ def phase_unet(fa, models, dev):
         fail(f"expected 15 frozen-kernel launches per UNet forward, got "
              f"{launches}")
 
+    # the same weights and attention kernels with every resnet conv fused
+    with torch.inference_mode():
+        unet.cfg = dataclasses.replace(unet.cfg, fused_conv=True)
+        try:
+            fa.reset_launches()
+            eps_f = unet(sample, ts, ctx, labels, pose, zero_ctx_prefix=1)
+            torch.cuda.synchronize()
+            f_launches = {n: c for n, c in fa.LAUNCHES.items() if c}
+            fused_ms = cuda_ms(lambda: unet(sample, ts, ctx, labels, pose,
+                                            zero_ctx_prefix=1), 3, 1)
+        finally:
+            unet.cfg = dataclasses.replace(unet.cfg, fused_conv=False)
+    rel = _rel_l2(eps_f, eps_k)
+    print(f"[unet] fused_conv=True vs False (same weights, attention "
+          f"kernels): eps rel_l2 = {rel:.3e} (bar {BAR_FUSED_UNET_REL_L2:g});"
+          f" launches {f_launches}; forward_ms fused={fused_ms:.2f} "
+          f"unfused={fwd_ms:.2f}", flush=True)
+    if not torch.isfinite(eps_f).all() or not rel <= BAR_FUSED_UNET_REL_L2:
+        fail("full-width UNet eps: the fused convs disagree with the unfused")
+    if f_launches != {"flash_frozen": 15, "fused_gn_silu_conv": 44}:
+        fail(f"expected 44 fused-conv and 15 frozen launches per fused UNet "
+             f"forward, got {f_launches}")
+
 
 def phase_pipeline(fa, models, dev):
     from pcdms_tpu_torch.pipelines.stage2_inpaint import stage2_generate
@@ -307,12 +493,16 @@ def phase_pipeline(fa, models, dev):
     hooks = [models["unet"].register_forward_pre_hook(pre),
              models["unet"].register_forward_hook(post)]
     launches = {}
-    runs = [("ddim", 4, {}), ("unipc", 3, {}),
-            ("ddim", 2, {"PCDMS_FROZEN_MAX": "0", "PCDMS_SHORTKV": "pallas"})]
+    unet = models["unet"]
+    runs = [("ddim", 4, {}, False), ("unipc", 3, {}, False),
+            ("ddim", 2, {"PCDMS_FROZEN_MAX": "0", "PCDMS_SHORTKV": "pallas"},
+             False),
+            ("ddim", 4, {}, True)]
     try:
-        for scheduler, steps, env in runs:
+        for scheduler, steps, env, fused in runs:
             saved = {k: os.environ.get(k) for k in env}
             os.environ.update(env)
+            unet.cfg = dataclasses.replace(unet.cfg, fused_conv=fused)
             unet_ms.clear()
             torch.cuda.reset_peak_memory_stats()
             try:
@@ -328,6 +518,7 @@ def phase_pipeline(fa, models, dev):
                 seconds = time.perf_counter() - t0
                 counts = dict(fa.LAUNCHES)
             finally:
+                unet.cfg = dataclasses.replace(unet.cfg, fused_conv=False)
                 for k, v in saved.items():
                     if v is None:
                         os.environ.pop(k, None)
@@ -340,7 +531,7 @@ def phase_pipeline(fa, models, dev):
                   and images.abs().max().item() < 1e3)
             label = f"{scheduler}-{steps}" + (
                 "[" + " ".join(f"{k}={v}" for k, v in env.items()) + "]"
-                if env else "")
+                if env else "") + ("[fused_conv]" if fused else "")
             print(f"[pipeline] stage2_generate {label} 512x1024 1 pair CFG "
                   f"2.0 bf16: {seconds:.2f} s total, {step_s:.4f} s per "
                   f"denoise step (UNet, CUDA events), peak "
@@ -353,13 +544,17 @@ def phase_pipeline(fa, models, dev):
             if not env and counts["flash_frozen"] != 15 * steps:
                 fail(f"{label}: expected {15 * steps} frozen launches, "
                      f"got {counts}")
+            if counts["fused_gn_silu_conv"] != (44 * steps if fused else 0):
+                fail(f"{label}: expected {44 * steps if fused else 0} fused "
+                     f"conv launches, got {counts}")
             for name, c in counts.items():
                 if c:
                     launches.setdefault(name, c)
     finally:
         for h in hooks:
             h.remove()
-    for name in ("flash_frozen", "flash_online", "flash_shortkv"):
+    for name in ("flash_frozen", "flash_online", "flash_shortkv",
+                 "fused_gn_silu_conv"):
         if not launches.get(name):
             fail(f"kernel {name} was not launched on the sampler path")
     return launches
@@ -700,12 +895,159 @@ def phase_cli():
             fail("the trainer CLI did not train and resume on the card")
 
 
+def _batchtest_dataset(root):
+    """3 synthetic 512x512 images with pose renders in the DeepFashion
+    layout, 2 pairs as test and train pair lists, and random stage-1
+    embeddings (1024-d) for the test pairs."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(SEED)
+    names = ["im0", "im1", "im2"]
+    for sub in ("train_all_png", "openpose_all_img", "prior"):
+        os.makedirs(os.path.join(root, sub))
+    yy, xx = np.mgrid[0:512, 0:512] / 512.0
+    for i, name in enumerate(names):
+        # smooth colour fields plus noise: images with structure for SSIM
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        img = 127 + 100 * np.sin(2 * np.pi * (i + 1) * xx[..., None]
+                                 + 3 * yy[..., None] + phase)
+        img = np.clip(img + rng.normal(0, 20, img.shape), 0, 255)
+        Image.fromarray(img.astype(np.uint8)).save(
+            os.path.join(root, "train_all_png", f"{name}.png"))
+        pose = rng.integers(0, 255, (512, 512, 3), dtype=np.uint8)
+        Image.fromarray(pose).save(
+            os.path.join(root, "openpose_all_img", f"{name}_pose.jpg"))
+    pairs = [{"source_image": f"train_all_png/{names[i]}.jpg",
+              "target_image": f"train_all_png/{names[i + 1]}.jpg"}
+             for i in range(2)]
+    for json_name in ("test_pairs.json", "train_pairs.json"):
+        with open(os.path.join(root, json_name), "w") as f:
+            json.dump(pairs, f)
+    for i in range(2):
+        np.save(os.path.join(root, "prior", f"{names[i]}_to_{names[i + 1]}"
+                             ".npy"),
+                rng.standard_normal((1, 1024)).astype(np.float32))
+    return [f"{names[i]}_to_{names[i + 1]}.png" for i in range(2)]
+
+
+def phase_batchtest(fa):
+    """``cli/stage2_batchtest.main`` at full width with --random_init
+    (DINOv2-giant, the SD-2.1 stage-2 UNet, the full VAE) on 2 synthetic
+    512x512 pairs: test mode (UniPC 20 steps, best of 4, batch 2) with host
+    and with device selection, then train mode (CLIP ViT-H) under
+    PCDMS_SHORTKV=pallas. Returns the short-kv launches by head_dim."""
+    import numpy as np
+    from PIL import Image
+
+    import pcdms_tpu_torch.pipelines.stage2_inpaint as pipeline
+    from pcdms_tpu_torch.cli import stage2_batchtest as cli
+    from pcdms_tpu_torch.eval.metrics import compare_ssim
+    from pcdms_tpu_torch.utils.profiling import sync
+
+    sampler_s, gaps = [], []
+    generate, best_of_n = pipeline.stage2_generate, cli.best_of_n_ssim
+
+    def timed_generate(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(*args, **kwargs)
+        sync(out)
+        sampler_s.append(time.perf_counter() - t0)
+        return out
+
+    def scored_best_of_n(cands, gt):
+        scores = sorted(compare_ssim(c.astype(np.float32) / 255.0,
+                                     (gt + 1.0) / 2.0) for c in cands)
+        gaps.append(scores[-1] - scores[-2])
+        return best_of_n(cands, gt)
+
+    def run(root, json_name, out, extra):
+        sampler_s.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        written = cli.main(["--json_path", os.path.join(root, json_name),
+                            "--image_root_path", root, "--save_path", out,
+                            "--random_init", "--batch_size", "2",
+                            "--seed", str(SEED)] + extra)
+        return (written, time.perf_counter() - t0, sum(sampler_s),
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    pipeline.stage2_generate, cli.best_of_n_ssim = (timed_generate,
+                                                    scored_best_of_n)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            names = _batchtest_dataset(root)
+            test = ["--prior_embeds_dir", os.path.join(root, "prior"),
+                    "--num_inference_steps", "20", "--scheduler", "unipc",
+                    "--num_images_per_prompt", "4"]
+            host_dir, dev_dir = (os.path.join(root, d) for d in ("host",
+                                                                 "dev"))
+            files = {}
+            for label, out, extra in (("host selection", host_dir, []),
+                                      ("--device_select", dev_dir,
+                                       ["--device_select"])):
+                written, wall, samp, peak = run(root, "test_pairs.json", out,
+                                                test + extra)
+                imgs = [np.asarray(Image.open(p)) for p in written]
+                files[label] = [open(p, "rb").read() for p in written]
+                print(f"[batchtest] test mode, {label}: UniPC 20 steps, best "
+                      f"of 4, 2 pairs at 512x512 (canvas 512x1024), batch 2:"
+                      f" {wall:.2f} s in main, {samp / 2:.3f} s per pair in "
+                      f"stage2_generate, peak {peak:.2f} GiB; wrote "
+                      f"{[os.path.basename(p) for p in written]}, pixel std "
+                      f"{[round(float(i.std()), 2) for i in imgs]}",
+                      flush=True)
+                if ([os.path.basename(p) for p in written] != names
+                        or any(i.shape != (512, 512, 3) or i.std() == 0
+                               for i in imgs)):
+                    fail(f"batch test ({label}): expected one 512x512 "
+                         f"non-constant PNG per pair")
+            same = [a == b for a, b in zip(*files.values())]
+            print(f"[batchtest] --device_select vs host selection: files "
+                  f"identical {same}; host best-vs-second SSIM gaps "
+                  f"{[f'{g:.2e}' for g in gaps]}", flush=True)
+            for i, ok in enumerate(same):
+                if not ok and gaps[i] >= 1e-5:
+                    fail(f"--device_select chose another candidate than the "
+                         f"host for pair {i} (SSIM gap {gaps[i]:.2e}, not "
+                         f"a tie)")
+                if not ok:
+                    print(f"[batchtest] pair {i}: an SSIM tie "
+                          f"({gaps[i]:.2e}) chose another candidate",
+                          flush=True)
+
+            os.environ["PCDMS_SHORTKV"] = "pallas"
+            try:
+                fa.reset_launches()
+                written, wall, samp, peak = run(
+                    root, "train_pairs.json", os.path.join(root, "train"),
+                    ["--num_inference_steps", "2", "--scheduler", "ddim",
+                     "--num_images_per_prompt", "2"])
+                torch.cuda.synchronize()
+                by_dim = dict(fa.SHORTKV_LAUNCHES)
+            finally:
+                os.environ.pop("PCDMS_SHORTKV")
+            print(f"[batchtest] train mode (CLIP ViT-H target embeddings), "
+                  f"PCDMS_SHORTKV=pallas, DDIM 2 steps, 2 per prompt: "
+                  f"{wall:.2f} s in main, peak {peak:.2f} GiB; short-kv "
+                  f"launches by head_dim {by_dim}", flush=True)
+            if len(written) != 2 or not all(by_dim.values()):
+                fail("train-mode batch test: expected 2 PNGs and short-kv "
+                     "launches at head_dim 64 and 80")
+    finally:
+        pipeline.stage2_generate, cli.best_of_n_ssim = generate, best_of_n
+    return by_dim
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from pcdms_tpu_torch.ops import flash_attention as fa
     from pcdms_tpu_torch.ops import flash_attention_bwd as fb
+    from pcdms_tpu_torch.ops import fused_conv as fc
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -717,6 +1059,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     records = phase_kernels(fa)
+    records["fused_gn_silu_conv"] = phase_fused_conv(fc)
     models = build_models(dev)
     phase_unet(fa, models, dev)
     launches = phase_pipeline(fa, models, dev)
@@ -727,6 +1070,7 @@ def main() -> int:
     phase_unet_grad(fa, dev)
     launches.update(phase_train(fa, dev))
     phase_cli()
+    phase_batchtest(fa)
     for kernel in KERNELS:
         if not launches.get(kernel):
             fail(f"kernel {kernel} was not launched on its path")

@@ -1,7 +1,7 @@
-"""Shared CLI plumbing, training part (counterpart of
-``pcdms_tpu/cli/common.py``): the reference's trainer flags, the
-``TrainConfig`` they make, the compute dtype, and the port's own copy of the
-tiny stage-2 geometry (``--tiny_config``)."""
+"""Shared CLI plumbing (counterpart of ``pcdms_tpu/cli/common.py``): the
+reference's trainer flags, the ``TrainConfig`` they make, the compute dtype,
+the port's own copy of the tiny geometry (``--tiny_config``), and the batch
+test's latents, PNG writing and on-device best-of-N selection."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ import argparse
 import logging
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 
@@ -101,10 +102,11 @@ def compute_dtype_from_args(args) -> torch.dtype:
 
 def tiny_configs() -> SimpleNamespace:
     """Tiny stage-2 geometry for ``--tiny_config`` (the JAX package's
-    ``tiny_configs`` for the parts stage-2 training uses): CPU smoke runs of
-    the full CLI path without SD-2.1-scale models."""
+    ``tiny_configs`` for the parts stage 2 uses): CPU smoke runs of the full
+    CLI paths without SD-2.1-scale models."""
     from pcdms_tpu_torch.models.unet2d import UNetConfig
     from pcdms_tpu_torch.models.vae import VAEConfig
+    from pcdms_tpu_torch.models.vit import ViTConfig
 
     def unet2(with_class_embed=True):
         return UNetConfig(
@@ -114,6 +116,13 @@ def tiny_configs() -> SimpleNamespace:
             norm_groups=4, use_flash=False)
 
     return SimpleNamespace(
+        clip=ViTConfig(hidden_size=24, num_layers=2, num_heads=2,
+                       patch_size=32, projection_dim=16, pre_layernorm=True,
+                       patch_bias=False, use_flash=False),
+        dino=ViTConfig(hidden_size=24, num_layers=2, num_heads=2,
+                       patch_size=32, layer_norm_eps=1e-6,
+                       pre_layernorm=False, use_layer_scale=True,
+                       use_swiglu=True, patch_bias=True, use_flash=False),
         unet2=unet2,
         vae=VAEConfig(block_out_channels=(4, 8, 8, 8), layers_per_block=1,
                       norm_groups=2),
@@ -122,3 +131,63 @@ def tiny_configs() -> SimpleNamespace:
                               block_out_channels=(4, 4, 4, 4)),
         dino_tokens=5, dino_dim=24, clip_dim=16,
     )
+
+
+def per_item_latents(seed, global_indices, num_samples, shape):
+    """Initial latents keyed per (dataset item, sample index), sample-major:
+    ``lat[s * n + j]`` is sample ``s`` of item ``global_indices[j]``, drawn
+    by numpy exactly as the JAX package draws them, so outputs do not depend
+    on the batch size and the two packages start from the same noise."""
+    n = len(global_indices)
+    lat = np.empty((num_samples * n,) + tuple(shape), np.float32)
+    for s in range(num_samples):
+        for j, g in enumerate(global_indices):
+            rng = np.random.default_rng([int(seed), int(g), int(s)])
+            lat[s * n + j] = rng.standard_normal(shape, dtype=np.float32)
+    return lat
+
+
+def save_images(images, paths):
+    """images: (N, H, W, 3) float in [-1, 1], or already-quantised uint8
+    (passed through), as numpy or a tensor -> PNG files."""
+    from PIL import Image
+    if isinstance(images, torch.Tensor):
+        images = images.detach().cpu().numpy()
+    arr = np.asarray(images)
+    if arr.dtype != np.uint8:
+        # round to nearest, as diffusers' numpy_to_pil does
+        arr = np.rint(np.clip((arr + 1.0) * 127.5, 0, 255)).astype(np.uint8)
+    for img, path in zip(arr, paths):
+        Image.fromarray(img).save(path)
+
+
+def device_uint8(images):
+    """[-1, 1] float images -> uint8 on their device, rounded to nearest as
+    ``save_images`` rounds: what the PNG holds, read back at a quarter of
+    the bytes."""
+    x = (images.float() + 1.0) * 127.5
+    return torch.round(torch.clamp(x, 0, 255)).to(torch.uint8)
+
+
+def device_select_best(images, gt_u8, num_samples: int):
+    """Best-of-N SSIM selection on the images' device.
+
+    ``images``: (num_samples * n, H, W2, 3) float in [-1, 1], sample-major
+    (``images[s * n + j]`` is sample ``s`` of item ``j``); ``gt_u8``:
+    (n, H, W, 3) uint8 targets (numpy or tensor); for W < W2 the candidates
+    are cropped to their right W columns (the stage-2 canvas's generated
+    half). Candidates are quantised to uint8 first (what the PNG holds and
+    the host path scores), both sides scored as uint8 / 255 with
+    ``eval.ssim.ssim`` (win 7, data range 1), and the first maximum wins, as
+    ``np.argmax``. Returns (best_u8 (n, H, W, 3) uint8, best_idx (n,))."""
+    from pcdms_tpu_torch.eval.ssim import ssim
+    gt = torch.as_tensor(np.asarray(gt_u8) if not isinstance(
+        gt_u8, torch.Tensor) else gt_u8).to(images.device)
+    n, h, w = gt.shape[:3]
+    u8 = device_uint8(images)[:, :, -w:, :]
+    cands = u8.reshape(num_samples, n, h, w, 3)
+    gt01 = (gt.float() / 255.0).repeat(num_samples, 1, 1, 1)
+    scores = ssim(cands.reshape(num_samples * n, h, w, 3).float() / 255.0,
+                  gt01).reshape(num_samples, n)
+    best = torch.argmax(scores, dim=0)
+    return cands[best, torch.arange(n, device=images.device)], best

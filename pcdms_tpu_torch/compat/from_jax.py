@@ -3,7 +3,8 @@
 The inverse of ``pcdms_tpu/compat/torch_convert.py``: turns the JAX
 package's parameter pytrees (leaves as numpy arrays) into diffusers-named
 state dicts for ``UNet2DConditionModel``, ``AutoencoderKL``,
-``ImageProjModel`` and ``PoseCondEmbedding``:
+``ImageProjModel``, ``PoseCondEmbedding`` and the ``VisionTransformer``
+encoders (HuggingFace names):
 
   * Linear kernel (in, out) -> weight (out, in)
   * Conv kernel HWIO        -> weight OIHW
@@ -165,6 +166,57 @@ def pose_proj_state_dict(p) -> StateDict:
     for i, block in enumerate(p["blocks"]):
         _conv(sd, f"blocks.{i}", block)
     _conv(sd, "conv_out", p["conv_out"])
+    return sd
+
+
+def _vit_layer(sd, prefix, p, clip: bool):
+    if clip:      # CLIPEncoderLayer
+        _norm(sd, f"{prefix}.layer_norm1", p["norm1"])
+        for jax_name, name in (("to_q", "q_proj"), ("to_k", "k_proj"),
+                               ("to_v", "v_proj"), ("to_out", "out_proj")):
+            _linear(sd, f"{prefix}.self_attn.{name}", p["attn"][jax_name])
+        _norm(sd, f"{prefix}.layer_norm2", p["norm2"])
+    else:         # Dinov2Layer
+        _norm(sd, f"{prefix}.norm1", p["norm1"])
+        for jax_name, name in (("to_q", "attention.query"),
+                               ("to_k", "attention.key"),
+                               ("to_v", "attention.value"),
+                               ("to_out", "output.dense")):
+            _linear(sd, f"{prefix}.attention.{name}", p["attn"][jax_name])
+        _norm(sd, f"{prefix}.norm2", p["norm2"])
+    for i in (1, 2):
+        if f"ls{i}" in p:
+            sd[f"{prefix}.layer_scale{i}.lambda1"] = np.asarray(p[f"ls{i}"])
+    for name, sub in p["mlp"].items():
+        _linear(sd, f"{prefix}.mlp.{name}", sub)
+
+
+def vit_state_dict(p, cfg) -> StateDict:
+    """``vit_init`` pytree -> ``VisionTransformer`` state dict: HF
+    ``CLIPVisionModelWithProjection`` names when ``cfg.pre_layernorm``,
+    ``Dinov2Model`` names otherwise."""
+    sd: StateDict = {}
+    patch = p["patch_embed"]
+    if cfg.pre_layernorm:
+        pre = "vision_model"
+        sd[f"{pre}.embeddings.class_embedding"] = np.asarray(
+            p["cls_token"]).reshape(-1)
+        _conv(sd, f"{pre}.embeddings.patch_embedding", patch)
+        sd[f"{pre}.embeddings.position_embedding.weight"] = np.asarray(
+            p["pos_embed"])[0]
+        _norm(sd, f"{pre}.pre_layrnorm", p["pre_norm"])
+        for i, layer in enumerate(p["layers"]):
+            _vit_layer(sd, f"{pre}.encoder.layers.{i}", layer, clip=True)
+        _norm(sd, f"{pre}.post_layernorm", p["final_norm"])
+        if "projection" in p:
+            _linear(sd, "visual_projection", p["projection"])
+    else:
+        sd["embeddings.cls_token"] = np.asarray(p["cls_token"])
+        _conv(sd, "embeddings.patch_embeddings.projection", patch)
+        sd["embeddings.position_embeddings"] = np.asarray(p["pos_embed"])
+        for i, layer in enumerate(p["layers"]):
+            _vit_layer(sd, f"encoder.layer.{i}", layer, clip=False)
+        _norm(sd, "layernorm", p["final_norm"])
     return sd
 
 

@@ -39,10 +39,13 @@ class UNetConfig:
     # rematerialise each down / mid / up block in the backward pass
     # (torch.utils.checkpoint, the counterpart of jax.checkpoint)
     remat: bool = False
-    # the options below are not ported yet; the model raises if set
+    # every resnet conv through the fused GroupNorm + SiLU + conv3x3 kernel
+    # (inference only: the kernel has no backward)
+    fused_conv: bool = False
+    # the options below are not ported yet; the model or the sampler raises
+    # if set
     freeu: Optional[Tuple[float, float, float, float]] = None
     time_cond_proj_dim: Optional[int] = None
-    fused_conv: bool = False
 
     @property
     def cross_attn_up(self):
@@ -63,10 +66,9 @@ def stage3_unet_config() -> UNetConfig:
 
 
 def _check_supported(cfg: UNetConfig) -> None:
-    for name, off in (("freeu", None), ("fused_conv", False)):
-        if getattr(cfg, name) != off:
-            raise NotImplementedError(
-                f"UNetConfig.{name} is not ported to pcdms_tpu_torch yet")
+    if cfg.freeu is not None:
+        raise NotImplementedError(
+            "UNetConfig.freeu is not ported to pcdms_tpu_torch yet")
 
 
 class UNet2DConditionModel(nn.Module):
@@ -139,14 +141,13 @@ class UNet2DConditionModel(nn.Module):
         x = self.conv_in(sample.permute(0, 3, 1, 2))
         if pose_cond is not None:
             x = x + pose_cond.permute(0, 3, 1, 2).to(x.dtype)
-        flash = self.cfg.use_flash
+        kw = dict(use_flash=self.cfg.use_flash, fused_conv=self.cfg.fused_conv,
+                  zero_ctx_prefix=zero_ctx_prefix)
         skips = [x]
         for block in self.down_blocks:
-            x, block_skips = self._block(block, x, emb, ctx, use_flash=flash,
-                                         zero_ctx_prefix=zero_ctx_prefix)
+            x, block_skips = self._block(block, x, emb, ctx, **kw)
             skips.extend(block_skips)
-        x = self._block(self.mid_block, x, emb, ctx, use_flash=flash,
-                        zero_ctx_prefix=zero_ctx_prefix)
+        x = self._block(self.mid_block, x, emb, ctx, **kw)
         return x, tuple(skips)
 
     def decode(self, x, skips, emb, ctx, zero_ctx_prefix: int = 0):
@@ -158,7 +159,8 @@ class UNet2DConditionModel(nn.Module):
             del skips[-nres:]
             x = self._block(block, x, block_skips, emb, ctx,
                             use_flash=self.cfg.use_flash,
-                            zero_ctx_prefix=zero_ctx_prefix)
+                            zero_ctx_prefix=zero_ctx_prefix,
+                            fused_conv=self.cfg.fused_conv)
         x = self.conv_out(silu(self.conv_norm_out(x)))
         return x.permute(0, 2, 3, 1)
 

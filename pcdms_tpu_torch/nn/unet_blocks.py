@@ -2,6 +2,8 @@
 ``pcdms_tpu/nn/unet_blocks.py``), NCHW inside, diffusers state-dict names:
 ResnetBlock2D, Transformer2DModel (linear projections), Down/Upsample2D,
 CrossAttn{Down,Up}Block2D / {Down,Up}Block2D, UNetMidBlock2DCrossAttn.
+``fused_conv=True`` runs each resnet conv through the fused GroupNorm +
+SiLU + conv3x3 kernel (``ops/fused_conv.py``), as the JAX blocks' flag does.
 """
 
 from __future__ import annotations
@@ -15,11 +17,14 @@ from pcdms_tpu_torch.nn.layers import (
     Conv2d, GroupNorm, Linear, silu, upsample2x_conv3x3,
 )
 from pcdms_tpu_torch.nn.transformer import BasicTransformerBlock
+from pcdms_tpu_torch.ops.fused_conv import gn_silu_conv3x3
 
 
 class ResnetBlock2D(nn.Module):
     """GroupNorm -> SiLU -> conv3x3 (+ temb) -> GroupNorm -> SiLU -> conv3x3,
-    plus the (1x1-projected) shortcut. Only the unfused form is ported."""
+    plus the (1x1-projected) shortcut; ``fused=True`` runs each
+    GroupNorm -> SiLU -> conv3x3 as one fused-conv call, the time embedding
+    and the shortcut added in its epilogue."""
 
     def __init__(self, in_ch: int, out_ch: int,
                  temb_dim: Optional[int] = None, groups: int = 32,
@@ -34,14 +39,29 @@ class ResnetBlock2D(nn.Module):
         if in_ch != out_ch:
             self.conv_shortcut = Conv2d(in_ch, out_ch, 1)
 
-    def forward(self, x, temb=None):
-        h = self.conv1(silu(self.norm1(x)))
+    def forward(self, x, temb=None, fused: bool = False):
+        t = None
         if temb is not None and hasattr(self, "time_emb_proj"):
-            h = h + self.time_emb_proj(silu(temb))[:, :, None, None]
+            t = self.time_emb_proj(silu(temb))
+        if fused:
+            h = self._gn_silu_conv(x, self.norm1, self.conv1, temb=t)
+            shortcut = (self.conv_shortcut(x)
+                        if hasattr(self, "conv_shortcut") else x)
+            return self._gn_silu_conv(h, self.norm2, self.conv2,
+                                      residual=shortcut)
+        h = self.conv1(silu(self.norm1(x)))
+        if t is not None:
+            h = h + t[:, :, None, None]
         h = self.conv2(silu(self.norm2(h)))
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h
+
+    @staticmethod
+    def _gn_silu_conv(x, norm, conv, **extra):
+        return gn_silu_conv3x3(x, norm.weight, norm.bias, conv.weight,
+                               conv.bias, num_groups=norm.num_groups,
+                               eps=norm.eps, **extra)
 
 
 class Transformer2DModel(nn.Module):
@@ -109,10 +129,10 @@ class DownBlock(nn.Module):
             self.downsamplers = nn.ModuleList([Downsample2D(out_ch)])
 
     def forward(self, x, temb, context, use_flash: bool = True,
-                zero_ctx_prefix: int = 0):
+                zero_ctx_prefix: int = 0, fused_conv: bool = False):
         skips = []
         for i, resnet in enumerate(self.resnets):
-            x = resnet(x, temb)
+            x = resnet(x, temb, fused=fused_conv)
             if hasattr(self, "attentions"):
                 x = self.attentions[i](x, context, use_flash=use_flash,
                                        zero_ctx_prefix=zero_ctx_prefix)
@@ -136,11 +156,11 @@ class MidBlock(nn.Module):
                                groups=groups)])
 
     def forward(self, x, temb, context, use_flash: bool = True,
-                zero_ctx_prefix: int = 0):
-        x = self.resnets[0](x, temb)
+                zero_ctx_prefix: int = 0, fused_conv: bool = False):
+        x = self.resnets[0](x, temb, fused=fused_conv)
         x = self.attentions[0](x, context, use_flash=use_flash,
                                zero_ctx_prefix=zero_ctx_prefix)
-        return self.resnets[1](x, temb)
+        return self.resnets[1](x, temb, fused=fused_conv)
 
 
 class UpBlock(nn.Module):
@@ -167,11 +187,13 @@ class UpBlock(nn.Module):
             self.upsamplers = nn.ModuleList([Upsample2D(out_ch)])
 
     def forward(self, x, skips: List[torch.Tensor], temb, context,
-                use_flash: bool = True, zero_ctx_prefix: int = 0):
+                use_flash: bool = True, zero_ctx_prefix: int = 0,
+                fused_conv: bool = False):
         for i, resnet in enumerate(self.resnets):
             # last skip first; the list is left as it was (a rematerialised
             # block runs twice on it)
-            x = resnet(torch.cat([x, skips[-1 - i]], dim=1), temb)
+            x = resnet(torch.cat([x, skips[-1 - i]], dim=1), temb,
+                       fused=fused_conv)
             if hasattr(self, "attentions"):
                 x = self.attentions[i](x, context, use_flash=use_flash,
                                        zero_ctx_prefix=zero_ctx_prefix)

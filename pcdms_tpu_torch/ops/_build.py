@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Each source under ``csrc/`` (``flash_attention.cu``: the forward kernels;
-``flash_attention_bwd.cu``: the backward kernels) is compiled by ``nvcc``
+``flash_attention_bwd.cu``: the backward kernels; ``fused_conv.cu``: the
+fused GroupNorm + SiLU + conv3x3 kernel) is compiled by ``nvcc``
 for ``sm_90a`` into a shared library of its own with a plain C interface
 and loaded with ``ctypes``. The builds run at first use, all ``nvcc``
 processes started together, from the repository's sources only, into
@@ -31,12 +32,15 @@ _ENTRIES = {
     "flash_attention": {
         "pcdms_flash_frozen": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
         "pcdms_flash_online": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
-        "pcdms_flash_shortkv": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+        "pcdms_flash_shortkv": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
         "pcdms_flash_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     },
     "flash_attention_bwd": {
         "pcdms_flash_dq": [_P] * 7 + [_I, _I, _I, _F, _F, _I, _P],
         "pcdms_flash_dkv": [_P] * 8 + [_I, _I, _I, _F, _F, _I, _P],
+    },
+    "fused_conv": {
+        "pcdms_fused_gn_silu_conv": [_P] * 7 + [_I] * 8 + [_P],
     },
 }
 

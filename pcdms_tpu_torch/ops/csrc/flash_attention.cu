@@ -10,11 +10,16 @@
 //                max / exp2 (PCDMS_EXP_BF16, l.122-133).
 //   * SHORTKV -> _shortkv_kernel (l.316-333): one-pass softmax with the exact
 //                row max; here a first pass over all (<= 384) keys finds it.
+//                It alone also takes head_dim 80 (CLIP ViT-H's 16 heads of
+//                80): the JAX kernel takes any head_dim, padding v to d_aug
+//                (l.338-350); here the kernel is a template on D, and D = 80
+//                is five mma k-steps of 16 for Q.K^T and ten 8-column
+//                tiles for P.V.
 // and of pcdms_tpu/ops/flash_attention_bwd.py:
 //   * ONLINE with an lse output -> _fwd_lse_kernel (l.53-92): the training
 //                forward, which also writes L = m + log2(l) per row for the
 //                backward kernels (flash_attention_bwd.cu).
-// All compute softmax(q.k^T * scale) . v over (B*H, L, 64), non-causal, in
+// All compute softmax(q.k^T * scale) . v over (B*H, L, D), non-causal, in
 // the exp2 domain with f32 scores, f32 accumulators and an f32 row-sum; the
 // output is acc / max(l, 1e-30). Keys past kv_len are masked to -1e30.
 //
@@ -60,13 +65,14 @@ enum Mode { kFrozen = 0, kOnline = 1, kShortKv = 2 };
 
 // One warp's 16 x 64 score tile, exp2 domain, masked past `limit`.
 // s[nt][e]: row g (e < 2) or g + 8 (e >= 2), key k0 + nt*8 + 2*t4 + (e & 1).
+template <int D>
 __device__ __forceinline__ void tile_scores(float s[8][4],
-                                            const uint32_t qa[4][4],
+                                            const uint32_t qa[][4],
                                             const __nv_bfloat16* ks, int k0,
                                             int limit, float scale_log2,
                                             int lane) {
   const int t4 = lane & 3;
-  mma_abt(s, qa, ks, lane);
+  mma_abt<D>(s, qa, ks, lane);
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
@@ -77,7 +83,7 @@ __device__ __forceinline__ void tile_scores(float s[8][4],
   }
 }
 
-template <int MODE, bool EXP_BF16>
+template <int MODE, bool EXP_BF16, int D>
 __global__ void __launch_bounds__(kThreadsBf16)
     flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
@@ -85,22 +91,22 @@ __global__ void __launch_bounds__(kThreadsBf16)
                    __nv_bfloat16* __restrict__ o,
                    float* __restrict__ lse, int lq, int lk,
                    float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * kStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBlockK * kStride];
+  __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * stride_of<D>()];
+  __shared__ __align__(16) __nv_bfloat16 vs[kBlockK * stride_of<D>()];
 
   const int bh = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  q += (size_t)bh * lq * kD;
-  o += (size_t)bh * lq * kD;
-  k += (size_t)bh * lk * kD;
-  v += (size_t)bh * lk * kD;
+  q += (size_t)bh * lq * D;
+  o += (size_t)bh * lq * D;
+  k += (size_t)bh * lk * D;
+  v += (size_t)bh * lk * D;
   const int r0 = blockIdx.x * kBlockQ + warp * 16 + g, r1 = r0 + 8;
   const bool live0 = r0 < lq, live1 = r1 < lq;
 
-  // Q as mma A fragments (16 rows x 64 d per warp), zero past lq
-  uint32_t qa[4][4];
-  load_a_frags(qa, q, blockIdx.x * kBlockQ + warp * 16, lq, lane);
+  // Q as mma A fragments (16 rows x D per warp), zero past lq
+  uint32_t qa[D / 16][4];
+  load_a_frags<D>(qa, q, blockIdx.x * kBlockQ + warp * 16, lq, lane);
 
   float m[2] = {kNegInf, kNegInf};
   if (MODE != kOnline) {
@@ -109,10 +115,10 @@ __global__ void __launch_bounds__(kThreadsBf16)
     const int limit = MODE == kFrozen ? min(lk, kFrozenKeys) : lk;
     for (int k0 = 0; k0 < limit; k0 += kBlockK) {
       __syncthreads();
-      load_tile_bf16(ks, k, k0, lk);
+      load_tile_bf16<D>(ks, k, k0, lk);
       __syncthreads();
       float s[8][4];
-      tile_scores(s, qa, ks, k0, limit, scale_log2, lane);
+      tile_scores<D>(s, qa, ks, k0, limit, scale_log2, lane);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         m[0] = fmaxf(m[0], fmaxf(s[nt][0], s[nt][1]));
@@ -127,20 +133,20 @@ __global__ void __launch_bounds__(kThreadsBf16)
     }
   }
 
-  float acc[8][4];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
+  for (int dt = 0; dt < D / 8; ++dt)
     acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
   float l[2] = {0.f, 0.f};  // this lane's share of the row-sums
 
   for (int k0 = 0; k0 < lk; k0 += kBlockK) {
     __syncthreads();
-    load_tile_bf16(ks, k, k0, lk);
-    load_tile_bf16(vs, v, k0, lk);
+    load_tile_bf16<D>(ks, k, k0, lk);
+    load_tile_bf16<D>(vs, v, k0, lk);
     __syncthreads();
 
     float s[8][4];
-    tile_scores(s, qa, ks, k0, lk, scale_log2, lane);
+    tile_scores<D>(s, qa, ks, k0, lk, scale_log2, lane);
 
     if (MODE == kOnline) {
       float mc[2] = {kNegInf, kNegInf};
@@ -159,7 +165,7 @@ __global__ void __launch_bounds__(kThreadsBf16)
         m[r] = m_new;
         l[r] *= alpha;
 #pragma unroll
-        for (int dt = 0; dt < 8; ++dt) {
+        for (int dt = 0; dt < D / 8; ++dt) {
           acc[dt][2 * r] *= alpha;
           acc[dt][2 * r + 1] *= alpha;
         }
@@ -184,7 +190,7 @@ __global__ void __launch_bounds__(kThreadsBf16)
     }
     uint32_t pa[4][4];
     pack_a(pa, s);
-    mma_ab(acc, pa, vs, lane);   // acc += P . V
+    mma_ab<D>(acc, pa, vs, lane);   // acc += P . V
   }
 
   const float l0 = fmaxf(quad_sum(l[0]), 1e-30f);
@@ -196,70 +202,70 @@ __global__ void __launch_bounds__(kThreadsBf16)
     if (live1) lse[r1] = m[1] + log2f(l1);
   }
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
+  for (int dt = 0; dt < D / 8; ++dt) {
     const int c = dt * 8 + t4 * 2;
     if (live0)
-      *reinterpret_cast<uint32_t*>(o + (size_t)r0 * kD + c) =
+      *reinterpret_cast<uint32_t*>(o + (size_t)r0 * D + c) =
           pack_bf16(acc[dt][0] / l0, acc[dt][1] / l0);
     if (live1)
-      *reinterpret_cast<uint32_t*>(o + (size_t)r1 * kD + c) =
+      *reinterpret_cast<uint32_t*>(o + (size_t)r1 * D + c) =
           pack_bf16(acc[dt][2] / l1, acc[dt][3] / l1);
   }
 }
 
-template <int MODE, bool EXP_BF16>
+template <int MODE, bool EXP_BF16, int D>
 __global__ void __launch_bounds__(kThreadsF32)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
                   float* __restrict__ lse, int lq, int lk, float scale_log2) {
-  __shared__ __align__(16) float ks[kBlockK * kD];
-  __shared__ __align__(16) float vs[kBlockK * kD];
+  __shared__ __align__(16) float ks[kBlockK * D];
+  __shared__ __align__(16) float vs[kBlockK * D];
 
   const int bh = blockIdx.y;
   const int row = blockIdx.x * kBlockQ + threadIdx.x;
   const bool live = row < lq;
-  q += (size_t)bh * lq * kD;
-  o += (size_t)bh * lq * kD;
-  k += (size_t)bh * lk * kD;
-  v += (size_t)bh * lk * kD;
+  q += (size_t)bh * lq * D;
+  o += (size_t)bh * lq * D;
+  k += (size_t)bh * lk * D;
+  v += (size_t)bh * lk * D;
 
-  float qr[kD];
+  float qr[D];
 #pragma unroll
-  for (int d = 0; d < kD; ++d) qr[d] = live ? q[(size_t)row * kD + d] : 0.f;
+  for (int d = 0; d < D; ++d) qr[d] = live ? q[(size_t)row * D + d] : 0.f;
 
   float m = kNegInf;
   if (MODE != kOnline) {
     const int limit = MODE == kFrozen ? min(lk, kFrozenKeys) : lk;
     for (int k0 = 0; k0 < limit; k0 += kBlockK) {
       __syncthreads();
-      load_tile_f32(ks, k, k0, lk);
+      load_tile_f32<D>(ks, k, k0, lk);
       __syncthreads();
       const int n = min(kBlockK, limit - k0);
       for (int j = 0; j < n; ++j) {
         float s = 0.f;
 #pragma unroll
-        for (int d = 0; d < kD; ++d) s = fmaf(qr[d], ks[j * kD + d], s);
+        for (int d = 0; d < D; ++d) s = fmaf(qr[d], ks[j * D + d], s);
         m = fmaxf(m, s * scale_log2);
       }
     }
     if (MODE == kFrozen) m += kFrozenMargin;
   }
 
-  float acc[kD];
+  float acc[D];
 #pragma unroll
-  for (int d = 0; d < kD; ++d) acc[d] = 0.f;
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
   float l = 0.f;
 
   for (int k0 = 0; k0 < lk; k0 += kBlockK) {
     __syncthreads();
-    load_tile_f32(ks, k, k0, lk);
-    load_tile_f32(vs, v, k0, lk);
+    load_tile_f32<D>(ks, k, k0, lk);
+    load_tile_f32<D>(vs, v, k0, lk);
     __syncthreads();
     const int n = min(kBlockK, lk - k0);
     for (int j = 0; j < n; ++j) {
       float s = 0.f;
 #pragma unroll
-      for (int d = 0; d < kD; ++d) s = fmaf(qr[d], ks[j * kD + d], s);
+      for (int d = 0; d < D; ++d) s = fmaf(qr[d], ks[j * D + d], s);
       s *= scale_log2;
       float p;
       if (MODE == kOnline) {
@@ -269,7 +275,7 @@ __global__ void __launch_bounds__(kThreadsF32)
           m = s;
           l *= alpha;
 #pragma unroll
-          for (int d = 0; d < kD; ++d) acc[d] *= alpha;
+          for (int d = 0; d < D; ++d) acc[d] *= alpha;
         }
         p = EXP_BF16 ? round_bf16(exp2f(round_bf16(s - round_bf16(m))))
                      : exp2f(s - m);
@@ -278,32 +284,32 @@ __global__ void __launch_bounds__(kThreadsF32)
       }
       l += p;
 #pragma unroll
-      for (int d = 0; d < kD; ++d) acc[d] = fmaf(p, vs[j * kD + d], acc[d]);
+      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vs[j * D + d], acc[d]);
     }
   }
 
   if (live) {
     const float ls = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < kD; ++d) o[(size_t)row * kD + d] = acc[d] / ls;
+    for (int d = 0; d < D; ++d) o[(size_t)row * D + d] = acc[d] / ls;
     if (lse != nullptr) lse[(size_t)bh * lq + row] = m + log2f(ls);
   }
 }
 
-template <int MODE, bool EXP_BF16>
+template <int MODE, bool EXP_BF16, int D = kD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int bh, int lq, int lk, float scale_log2, int is_bf16,
            void* stream) {
   const dim3 grid((lq + kBlockQ - 1) / kBlockQ, bh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    flash_fwd_bf16<MODE, EXP_BF16><<<grid, kThreadsBf16, 0, st>>>(
+    flash_fwd_bf16<MODE, EXP_BF16, D><<<grid, kThreadsBf16, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
         lse, lq, lk, scale_log2);
   else
-    flash_fwd_f32<MODE, EXP_BF16><<<grid, kThreadsF32, 0, st>>>(
+    flash_fwd_f32<MODE, EXP_BF16, D><<<grid, kThreadsF32, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, lq, lk,
         scale_log2);
@@ -312,7 +318,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
-// q, k, v, o: contiguous (bh, lq | lk, 64), bf16 (is_bf16 = 1) or f32.
+// q, k, v, o: contiguous (bh, lq | lk, 64), bf16 (is_bf16 = 1) or f32
+// (head_dim 64 or 80 for the short-kv entry, which takes it as an argument).
 // scale_log2 = softmax scale * log2(e).
 extern "C" int pcdms_flash_frozen(const void* q, const void* k, const void* v,
                                   void* o, int bh, int lq, int lk,
@@ -336,7 +343,11 @@ extern "C" int pcdms_flash_online(const void* q, const void* k, const void* v,
 extern "C" int pcdms_flash_shortkv(const void* q, const void* k,
                                    const void* v, void* o, int bh, int lq,
                                    int lk, float scale_log2, int is_bf16,
-                                   void* stream) {
+                                   int head_dim, void* stream) {
+  if (head_dim == 80)
+    return launch<kShortKv, false, 80>(q, k, v, o, nullptr, bh, lq, lk,
+                                       scale_log2, is_bf16, stream);
+  if (head_dim != kD) return static_cast<int>(cudaErrorInvalidValue);
   return launch<kShortKv, false>(q, k, v, o, nullptr, bh, lq, lk,
                                  scale_log2, is_bf16, stream);
 }

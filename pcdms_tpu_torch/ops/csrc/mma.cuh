@@ -1,9 +1,12 @@
-// Tile helpers shared by the flash-attention kernels (forward and backward).
+// Tile helpers shared by the flash-attention kernels (forward and backward)
+// and the fused GroupNorm + SiLU + conv3x3 kernel (mma_bf16, ldmatrix).
 //
-// Layout conventions: a (len, 64) bf16 matrix is staged in shared memory as
-// rows padded to kStride = 72 elements (144 B), which keeps both the 32-bit
-// fragment loads and ldmatrix free of bank conflicts. The tensor-core
-// product is mma.sync m16n8k16 (bf16 in, f32 accumulate); a warp's
+// Layout conventions: a (len, D) bf16 matrix (head_dim D = 64, or 80 for the
+// short-kv kernel) is staged in shared memory as rows padded to D + 8
+// elements (144 B at 64, 176 B at 80), which keeps both the 32-bit fragment
+// loads and ldmatrix free of bank conflicts. The helpers take D as a
+// template argument that defaults to 64. The tensor-core product is
+// mma.sync m16n8k16 (bf16 in, f32 accumulate); a warp's
 // accumulator tile c[nt][e] holds row g (e < 2) or g + 8 (e >= 2) and
 // column nt * 8 + 2 * t4 + (e & 1), with g = lane / 4 and t4 = lane % 4.
 
@@ -18,6 +21,10 @@ namespace pcdms {
 constexpr int kD = 64;             // head_dim
 constexpr int kTile = 64;          // rows of a q / k tile in shared memory
 constexpr int kStride = kD + 8;    // padded bf16 row in shared memory
+
+template <int D>
+__host__ __device__ constexpr int stride_of() { return D + 8; }
+
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -63,65 +70,71 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// rows [row0, row0 + kTile) of a (len, kD) bf16 matrix -> padded shared
+// rows [row0, row0 + kTile) of a (len, D) bf16 matrix -> padded shared
 // tile, zero-filled past len (so masked rows multiply zeros, never garbage)
+template <int D = kD>
 __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
                                                const __nv_bfloat16* src,
                                                int row0, int len) {
-  for (int c = threadIdx.x; c < kTile * (kD / 8); c += blockDim.x) {
-    const int r = c >> 3, col = (c & 7) * 8;
+  constexpr int kChunks = D / 8;   // 16-byte chunks per row
+  for (int c = threadIdx.x; c < kTile * kChunks; c += blockDim.x) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < len)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kD +
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D +
                                             col);
-    *reinterpret_cast<uint4*>(dst + r * kStride + col) = val;
+    *reinterpret_cast<uint4*>(dst + r * stride_of<D>() + col) = val;
   }
 }
 
-// rows [row0, row0 + kTile) of a (len, kD) f32 matrix -> unpadded shared
+// rows [row0, row0 + kTile) of a (len, D) f32 matrix -> unpadded shared
 // tile, zero-filled past len
+template <int D = kD>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
                                               int row0, int len) {
-  for (int c = threadIdx.x; c < kTile * (kD / 4); c += blockDim.x) {
-    const int r = c >> 4, col = (c & 15) * 4;
+  constexpr int kChunks = D / 4;   // 16-byte chunks per row
+  for (int c = threadIdx.x; c < kTile * kChunks; c += blockDim.x) {
+    const int r = c / kChunks, col = (c % kChunks) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < len)
-      val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * kD +
+      val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D +
                                              col);
-    *reinterpret_cast<float4*>(dst + r * kD + col) = val;
+    *reinterpret_cast<float4*>(dst + r * D + col) = val;
   }
 }
 
-// A fragments of 16 rows x 64 d of a (len, kD) bf16 matrix in global
-// memory, rows r0 = row0 + g and r1 = r0 + 8, zero past len
-__device__ __forceinline__ void load_a_frags(uint32_t a[4][4],
+// A fragments of 16 rows x D of a (len, D) bf16 matrix in global memory
+// (D / 16 k-steps), rows r0 = row0 + g and r1 = r0 + 8, zero past len
+template <int D = kD>
+__device__ __forceinline__ void load_a_frags(uint32_t a[][4],
                                              const __nv_bfloat16* src,
                                              int row0, int len, int lane) {
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = row0 + g, r1 = r0 + 8;
   const bool live0 = r0 < len, live1 = r1 < len;
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
+  for (int kc = 0; kc < D / 16; ++kc) {
     const int c = kc * 16 + t4 * 2;
-    a[kc][0] = live0 ? ld32(src + (size_t)r0 * kD + c) : 0u;
-    a[kc][1] = live1 ? ld32(src + (size_t)r1 * kD + c) : 0u;
-    a[kc][2] = live0 ? ld32(src + (size_t)r0 * kD + c + 8) : 0u;
-    a[kc][3] = live1 ? ld32(src + (size_t)r1 * kD + c + 8) : 0u;
+    a[kc][0] = live0 ? ld32(src + (size_t)r0 * D + c) : 0u;
+    a[kc][1] = live1 ? ld32(src + (size_t)r1 * D + c) : 0u;
+    a[kc][2] = live0 ? ld32(src + (size_t)r0 * D + c + 8) : 0u;
+    a[kc][3] = live1 ? ld32(src + (size_t)r1 * D + c + 8) : 0u;
   }
 }
 
-// c[nt] = a . tile^T for a warp's 16 rows against the 64 rows of a padded
-// shared tile (16 x 64 result, f32)
-__device__ __forceinline__ void mma_abt(float c[8][4], const uint32_t a[4][4],
+// c[nt] = a . tile^T for a warp's 16 rows (k = D) against the 64 rows of a
+// padded shared tile (16 x 64 result, f32)
+template <int D = kD>
+__device__ __forceinline__ void mma_abt(float c[8][4], const uint32_t a[][4],
                                         const __nv_bfloat16* tile, int lane) {
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
     c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      const __nv_bfloat16* p = tile + (nt * 8 + g) * kStride + kc * 16 +
-                               t4 * 2;
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const __nv_bfloat16* p = tile + (nt * 8 + g) * stride_of<D>() +
+                               kc * 16 + t4 * 2;
       mma_bf16(c[nt], a[kc], ld32(p), ld32(p + 8));
     }
   }
@@ -141,18 +154,19 @@ __device__ __forceinline__ void pack_a(uint32_t a[4][4], const float c[8][4]) {
 }
 
 // acc += a . tile for a (16 x 64) A operand against a padded shared tile of
-// 64 rows x 64 d (k = the tile's rows), B fragments via ldmatrix.trans, two
+// 64 rows x D (k = the tile's rows), B fragments via ldmatrix.trans, two
 // 8-column d tiles per x4 load
-__device__ __forceinline__ void mma_ab(float acc[8][4], const uint32_t a[4][4],
+template <int D = kD>
+__device__ __forceinline__ void mma_ab(float acc[][4], const uint32_t a[4][4],
                                        const __nv_bfloat16* tile, int lane) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
+    for (int dp = 0; dp < D / 16; ++dp) {
       uint32_t b[4];
       const int row = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
       const int col = (dp * 2 + (lane >> 4)) * 8;
-      ldmatrix_x4_trans(b, tile + row * kStride + col);
+      ldmatrix_x4_trans(b, tile + row * stride_of<D>() + col);
       mma_bf16(acc[2 * dp], a[kk], b[0], b[1]);
       mma_bf16(acc[2 * dp + 1], a[kk], b[2], b[3]);
     }

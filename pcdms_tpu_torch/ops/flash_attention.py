@@ -7,7 +7,9 @@ CUDA C++ for Hopper here (``csrc/flash_attention.cu``). Each has a wrapper
 that launches the kernel for a CUDA tensor (or raises) and takes the plain
 PyTorch version, which repeats the kernel's arithmetic, for a CPU tensor.
 Each wrapper counts its launches in ``LAUNCHES`` (which also counts the
-backward kernels of ``flash_attention_bwd``).
+backward kernels of ``flash_attention_bwd`` and the fused conv of
+``fused_conv``). The short-kv kernel takes head_dim 64 or 80 (CLIP ViT-H);
+the others take 64, the head_dim of every path that reaches them.
 
 The router ``flash_attention`` keeps the JAX package's routes and switches:
 
@@ -49,15 +51,23 @@ _FROZEN_KEYS = 128
 _SHORTKV_MAX = 384
 _BLOCK_K = 64          # the kernels' k tile; the plain online version walks it
 _HEAD_DIM = 64         # the kernels' head_dim
+# the short-kv kernel also takes CLIP ViT-H's head_dim 80
+_SHORTKV_HEAD_DIMS = (64, 80)
 
+# launches per kernel, read by chip_smoke.py: also those of the backward
+# kernels (flash_attention_bwd) and of the fused conv (fused_conv)
 LAUNCHES = {"flash_frozen": 0, "flash_online": 0, "flash_shortkv": 0,
-            "flash_fwd_lse": 0, "flash_dq": 0, "flash_dkv": 0}
+            "flash_fwd_lse": 0, "flash_dq": 0, "flash_dkv": 0,
+            "fused_gn_silu_conv": 0}
+# the short-kv launches again, by head_dim
+SHORTKV_LAUNCHES = {d: 0 for d in _SHORTKV_HEAD_DIMS}
 _BWD_CHUNK = 256       # q rows per step of the short-kv route's backward
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, SHORTKV_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def attention_reference(q, k, v, scale=None):
@@ -138,7 +148,7 @@ def flash_online_plain(q, k, v, scale: float, exp_bf16: bool = False):
 # kernel wrappers: CUDA tensor -> kernel (or raise), CPU tensor -> plain
 # ---------------------------------------------------------------------------
 
-def _check(q, k, v):
+def _check(q, k, v, head_dims=(_HEAD_DIM,)):
     for t in (q, k, v):
         if not t.is_cuda:
             raise ValueError(f"flash attention kernels take CUDA tensors, "
@@ -147,9 +157,10 @@ def _check(q, k, v):
                                                  torch.float32):
             raise TypeError(f"flash attention kernels take bf16 or f32 "
                             f"q/k/v of one dtype, got {t.dtype}")
-        if t.dim() != 3 or t.shape[-1] != _HEAD_DIM:
-            raise ValueError(f"flash attention kernels take (BH, L, "
-                             f"{_HEAD_DIM}) tensors, got {tuple(t.shape)}")
+        if t.dim() != 3 or t.shape[-1] not in head_dims:
+            raise ValueError(f"this flash attention kernel takes (BH, L, D) "
+                             f"tensors with D in {head_dims}, got "
+                             f"{tuple(t.shape)}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("flash attention kernels take contiguous, "
                              "16-byte aligned tensors")
@@ -162,8 +173,9 @@ def _check(q, k, v):
         raise ValueError("flash attention needs lq > 0 and lk > 0")
 
 
-def _launch(entry: str, q, k, v, scale: float, *extra):
-    _check(q, k, v)
+def _launch(entry: str, q, k, v, scale: float, *extra,
+            head_dims=(_HEAD_DIM,)):
+    _check(q, k, v, head_dims)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -194,11 +206,14 @@ def flash_online(q, k, v, scale: float, exp_bf16: bool = False):
 
 
 def shortkv_attention(q, k, v, scale: float):
-    """Short-kv (one-pass softmax) attention on (BH, L, 64) tensors."""
+    """Short-kv (one-pass softmax) attention on (BH, L, D) tensors, D = 64
+    or 80."""
     if q.device.type == "cpu":
         return shortkv_plain(q, k, v, scale)
-    out = _launch("pcdms_flash_shortkv", q, k, v, scale)
+    out = _launch("pcdms_flash_shortkv", q, k, v, scale, q.shape[-1],
+                  head_dims=_SHORTKV_HEAD_DIMS)
     LAUNCHES["flash_shortkv"] += 1
+    SHORTKV_LAUNCHES[q.shape[-1]] += 1
     return out
 
 

@@ -2,7 +2,8 @@
 ``pcdms_tpu/train/frozen.py``), in the port's own format.
 
 A bundle is one ``torch.save`` file, ``<dir>/frozen.pt``, mapping an encoder
-name ("vae", ...) to its module's state dict. ``--frozen_dir`` makes every
+name ("vae", "dino", "clip") to its module's state dict;
+``load_frozen_modules`` builds the modules back from it. ``--frozen_dir`` makes every
 trainer and sampler of a run use the same frozen encoders, which matters
 for random-init and tiny-config runs where each would otherwise draw its
 own. ``load_trained_params`` pulls the inference parameters (the EMA shadow
@@ -52,6 +53,23 @@ def load_frozen(directory) -> Dict[str, Dict[str, torch.Tensor]]:
     if not path.exists():
         raise FileNotFoundError(f"no frozen bundle at {path}")
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_frozen_modules(directory,
+                        builders: Dict[str, Callable[[], torch.nn.Module]]
+                        ) -> Dict[str, torch.nn.Module]:
+    """Build each encoder named in ``builders`` and load its weights from
+    the bundle at ``directory``; raises ``KeyError`` if the bundle lacks
+    one (the inference CLIs' ``--frozen_dir`` contract)."""
+    bundle = load_frozen(directory)
+    missing = sorted(set(builders) - set(bundle))
+    if missing:
+        raise KeyError(f"the frozen bundle in {directory} lacks {missing}")
+    out = {}
+    for name, build in builders.items():
+        out[name] = build()
+        out[name].load_state_dict(bundle[name])
+    return out
 
 
 def frozen_dir_or_build(directory: Optional[str],

@@ -1,6 +1,7 @@
-"""The CUDA flash-attention kernels against their plain PyTorch versions,
-on a card only (marker ``cuda``; they skip without one, since a CUDA kernel
-has no CPU form). JAX-free, so it also runs where JAX is absent:
+"""The CUDA kernels (flash attention, and the fused GroupNorm + SiLU +
+conv3x3) against their plain PyTorch versions, on a card only (marker
+``cuda``; they skip without one, since a CUDA kernel has no CPU form).
+JAX-free, so it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 
@@ -9,7 +10,9 @@ max abs error 1e-2 of the output's largest magnitude, which admits the one
 bf16 ulp (at most 2^-7 of a value) by which two accumulation orders may
 round apart. Backward bars, each scaled to its output: bf16 max abs error
 1e-2 of the largest magnitude and relative L2 5e-3; f32 max abs error 2e-5
-of the largest magnitude; the LSE 1e-4 of its largest magnitude.
+of the largest magnitude; the LSE 1e-4 of its largest magnitude. The fused
+conv: bf16 max abs error 1e-2 of the largest magnitude and relative L2
+5e-3, f32 max abs error 2e-5 of the largest magnitude.
 """
 
 import math
@@ -19,6 +22,7 @@ import torch
 
 from pcdms_tpu_torch.ops import flash_attention as fa
 from pcdms_tpu_torch.ops import flash_attention_bwd as fb
+from pcdms_tpu_torch.ops import fused_conv as fc
 
 D = 64
 
@@ -167,3 +171,91 @@ def test_inference_routing_unchanged(cuda):
     with torch.no_grad():
         fa.flash_attention(q.requires_grad_(), k, v)
     assert {n: c for n, c in fa.LAUNCHES.items() if c} == {"flash_frozen": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(257, 257), (300, 100), (64, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_shortkv_head_dim_80_matches_plain(cuda, dtype, lq, lk):
+    """CLIP ViT-H's head_dim 80 through the short-kv kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v = (torch.randn((3, m, 80), generator=gen, device=cuda).to(dtype)
+               for m in (lq, lk, lk))
+    fa.reset_launches()
+    got = fa.shortkv_attention(q, k, v, 1.0 / math.sqrt(80))
+    want = fa.shortkv_plain(q, k, v, 1.0 / math.sqrt(80))
+    torch.cuda.synchronize()
+    assert fa.SHORTKV_LAUNCHES == {64: 0, 80: 1}
+    assert got.dtype == dtype and got.shape == q.shape
+    bar = (2e-5 if dtype == torch.float32
+           else 1e-2 * want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= bar
+
+
+def _conv_inputs(dev, dtype, b, h, w, cin, cout, mode, seed=15):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = (rand(b, cin, h, w) * 2 + 0.3).to(dtype)
+    a, c = rand(b, cin).abs() + 0.5, rand(b, cin) * 0.3
+    weight = (rand(cout, cin, 3, 3) / math.sqrt(9 * cin)).to(dtype)
+    bias = rand(cout).to(dtype)
+    temb = rand(b, cout).to(dtype) if mode == "temb" else None
+    res = rand(b, cout, h, w).to(dtype) if mode == "residual" else None
+    return x, a, c, weight, bias, temb, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "temb", "residual", "no_act"])
+@pytest.mark.parametrize("shape", [(2, 8, 16, 64, 128), (3, 7, 9, 40, 24),
+                                   (1, 16, 32, 320, 200)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_conv_matches_plain(cuda, dtype, shape, mode):
+    """The fused conv kernel in every mode, at a ragged shape (pixels and
+    output channels that fill no tile) and at one with Cout > 128."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, a, c, weight, bias, temb, res = _conv_inputs(cuda, dtype, *shape,
+                                                    mode)
+    act = mode != "no_act"
+    fa.reset_launches()
+    got = fc.fused_gn_silu_conv(x, a, c, weight, bias, temb, res, act)
+    want = fc.fused_gn_silu_conv_plain(x, a, c, weight, bias, temb, res, act)
+    torch.cuda.synchronize()
+    assert {n: k for n, k in fa.LAUNCHES.items() if k} == {
+        "fused_gn_silu_conv": 1}
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    if dtype == torch.bfloat16:
+        assert _max_rel(got, want) <= 1e-2 and _rel_l2(got, want) <= 5e-3
+    else:
+        assert _max_rel(got, want) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_fused_conv_under_autograd_raises(cuda):
+    """No backward: a CUDA call that autograd would record raises, and never
+    returns a tensor cut from the graph."""
+    x, a, c, weight, bias, temb, _ = _conv_inputs(cuda, torch.bfloat16, 1, 8,
+                                                  8, 16, 16, "temb")
+    with pytest.raises(NotImplementedError):
+        fc.gn_silu_conv3x3(x.requires_grad_(), torch.ones(16, device=cuda),
+                           torch.zeros(16, device=cuda), weight, bias,
+                           num_groups=4, temb=temb)
+    w = torch.nn.Parameter(weight)
+    with pytest.raises(NotImplementedError):
+        fc.fused_gn_silu_conv(x.detach(), a, c, w, bias)
+    with torch.no_grad():
+        assert fc.fused_gn_silu_conv(x.detach(), a, c, w, bias).shape == (
+            1, 16, 8, 8)
+
+
+@pytest.mark.cuda
+def test_fused_conv_refuses_outside_its_domain(cuda):
+    x, a, c, weight, bias, _, _ = _conv_inputs(cuda, torch.bfloat16, 1, 8, 8,
+                                               12, 16, "none")
+    with pytest.raises(ValueError):          # Cin not a multiple of 8
+        fc.fused_gn_silu_conv(x, a, c, weight, bias)
+    with pytest.raises(TypeError):
+        fc.fused_gn_silu_conv(x.half(), a, c, weight, bias)

@@ -117,8 +117,7 @@ def test_deferred_options_raise(option):
                         compute_dtype=torch.float32, device="cpu", **option)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("fused_conv", True), ("freeu", (1.0, 1.0, 1.0, 1.0))])
+@pytest.mark.parametrize("field,value", [("freeu", (1.0, 1.0, 1.0, 1.0))])
 def test_deferred_unet_options_raise(field, value):
     import dataclasses
     from pcdms_tpu_torch.models.unet2d import UNet2DConditionModel, UNetConfig
