@@ -27,8 +27,11 @@ Phases, each reported on its own lines:
      PCDMS_FROZEN_MAX=0 PCDMS_SHORTKV=pallas, and DDIM 4 steps with the
      fused UNet), with decode;
   5. the backward kernels (LSE forward, dq, dk/dv) against their plain
-     versions at the training shapes and a ragged one (bf16, one f32 spot
-     check), timed against the plain versions and SDPA's forward / backward;
+     versions at the training shapes and at ragged ones on both sides of
+     the block and stage sizes (bf16, one f32 spot check; the bf16 dq and
+     dk/dv kernels are warp-specialised: a TMA ring in shared memory feeding
+     wgmma), timed at the three levels against the plain versions and SDPA's
+     forward / backward;
   6. one full-width UNet gradient (batch 1, 64x128 latents, bf16 compute,
      f32 master weights) through the kernels and through plain attention:
      relative L2 of the whole gradient and of level 0's to_q / to_k / to_v,
@@ -113,6 +116,9 @@ BAR_BWD_REL_L2, BAR_F32_REL, BAR_LSE_REL = 5e-3, 2e-5, 1e-4
 BAR_GRAD_REL_L2 = 5e-2
 # (B*H, Lq, Lk) of the training self-attention, batch 2 at 512x1024
 TRAIN_SHAPES = PATH_SHAPES + [(10, 640, 600)]
+# lengths on both sides of the bf16 backward kernels' 128-row blocks and
+# 64- / 128-row ring stages, one row, and a long ragged kv
+BWD_EDGE_SHAPES = [(3, 129, 127), (3, 1, 64), (3, 70, 130), (3, 192, 8200)]
 
 CSRC = "pcdms_tpu_torch/ops/csrc/"
 KERNELS = {   # name -> (source, TPU kernel it replaces)
@@ -572,8 +578,8 @@ def _rel_l2(got, want):
 
 def phase_bwd_kernels(fb):
     """Kernels 4-6 vs their plain versions on the same inputs, timed at the
-    three training levels; returns the level-0 records for the JSON
-    line."""
+    three training levels; returns the level-0 records for the JSON line,
+    each with the other two levels under ``other_levels``."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     records = {}
@@ -651,10 +657,13 @@ def phase_bwd_kernels(fb):
                           max(errs["dk"], errs["dv"])),
         }
         for name, (ms, plain_ms, lib_ms, (b_ms, b_by), err) in rows.items():
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
             if record:
-                records[name] = dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms, bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=lib_ms)
+                records[name] = dict(rec, other_levels=[])
+            else:
+                records[name]["other_levels"].append(
+                    dict(rec, shape=[bh, lq, lk]))
             print(f"[bwd]   {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
                   f" library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})",
                   flush=True)
@@ -668,6 +677,8 @@ def phase_bwd_kernels(fb):
         check(bh, lq, lk, torch.bfloat16, timed=(bh, lq, lk) in PATH_SHAPES,
               record=i == 0)
         torch.cuda.empty_cache()
+    for bh, lq, lk in BWD_EDGE_SHAPES:
+        check(bh, lq, lk, torch.bfloat16, timed=False)
     check(2, 640, 600, torch.float32, timed=False)
     return records
 

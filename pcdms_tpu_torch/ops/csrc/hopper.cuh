@@ -1,0 +1,324 @@
+// Hopper (sm_90a) building blocks for the attention backward kernels: the
+// tensor map a TMA copy needs, mbarriers, TMA loads, wgmma descriptors and
+// the wgmma products (bf16 in, f32 accumulate), as thin PTX wrappers.
+//
+// Layout conventions
+//
+// * Shared-memory tiles. A (rows, 64) bf16 tile is stored as rows of 128
+//   bytes, row r at byte r * 128 of a 1024-byte aligned base, with the
+//   128-byte swizzle: the 16-byte chunk c of row r lies at chunk
+//   c ^ (r & 7). That is what a TMA copy with CU_TENSOR_MAP_SWIZZLE_128B
+//   writes and what a wgmma descriptor with layout type 1 (B128) reads; the
+//   swizzle is a function of the address bits (bits 4-6 ^= bits 7-9), which
+//   is why the base must be 1024-byte aligned. Eight rows form one 1024-byte
+//   swizzle atom.
+// * Tensor maps. A (BH, L, 64) tensor is mapped as three dimensions
+//   (64, L, BH), innermost first, box (64, 64, 1): one copy brings 64 rows
+//   of one head, and rows past L are filled with zeros by the hardware (a
+//   two-dimensional map over BH * L rows would bring the next head's rows
+//   instead). A copy always counts the whole box, 8192 bytes, on its
+//   mbarrier, however many rows were out of range.
+// * K-major operand (the product contracts over the tile's 64 columns: the
+//   A operand of S = Q.K^T, and K as its B operand): descriptor start = the
+//   tile's (or the 64-row slice's) address, stride byte offset (SBO) = 1024,
+//   the distance between 8-row groups; the leading byte offset is not used
+//   by a swizzled K-major layout. The k-step of 16 columns advances the
+//   start address by 32 bytes (descriptor + 2).
+// * MN-major operand (the product contracts over the tile's rows: K as the
+//   B operand of dS.K, read with trans-b = 1): the 64 columns are one
+//   128-byte row, 8 rows of k lie 128 bytes apart and the next 8 at SBO =
+//   1024; the leading byte offset (the next 64 columns) is never reached at
+//   N = 64. The k-step of 16 rows advances the start address by 2048 bytes
+//   (descriptor + 128).
+// * Register fragments. The f32 accumulator of m64nNk16 holds, in thread
+//   (warp w, lane) of the warpgroup, d[4 * nt + e] = row 16 w + lane / 4
+//   (+ 8 if e >= 2), column 8 nt + 2 (lane % 4) + (e & 1): per warp the
+//   m16n8 accumulator layout. An A operand from registers is four 32-bit
+//   registers per k-step of 16, a[kk] = {d[8kk], d[8kk+1]}, {d[8kk+2],
+//   d[8kk+3]}, {d[8kk+4], d[8kk+5]}, {d[8kk+6], d[8kk+7]} packed to bf16
+//   pairs, so an accumulator becomes the A operand of the next product
+//   without leaving the thread (pack_a).
+// * Barrier phases. An mbarrier starts in phase 0; mbar_wait(bar, p)
+//   returns once the phase of parity p has completed. A ring stage has a
+//   `full` barrier (the producer's expect-tx arrival plus the bytes of its
+//   copies) and an `empty` barrier (one arrival per consumer warp). Both
+//   sides keep (stage, phase) and flip phase when the stage wraps; the
+//   consumer waits full[stage] with `phase`, the producer waits
+//   empty[stage] with `phase ^ 1`, which passes at once on the first lap.
+// * Proxies. TMA and wgmma use the asynchronous proxy. Data that a TMA copy
+//   wrote is visible to wgmma after the mbarrier wait. Shared memory that
+//   threads wrote and wgmma or a TMA store then reads needs
+//   fence.proxy.async.shared::cta first (no kernel here does that: the
+//   epilogues write and read their staging buffer with ordinary loads and
+//   stores). wgmma_fence() orders register accesses (accumulators, A
+//   fragments) before the next batch of products.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+namespace pcdms {
+namespace hopper {
+
+constexpr int kRowBytes = 128;           // one 64-element bf16 row
+constexpr int kBoxRows = 64;             // rows of one TMA copy
+constexpr int kBoxBytes = kBoxRows * kRowBytes;
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in libcuda at first use (the process
+// has it loaded once a CUDA context exists), so that the library links
+// against nothing but the runtime; nullptr if it is not to be had
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    void* p = lib ? dlsym(lib, "cuTensorMapEncodeTiled") : nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// the map of a contiguous (bh, len, 64) bf16 tensor, box 64 x 64 x 1,
+// 128-byte swizzle, zeros past len; false if the encoding is refused
+inline bool make_tensor_map(CUtensorMap* map, const void* base, int bh,
+                            int len) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {64, (cuuint64_t)len, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {kRowBytes, (cuuint64_t)len * kRowBytes};
+  const cuuint32_t box[3] = {64, kBoxRows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---------------------------------------------------------------------------
+// device: addresses, barriers, copies
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// after the inits, before any other thread or the TMA unit uses a barrier
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// returns once the phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one arrival on `bar` once every cp.async this thread has issued so far
+// has landed; counted in the barrier's initial count (noinc)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+// 4 bytes global -> shared, or 4 zero bytes when `live` is false
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+
+// rows [row, row + 64) of head `bh` -> 8192 swizzled bytes at dst, counted
+// on `bar`; rows past the tensor's length arrive as zeros
+__device__ __forceinline__ void tma_load_rows(void* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int row,
+                                              int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
+      "r"(row), "r"(bh)
+      : "memory");
+}
+
+template <int kRegs>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// barrier `id` (1-15) among `threads` threads, e.g. one warpgroup
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// device: wgmma
+// ---------------------------------------------------------------------------
+
+// descriptor of a 128-byte-swizzled tile (or 64-row slice) at `p`
+__device__ __forceinline__ uint64_t make_desc(const void* p) {
+  const uint64_t addr = (smem_u32(p) & 0x3FFFFu) >> 4;
+  return addr | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+constexpr uint64_t kStepK = 32 >> 4;       // K-major: 16 columns on
+constexpr uint64_t kStepMN = 2048 >> 4;    // MN-major: 16 rows on
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+#define PCDMS_ACC8(d, o)                                                  \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),             \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define PCDMS_ACC32(d, o)                                                 \
+  PCDMS_ACC8(d, o), PCDMS_ACC8(d, o + 8), PCDMS_ACC8(d, o + 16),          \
+      PCDMS_ACC8(d, o + 24)
+
+#define PCDMS_R32                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+  "%28, %29, %30, %31}"
+#define PCDMS_R64                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "     \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "     \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 64) = or += A (64 x 16, shared, K-major) . B^T (64 x 16, shared,
+// K-major); `accumulate` false overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PCDMS_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : PCDMS_ACC32(d, 0)
+      : "l"(a), "l"(b), "r"((int)accumulate));
+}
+
+// the same with a 128-row B tile: d is 64 x 128
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PCDMS_R64
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : PCDMS_ACC32(d, 0), PCDMS_ACC32(d, 32)
+      : "l"(a), "l"(b), "r"((int)accumulate));
+}
+
+// d (64 x 64) += A (64 x 16, registers) . B (16 rows x 64 columns of a
+// shared tile, MN-major: trans-b = 1)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PCDMS_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : PCDMS_ACC32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// pins an accumulator between the asynchronous products and the code that
+// reads or writes it, so that the compiler moves neither across a wait
+template <int kN>
+__device__ __forceinline__ void fence_acc(float (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack2_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// k-step kk (16 columns) of an accumulator, rounded to bf16, as the A
+// operand of the next product
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float* d,
+                                       int kk) {
+  a[0] = pack2_bf16(d[8 * kk], d[8 * kk + 1]);
+  a[1] = pack2_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack2_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack2_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+}  // namespace hopper
+}  // namespace pcdms

@@ -8,7 +8,10 @@ TPU kernels are hand-written CUDA C++ for Hopper here:
 * ``flash_bwd``: D = rowsum(dO o O) (a torch reduction, as JAX leaves it to
   XLA), then the dq kernel and the dk/dv kernel
   (``csrc/flash_attention_bwd.cu``), which rebuild P = exp2(s - L) tile by
-  tile without an online rescale.
+  tile without an online rescale. In bf16 both are warp-specialised Hopper
+  kernels (TMA copies into a shared-memory ring, ``wgmma`` products); a
+  block owns 128 rows (q rows in dq, keys in dk/dv) and walks the other
+  operand in tiles (``bwd_plan``).
 
 Each wrapper launches its kernels for CUDA tensors (or raises) and takes the
 plain PyTorch version, which repeats the kernels' arithmetic and roundings,
@@ -75,6 +78,27 @@ def flash_bwd_plain(q, k, v, out, lse2, do, scale: float):
 
 
 # ---------------------------------------------------------------------------
+# the bf16 kernels' tiling
+# ---------------------------------------------------------------------------
+
+# rows a block owns, and rows of the looped operand per ring stage (k / v in
+# dq, q / dO in dk/dv); the constants of ``csrc/flash_attention_bwd.cu``
+BLOCK_ROWS, _DQ_TILE, _DKV_TILE = 128, 128, 64
+
+
+def bwd_plan(lq: int, lk: int, bh: int) -> dict:
+    """How the two bf16 kernels cut (bh, lq, lk): per kernel the grid and
+    the looped operand's tile and tile count. Block i of a head owns rows
+    [i * BLOCK_ROWS, (i + 1) * BLOCK_ROWS) and writes those below the
+    length; tile j holds looped rows [j * tile, (j + 1) * tile), zero past
+    the length."""
+    return {name: dict(grid=(-(-own // BLOCK_ROWS), bh), tile=tile,
+                       tiles=-(-looped // tile))
+            for name, own, looped, tile in (("dq", lq, lk, _DQ_TILE),
+                                            ("dkv", lk, lq, _DKV_TILE))}
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers: CUDA tensor -> kernel (or raise), CPU tensor -> plain
 # ---------------------------------------------------------------------------
 
@@ -125,6 +149,25 @@ def launch_dkv(q, k, v, lse2, do, dsum, scale: float):
     return dk, dv
 
 
+def check_bwd_layout(q, out, lse2, do) -> None:
+    """What the backward kernels need of ``out``, ``do`` and ``lse2`` beside
+    q: q's shape, contiguous, at 16-byte aligned addresses (a tensor map
+    takes nothing else); ``lse2`` a contiguous, 4-byte aligned f32 (BH, Lq)
+    tensor on q's device. Raises ValueError otherwise."""
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} / do {tuple(do.shape)} "
+                         f"must match q {tuple(q.shape)}")
+    for name, t in (("out", out), ("do", do)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             f"aligned")
+    if (lse2.dtype != torch.float32 or lse2.shape != q.shape[:2]
+            or not lse2.is_contiguous() or lse2.device != q.device
+            or lse2.data_ptr() % 4):
+        raise ValueError("lse2 must be a contiguous, aligned f32 (BH, Lq) "
+                         "tensor on q's device")
+
+
 def flash_bwd(q, k, v, out, lse2, do, scale: float):
     """Gradients (dq, dk, dv) of attention on (BH, L, 64) tensors, from the
     forward's ``out`` and ``lse2`` (``flash_fwd_lse``) and the output
@@ -133,13 +176,7 @@ def flash_bwd(q, k, v, out, lse2, do, scale: float):
         return flash_bwd_plain(q, k, v, out, lse2, do, scale)
     _check(q, k, v)
     _check(out, do, do)
-    if out.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"out {tuple(out.shape)} / do {tuple(do.shape)} "
-                         f"must match q {tuple(q.shape)}")
-    if (lse2.dtype != torch.float32 or lse2.shape != q.shape[:2]
-            or not lse2.is_contiguous() or lse2.device != q.device):
-        raise ValueError("lse2 must be a contiguous f32 (BH, Lq) tensor on "
-                         "q's device")
+    check_bwd_layout(q, out, lse2, do)
     dsum = row_dot(do, out)
     dq = launch_dq(q, k, v, lse2, do, dsum, scale)
     LAUNCHES["flash_dq"] += 1

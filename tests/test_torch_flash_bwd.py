@@ -10,6 +10,7 @@ Bar: f32 atol 1e-4, rtol 1e-3.
 """
 
 import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -161,3 +162,120 @@ def test_no_grad_routing_unchanged(monkeypatch):
                                  1.0 / math.sqrt(64))
     torch.testing.assert_close(got[0], want, atol=0, rtol=0)
 
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernels' tiling and input checks, as far as the CPU reaches them
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bh,lq,lk", [
+    (10, 8192, 8192), (20, 2048, 2048), (40, 512, 512),   # the UNet's levels
+    (3, 70, 130), (3, 129, 127), (3, 192, 8200), (2, 1, 64), (1, 64, 1),
+    (1, 1, 1)])
+def test_bwd_plan_covers_every_row_once(bh, lq, lk):
+    """Per kernel, the blocks own every row of their operand exactly once
+    and the looped tiles hold every row of the other exactly once."""
+    plan = fb.bwd_plan(lq, lk, bh)
+    for name, own, looped in (("dq", lq, lk), ("dkv", lk, lq)):
+        p = plan[name]
+        assert p["grid"][1] == bh
+        owned = np.zeros(own, int)
+        for i in range(p["grid"][0]):
+            owned[i * fb.BLOCK_ROWS:(i + 1) * fb.BLOCK_ROWS] += 1
+        assert (owned == 1).all()
+        assert (p["grid"][0] - 1) * fb.BLOCK_ROWS < own     # no empty block
+        walked = np.zeros(looped, int)
+        for j in range(p["tiles"]):
+            walked[j * p["tile"]:(j + 1) * p["tile"]] += 1
+        assert (walked == 1).all()
+        assert (p["tiles"] - 1) * p["tile"] < looped        # no empty tile
+
+
+def test_bwd_plan_has_the_kernels_constants():
+    """The plan's block and tile rows are those the CUDA source compiles."""
+    src = (Path(fb.__file__).resolve().parent / "csrc"
+           / "flash_attention_bwd.cu").read_text()
+    assert "constexpr int kConsumers = 2;" in src
+    assert "constexpr int kBlockRows = kConsumers * 64;" in src
+    assert fb.BLOCK_ROWS == 2 * 64
+    plan = fb.bwd_plan(8192, 8192, 10)
+    assert f"kDqTile = {plan['dq']['tile']}," in src
+    assert f"kDkvTile = {plan['dkv']['tile']}," in src
+    assert plan["dq"]["grid"] == plan["dkv"]["grid"] == (64, 10)
+
+
+@pytest.mark.parametrize("bh,length,blocks,dq_tiles,dkv_tiles", [
+    (10, 8192, 64, 64, 128), (20, 2048, 16, 16, 32), (40, 512, 4, 4, 8)])
+def test_bwd_plan_at_the_unet_levels(bh, length, blocks, dq_tiles,
+                                     dkv_tiles):
+    """Grid and ring trips of both kernels at the UNet's three
+    self-attention shapes: 128-row blocks; 128-key stages in dq, 64-row
+    stages in dk/dv."""
+    plan = fb.bwd_plan(length, length, bh)
+    assert plan["dq"] == dict(grid=(blocks, bh), tile=128, tiles=dq_tiles)
+    assert plan["dkv"] == dict(grid=(blocks, bh), tile=64, tiles=dkv_tiles)
+
+
+def _layout_inputs():
+    q = torch.zeros((2, 64, 64))
+    return q, torch.zeros_like(q), torch.zeros((2, 64)), torch.zeros_like(q)
+
+
+def test_bwd_layout_check_accepts_what_the_forward_returns():
+    fb.check_bwd_layout(*_layout_inputs())
+
+
+@pytest.mark.parametrize("case", ["do_transposed", "do_misaligned",
+                                  "out_strided", "lse2_strided",
+                                  "lse2_shape", "lse2_dtype", "do_shape"])
+def test_bwd_layout_check_raises(case):
+    """``flash_bwd`` hands a CUDA call's ``out``, ``do`` and ``lse2`` to
+    ``check_bwd_layout``: contiguous, 16-byte aligned, of q's shape."""
+    q, out, lse2, do = _layout_inputs()
+    if case == "do_transposed":
+        do = do.transpose(1, 2)
+    elif case == "do_misaligned":
+        do = torch.zeros(do.numel() + 4)[1:1 + do.numel()].view_as(do)
+        assert do.is_contiguous() and do.data_ptr() % 16
+    elif case == "out_strided":
+        out = torch.zeros((2, 64, 128))[..., ::2]
+    elif case == "lse2_strided":
+        lse2 = torch.zeros((2, 64, 2))[..., 0]
+    elif case == "lse2_shape":
+        lse2 = lse2[:, :32]
+    elif case == "lse2_dtype":
+        lse2 = lse2.double()
+    else:
+        do = do[:, :32]
+    with pytest.raises(ValueError):
+        fb.check_bwd_layout(q, out, lse2, do)
+
+
+def test_flash_bwd_checks_cuda_inputs_before_launching():
+    """On a CUDA tensor ``flash_bwd`` runs the checks and then the kernels,
+    with no route to the plain version."""
+    import inspect
+    src = inspect.getsource(fb.flash_bwd)
+    cuda_part = src.split("return flash_bwd_plain", 1)[1]
+    assert "check_bwd_layout(q, out, lse2, do)" in cuda_part
+    assert "_check(q, k, v)" in cuda_part
+    assert "plain" not in cuda_part and "try" not in cuda_part
+    assert cuda_part.index("check_bwd_layout") < cuda_part.index("launch_dq")
+
+
+def test_bf16_backward_source_is_the_hopper_design():
+    """The bf16 dq and dk/dv kernels issue wgmma, fill their ring by TMA
+    under mbarriers, and no longer use the warp-level mma."""
+    csrc = Path(fb.__file__).resolve().parent / "csrc"
+    bwd = (csrc / "flash_attention_bwd.cu").read_text()
+    hopper = (csrc / "hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in bwd
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.",
+                   "setmaxnreg", "CU_TENSOR_MAP_SWIZZLE_128B"):
+        assert needle in hopper, needle
+    for call in ("hp::wgmma_ss(", "hp::wgmma_rs(", "hp::tma_load_rows(",
+                 "hp::mbar_wait(", "hp::reg_alloc<"):
+        assert call in bwd, call
+    for gone in ("mma.sync", "mma_bf16(", "mma_abt(", "mma_ab(",
+                 "load_tile_bf16(", "getenv"):
+        assert gone not in bwd, gone

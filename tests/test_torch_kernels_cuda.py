@@ -97,15 +97,28 @@ def _rel_l2(got, want):
     return ((got - want).norm() / want.norm()).item()
 
 
+def _assert_grads_match(grads, p_grads, dtype):
+    for got, want in zip(grads, p_grads):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        if dtype == torch.bfloat16:
+            assert _max_rel(got, want) <= 1e-2
+            assert _rel_l2(got, want) <= 5e-3
+        else:
+            assert _max_rel(got, want) <= 2e-5
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("lq,lk", [(640, 600), (70, 130), (128, 128),
-                                   (64, 65), (1, 130)])
+@pytest.mark.parametrize("bh,lq,lk", [
+    (3, 640, 600), (3, 70, 130), (3, 128, 128), (3, 64, 65), (3, 1, 130),
+    # on both sides of the 128-row blocks and the 64- / 128-row ring stages
+    (3, 129, 127), (3, 1, 64), (2, 8192, 8192), (3, 192, 8200)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_backward_kernels_match_plain(cuda, dtype, lq, lk):
+def test_backward_kernels_match_plain(cuda, dtype, bh, lq, lk):
     """LSE forward, dq and dk/dv against their plain versions; ragged lq
     and lk exercise the masked rows and columns."""
-    q, k, v = _qkv(cuda, dtype, 3, lq, lk)
-    do = _qkv(cuda, dtype, 3, lq, lq, seed=12)[0]
+    q, k, v = _qkv(cuda, dtype, bh, lq, lk)
+    do = _qkv(cuda, dtype, bh, lq, lq, seed=12)[0]
     scale = 1.0 / math.sqrt(D)
     fa.reset_launches()
     out, lse2 = fb.flash_fwd_lse(q, k, v, scale)
@@ -119,14 +132,96 @@ def test_backward_kernels_match_plain(cuda, dtype, lq, lk):
     assert _max_rel(lse2, p_lse2) <= 1e-4
     bf16 = dtype == torch.bfloat16
     assert _max_rel(out, p_out) <= (1e-2 if bf16 else 2e-5)
-    for got, want in zip(grads, p_grads):
-        assert got.dtype == dtype and got.shape == want.shape
-        assert torch.isfinite(got).all()
-        if bf16:
-            assert _max_rel(got, want) <= 1e-2
-            assert _rel_l2(got, want) <= 5e-3
-        else:
-            assert _max_rel(got, want) <= 2e-5
+    _assert_grads_match(grads, p_grads, dtype)
+
+
+def _bwd_inputs(dev, bh, lq, lk):
+    """bf16 q, k, v, dO with the LSE and D of the plain forward."""
+    q, k, v = _qkv(dev, torch.bfloat16, bh, lq, lk)
+    do = _qkv(dev, torch.bfloat16, bh, lq, lq, seed=12)[0]
+    scale = 1.0 / math.sqrt(D)
+    out, lse2 = fb.flash_fwd_lse_plain(q, k, v, scale)
+    return q, k, v, lse2, do, fb.row_dot(do, out), scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,lq,lk", [(3, 129, 127), (3, 1, 64), (2, 64, 3),
+                                      (3, 320, 200), (5, 1030, 520)])
+def test_backward_kernels_alone_match_plain(cuda, bh, lq, lk):
+    """The bf16 dq and dk/dv kernels alone, from the plain forward's LSE."""
+    args = _bwd_inputs(cuda, bh, lq, lk)
+    grads = (fb.launch_dq(*args), *fb.launch_dkv(*args))
+    torch.cuda.synchronize()
+    want = (fb.flash_dq_plain(*args), *fb.flash_dkv_plain(*args))
+    _assert_grads_match(grads, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(70, 130), (129, 127), (200, 60)])
+def test_backward_kernels_never_read_the_neighbouring_head(cuda, lq, lk):
+    """Heads share one buffer: with every value of heads 0 and 2 set to Inf,
+    head 1's gradients are those of head 1 alone, bit for bit. A tile that
+    ran past a ragged length into the next head's rows would carry Inf."""
+    one = _bwd_inputs(cuda, 1, lq, lk)
+    three = []
+    for x in one[:-1]:
+        y = torch.full((3, *x.shape[1:]), float("inf"), dtype=x.dtype,
+                       device=cuda)
+        y[1] = x[0]
+        three.append(y)
+    scale = one[-1]
+    alone = (fb.launch_dq(*one), *fb.launch_dkv(*one))
+    among = (fb.launch_dq(*three, scale), *fb.launch_dkv(*three, scale))
+    torch.cuda.synchronize()
+    want = (fb.flash_dq_plain(*one), *fb.flash_dkv_plain(*one))
+    for a, b in zip(alone, among):
+        assert torch.isfinite(b[1]).all()
+        assert torch.equal(a[0], b[1])
+    _assert_grads_match(alone, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,lq,lk", [(3, 129, 127), (4, 2048, 1100)])
+def test_backward_kernels_are_deterministic(cuda, bh, lq, lk):
+    """No atomics: two calls on the same inputs give the same bits."""
+    q, k, v, lse2, do, _, scale = _bwd_inputs(cuda, bh, lq, lk)
+    out = fb.flash_fwd_lse(q, k, v, scale)[0]
+    first = fb.flash_bwd(q, k, v, out, lse2, do, scale)
+    second = fb.flash_bwd(q, k, v, out, lse2, do, scale)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_across_many_live_tensors(cuda):
+    """The launcher keeps the last few tensor maps; more live tensor sets
+    than it keeps, visited in turn, still give each set its own result."""
+    sets = [_bwd_inputs(cuda, 2, 100 + 7 * i, 90 + 5 * i) for i in range(7)]
+    first = [(fb.launch_dq(*a), *fb.launch_dkv(*a)) for a in sets]
+    for _ in range(2):
+        for a, want in zip(sets, first):
+            got = (fb.launch_dq(*a), *fb.launch_dkv(*a))
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+    a = sets[3]
+    _assert_grads_match(first[3], (fb.flash_dq_plain(*a),
+                                   *fb.flash_dkv_plain(*a)), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_backward_refuses_bad_layouts(cuda):
+    """A CUDA tensor reaches the kernels or raises: ``do`` and ``lse2`` must
+    be contiguous and aligned (a tensor map takes nothing else)."""
+    q, k, v, lse2, do, _, scale = _bwd_inputs(cuda, 2, 64, 64)
+    out = fb.flash_fwd_lse(q, k, v, scale)[0]
+    flat = torch.zeros(do.numel() + 8, dtype=do.dtype, device=cuda)
+    misaligned = flat[1:1 + do.numel()].view_as(do)
+    wide = torch.zeros((2, 64, 2), device=cuda)
+    for bad_do, bad_lse2 in ((do.transpose(1, 2), lse2), (misaligned, lse2),
+                             (do, wide[..., 0]), (do, lse2[:, :32])):
+        with pytest.raises(ValueError):
+            fb.flash_bwd(q, k, v, out, bad_lse2, bad_do, scale)
 
 
 @pytest.mark.cuda
