@@ -9,9 +9,13 @@ Phases, each reported on its own lines:
      each kernel's registers and spills;
   2. hold each forward attention kernel against its plain PyTorch version on
      the card at the main path's shapes (bf16, with f32 spot checks; the
-     short-kv kernel also at CLIP ViT-H's head_dim 80), and time the kernel,
-     the plain version, and ``scaled_dot_product_attention`` as a yardstick;
-     then the fused conv kernel against its plain version at the 14 conv
+     short-kv kernel also at CLIP ViT-H's head_dim 80; the frozen, online and
+     online[exp_bf16] kernels, which in bf16 are warp-specialised, a TMA ring
+     feeding wgmma, also at ragged shapes on both sides of their 128-row
+     blocks and 128-key stages), and time the kernel, the plain version, and
+     ``scaled_dot_product_attention`` as a yardstick at the three levels,
+     and the frozen kernel, the LSE forward and SDPA at the reference
+     protocol's batch 8 (B*H = 80); then the fused conv kernel against its plain version at the 14 conv
      shapes of the full-width UNet (bf16, in the mode the UNet uses there),
      mode 0 and apply_act=False at level 0, f32 and a ragged shape, each UNet
      shape timed beside the plain version, the port's unfused route
@@ -116,9 +120,13 @@ BAR_BWD_REL_L2, BAR_F32_REL, BAR_LSE_REL = 5e-3, 2e-5, 1e-4
 BAR_GRAD_REL_L2 = 5e-2
 # (B*H, Lq, Lk) of the training self-attention, batch 2 at 512x1024
 TRAIN_SHAPES = PATH_SHAPES + [(10, 640, 600)]
-# lengths on both sides of the bf16 backward kernels' 128-row blocks and
-# 64- / 128-row ring stages, one row, and a long ragged kv
-BWD_EDGE_SHAPES = [(3, 129, 127), (3, 1, 64), (3, 70, 130), (3, 192, 8200)]
+# lengths on both sides of the bf16 kernels' 128-row blocks and 64- /
+# 128-row ring stages, one row, a long ragged kv, and fewer keys than the
+# 128 the frozen max is taken of
+EDGE_SHAPES = [(3, 129, 127), (3, 1, 64), (3, 70, 130), (3, 192, 8200),
+               (3, 200, 100)]
+# the reference protocol's batch 8, CFG-doubled, at level 0 (kernel time only)
+BATCH8_SHAPE = (80, 8192, 8192)
 
 CSRC = "pcdms_tpu_torch/ops/csrc/"
 KERNELS = {   # name -> (source, TPU kernel it replaces)
@@ -202,9 +210,10 @@ def phase_build():
                 print(f"[build]   {line.strip()}")
 
 
-def phase_kernels(fa):
+def phase_kernels(fa, fb):
     """Each kernel vs its plain version; returns per-kernel records at the
-    level-0 shape for the JSON line."""
+    level-0 shape for the JSON line, the frozen and online kernels' with the
+    other two levels under ``other_levels``."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     records = {}
@@ -255,18 +264,21 @@ def phase_kernels(fa):
     bf16, f32 = torch.bfloat16, torch.float32
     variants = [
         ("flash_frozen", fa.flash_frozen, fa.flash_frozen_plain,
-         PATH_SHAPES + [(10, 640, 600)]),
+         PATH_SHAPES + [(10, 640, 600)] + EDGE_SHAPES),
         ("flash_online", fa.flash_online, fa.flash_online_plain,
-         PATH_SHAPES + [(10, 640, 600)]),
+         PATH_SHAPES + [(10, 640, 600)] + EDGE_SHAPES),
         ("flash_shortkv", fa.shortkv_attention, fa.shortkv_plain,
          SHORTKV_SHAPES + [(10, 300, 100)]),
     ]
     for name, kernel, plain, shapes in variants:
-        for i, (bh, lq, lk) in enumerate(shapes):
-            rec = check(name, kernel, plain, bh, lq, lk, bf16,
-                        timed=lk != 600 and lk != 100)
+        for i, shape in enumerate(shapes):
+            rec = check(name, kernel, plain, *shape, bf16,
+                        timed=shape in PATH_SHAPES + SHORTKV_SHAPES)
             if i == 0:
                 records[name] = rec
+            elif rec and name != "flash_shortkv":
+                records[name].setdefault("other_levels", []).append(
+                    dict(rec, shape=list(shape)))
         bh, lq, lk = (2, 640, 258) if name == "flash_shortkv" else (2, 640,
                                                                      600)
         check(name, kernel, plain, bh, lq, lk, f32, False)
@@ -278,8 +290,24 @@ def phase_kernels(fa):
           f32, False, d=80)
     ob = (lambda q, k, v, s: fa.flash_online(q, k, v, s, True),
           lambda q, k, v, s: fa.flash_online_plain(q, k, v, s, True))
-    check("flash_online[exp_bf16]", *ob, 10, 2048, 2048, bf16, False, True)
+    for shape in [(10, 2048, 2048), (10, 640, 600)] + EDGE_SHAPES:
+        check("flash_online[exp_bf16]", *ob, *shape, bf16, False, True)
     check("flash_online[exp_bf16]", *ob, 2, 640, 600, f32, False, True)
+
+    # the reference protocol's batch at level 0: kernel times only
+    q, k, v = inputs(*BATCH8_SHAPE, bf16, 64)
+    ms = {"flash_frozen": cuda_ms(lambda: fa.flash_frozen(q, k, v, 0.125), 5),
+          "flash_fwd_lse": cuda_ms(lambda: fb.flash_fwd_lse(q, k, v, 0.125),
+                                   5),
+          "library (SDPA forward)": cuda_ms(
+              lambda: torch.nn.functional.scaled_dot_product_attention(
+                  q[None], k[None], v[None]), 5)}
+    bh, lq, lk = BATCH8_SHAPE
+    print(f"[kernel] batch 8 (bh={bh} lq={lq} lk={lk}, bf16), kernel_ms: "
+          + " ".join(f"{n}={t:.4f}" for n, t in ms.items())
+          + f" bound_ms={bound_ms(bh, lq, lk)[0]:.4f}", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
     return records
 
 
@@ -428,11 +456,25 @@ def phase_unet(fa, models, dev):
     ctx[:1] = 0
     labels[:1] = 0
     ts = torch.tensor([500, 500], device=dev)
+    # the self-attentions of one forward by (B*H, Lq, Lk), read by a hook on
+    # every transformer block's ``attn1`` (its input is (B, L, C), head
+    # width 64)
+    shapes = {}
+
+    def count(module, args):
+        b, length, _ = args[0].shape
+        key = (b * module.heads, length, length)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(count)
+             for name, m in unet.named_modules() if name.endswith(".attn1")]
     with torch.inference_mode():
         fa.reset_launches()
         eps_k = unet(sample, ts, ctx, labels, pose, zero_ctx_prefix=1)
         torch.cuda.synchronize()
         launches = dict(fa.LAUNCHES)
+        for hook in hooks:
+            hook.remove()
         unet.cfg = dataclasses.replace(unet.cfg, use_flash=False)
         try:
             eps_p = unet(sample, ts, ctx, labels, pose, zero_ctx_prefix=1)
@@ -444,7 +486,8 @@ def phase_unet(fa, models, dev):
            / eps_p.float().norm()).item()
     print(f"[unet] stage2 UNet 512x1024 batch 2 bf16: eps rel_l2 kernels vs "
           f"plain = {rel:.3e} (bar {BAR_UNET_REL_L2:g}); launches {launches};"
-          f" forward_ms={fwd_ms:.2f}", flush=True)
+          f" forward_ms={fwd_ms:.2f}; self-attentions by (B*H, Lq, Lk): "
+          f"{shapes}", flush=True)
     if not torch.isfinite(eps_k).all() or not rel <= BAR_UNET_REL_L2:
         fail("full-width UNet eps: kernels disagree with plain attention")
     if launches["flash_frozen"] != 15 or sum(launches.values()) != 15:
@@ -677,7 +720,7 @@ def phase_bwd_kernels(fb):
         check(bh, lq, lk, torch.bfloat16, timed=(bh, lq, lk) in PATH_SHAPES,
               record=i == 0)
         torch.cuda.empty_cache()
-    for bh, lq, lk in BWD_EDGE_SHAPES:
+    for bh, lq, lk in EDGE_SHAPES:
         check(bh, lq, lk, torch.bfloat16, timed=False)
     check(2, 640, 600, torch.float32, timed=False)
     return records
@@ -1069,7 +1112,7 @@ def main() -> int:
           flush=True)
     t0 = time.perf_counter()
     phase_build()
-    records = phase_kernels(fa)
+    records = phase_kernels(fa, fb)
     records["fused_gn_silu_conv"] = phase_fused_conv(fc)
     models = build_models(dev)
     phase_unet(fa, models, dev)

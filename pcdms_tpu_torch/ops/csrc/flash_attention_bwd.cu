@@ -62,7 +62,7 @@
 //   * Host side: the C entry encodes the four tensor maps of a launch from
 //     the pointers it is given and passes them by value (__grid_constant__);
 //     the dq and dk/dv launches of one backward need the same four, so the
-//     last eight are kept per host thread.
+//     last eight are kept per host thread (hp::MapCache).
 //   * f32 (--mixed_precision no): FMA kernels, two threads per row, each
 //     holding every other element of the row; the dot products are summed
 //     across the pair by one shuffle.
@@ -88,11 +88,18 @@ constexpr int kHalf = kD / 2;   // elements of a row held by one f32 thread
 // bf16: TMA ring -> wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kWg = 128;                 // threads of a warpgroup
-constexpr int kSlice = 64 * 64;          // elements of a 64-row slice
-constexpr int kConsumers = 2;            // consumer warpgroups of a block
-constexpr int kBlockRows = kConsumers * 64;
-constexpr int kBlockThreads = (kConsumers + 1) * kWg;
+// the block's shape (two consumer warpgroups of 64 rows and one producer)
+// and the helpers it shares with the forward kernels
+using hp::kBlockRows;
+using hp::kBlockThreads;
+using hp::kConsumers;
+using hp::kSlice;
+using hp::kWg;
+using hp::Ring;
+using hp::ex2;
+using hp::shared_storage;
+using hp::store_slice;
+
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kDqTile = 128, kDqStages = 3;    // k / v rows a stage
 constexpr int kDkvTile = 64, kDkvStages = 4;   // q / dO rows a stage
@@ -109,33 +116,6 @@ struct DkvSmem {
   float lse[kDkvStages][kDkvTile], dsum[kDkvStages][kDkvTile];
   uint64_t own, full[kDkvStages], empty[kDkvStages];
 };
-
-// dynamic shared memory, moved up to the 1024-byte boundary the swizzle
-// needs
-template <typename Smem>
-__device__ __forceinline__ Smem& shared_storage(uint8_t* raw) {
-  const uint32_t pad = (1024u - (hp::smem_u32(raw) & 1023u)) & 1023u;
-  return *reinterpret_cast<Smem*>(raw + pad);
-}
-
-// ring position: stage and the parity of its current lap
-struct Ring {
-  int stage = 0;
-  uint32_t phase = 0;
-  template <int ST>
-  __device__ __forceinline__ void advance() {
-    if (++stage == ST) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // P of one 64 x KT tile from S, in place. kMasked: keys from `lk` on get
 // P = 0.
@@ -207,38 +187,6 @@ __device__ __forceinline__ void dkv_tile_ds(uint32_t (&ads)[4][4],
       }
     }
     hp::pack_a(ads[kk], dpt, kk);
-  }
-}
-
-// a warp's 16 x 64 part of a warpgroup's f32 accumulator, times `mul`, as
-// bf16 through `slice` (the warpgroup's 64 x 64 swizzled buffer) to rows
-// [row0, row0 + 64) of a (len, 64) matrix; rows past len are not written.
-// Each warp touches only its own 16 rows of the slice.
-__device__ __forceinline__ void store_slice(__nv_bfloat16* dst,
-                                            __nv_bfloat16* slice,
-                                            const float (&acc)[32], float mul,
-                                            int row0, int len, int warp,
-                                            int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r = warp * 16 + g;   // r and r + 8 share (r & 7) = g
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int col = ((nt ^ g) << 3) + 2 * t4;
-    *reinterpret_cast<uint32_t*>(slice + r * 64 + col) =
-        hp::pack2_bf16(acc[4 * nt] * mul, acc[4 * nt + 1] * mul);
-    *reinterpret_cast<uint32_t*>(slice + (r + 8) * 64 + col) =
-        hp::pack2_bf16(acc[4 * nt + 2] * mul, acc[4 * nt + 3] * mul);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = i * 32 + lane;
-    const int rl = warp * 16 + (idx >> 3), chunk = idx & 7;
-    const uint4 val = *reinterpret_cast<const uint4*>(
-        slice + rl * 64 + ((chunk ^ (rl & 7)) << 3));
-    if (row0 + rl < len)
-      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + rl) * 64 + chunk * 8) =
-          val;
   }
 }
 
@@ -383,7 +331,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     // every product of this warpgroup that read its q slice has finished
     hp::named_barrier(1 + wg, kWg);
     store_slice(dq + (size_t)bh * lq * 64, sm.q + wg * kSlice, acc, scale,
-                wg_row0, lq, warp, lane);
+                scale, wg_row0, lq, warp, lane);
   }
 }
 
@@ -552,64 +500,23 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     // finished
     hp::named_barrier(1 + wg, kWg);
     store_slice(dk + (size_t)bh * lk * 64, sm.k + wg * kSlice, dka, scale,
-                wg_key0, lk, warp, lane);
+                scale, wg_key0, lk, warp, lane);
     store_slice(dv + (size_t)bh * lk * 64, sm.v + wg * kSlice, dva, 1.f,
-                wg_key0, lk, warp, lane);
+                1.f, wg_key0, lk, warp, lane);
   }
 }
 
-// The tensor maps of a launch. Encoding one costs the host about as much as
-// a launch, and the dq and dk/dv launches of one backward need the same
-// four, so the last few are kept per host thread, keyed by what defines
-// them (a map holds the address and the shape, never the data).
-struct MapCache {
-  static constexpr int kSlots = 8;
-  struct Slot {
-    const void* base = nullptr;
-    int bh = 0, len = 0;
-    CUtensorMap map;
-  } slots[kSlots];
-  int next = 0;
-
-  // copies the map out: a later miss may overwrite the slot
-  bool get(CUtensorMap* out, const void* base, int bh, int len) {
-    for (const Slot& s : slots)
-      if (s.base == base && s.bh == bh && s.len == len) {
-        *out = s.map;
-        return true;
-      }
-    if (!hp::make_tensor_map(out, base, bh, len)) return false;
-    Slot& s = slots[next];
-    next = (next + 1) % kSlots;
-    s.base = base;
-    s.bh = bh;
-    s.len = len;
-    s.map = *out;
-    return true;
-  }
-};
-
+// the four tensor maps of a backward launch (hp::MapCache keeps the last
+// few: the dq and dk/dv launches of one backward need the same four)
 struct Maps {
   CUtensorMap q, k, v, dout;
   bool encode(const void* q_, const void* k_, const void* v_,
               const void* do_, int bh, int lq, int lk) {
-    static thread_local MapCache cache;
+    static thread_local hp::MapCache cache;
     return cache.get(&q, q_, bh, lq) && cache.get(&k, k_, bh, lk) &&
            cache.get(&v, v_, bh, lk) && cache.get(&dout, do_, bh, lq);
   }
 };
-
-// opts the kernel in to its dynamic shared memory, once per device
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem, bool (&done)[64]) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess || (device < 64 && done[device])) return err;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess && device < 64) done[device] = true;
-  return err;
-}
 
 cudaError_t launch_dq_bf16(const Maps& m, const float* lse,
                            const float* dsum, __nv_bfloat16* dq, int bh,
@@ -617,7 +524,7 @@ cudaError_t launch_dq_bf16(const Maps& m, const float* lse,
                            cudaStream_t st) {
   constexpr int smem = sizeof(DqSmem) + 1024;
   static bool allowed[64] = {};
-  cudaError_t err = allow_smem(flash_dq_bf16, smem, allowed);
+  cudaError_t err = hp::allow_smem(flash_dq_bf16, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((lq + kBlockRows - 1) / kBlockRows, bh);
   flash_dq_bf16<<<grid, kBlockThreads, smem, st>>>(
@@ -631,7 +538,7 @@ cudaError_t launch_dkv_bf16(const Maps& m, const float* lse,
                             float scale_log2, float scale, cudaStream_t st) {
   constexpr int smem = sizeof(DkvSmem) + 1024;
   static bool allowed[64] = {};
-  cudaError_t err = allow_smem(flash_dkv_bf16, smem, allowed);
+  cudaError_t err = hp::allow_smem(flash_dkv_bf16, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((lk + kBlockRows - 1) / kBlockRows, bh);
   flash_dkv_bf16<<<grid, kBlockThreads, smem, st>>>(

@@ -1,6 +1,9 @@
-// Hopper (sm_90a) building blocks for the attention backward kernels: the
-// tensor map a TMA copy needs, mbarriers, TMA loads, wgmma descriptors and
-// the wgmma products (bf16 in, f32 accumulate), as thin PTX wrappers.
+// Hopper (sm_90a) building blocks for the attention kernels (forward and
+// backward): the tensor map a TMA copy needs, mbarriers, TMA loads, wgmma
+// descriptors and the wgmma products (bf16 in, f32 accumulate), as thin PTX
+// wrappers; and what the warp-specialised kernels share: the block's shape,
+// the ring position, the swizzled epilogue and, on the host, the cache of
+// tensor maps and the shared-memory opt-in.
 //
 // Layout conventions
 //
@@ -48,9 +51,9 @@
 // * Proxies. TMA and wgmma use the asynchronous proxy. Data that a TMA copy
 //   wrote is visible to wgmma after the mbarrier wait. Shared memory that
 //   threads wrote and wgmma or a TMA store then reads needs
-//   fence.proxy.async.shared::cta first (no kernel here does that: the
-//   epilogues write and read their staging buffer with ordinary loads and
-//   stores). wgmma_fence() orders register accesses (accumulators, A
+//   fence.proxy.async.shared::cta first (fence_proxy_async: the forward's
+//   tile of ones; the epilogues write and read their staging buffer with
+//   ordinary loads and stores and need none). wgmma_fence() orders register accesses (accumulators, A
 //   fragments) before the next batch of products.
 
 #pragma once
@@ -67,6 +70,14 @@ namespace hopper {
 constexpr int kRowBytes = 128;           // one 64-element bf16 row
 constexpr int kBoxRows = 64;             // rows of one TMA copy
 constexpr int kBoxBytes = kBoxRows * kRowBytes;
+
+// the warp-specialised block: consumer warpgroups of 64 rows each, then one
+// producer warpgroup whose registers setmaxnreg moves to the consumers
+constexpr int kWg = 128;                 // threads of a warpgroup
+constexpr int kSlice = 64 * 64;          // elements of a 64-row slice
+constexpr int kConsumers = 2;            // consumer warpgroups of a block
+constexpr int kBlockRows = kConsumers * 64;
+constexpr int kBlockThreads = (kConsumers + 1) * kWg;
 
 // ---------------------------------------------------------------------------
 // host: tensor maps
@@ -107,12 +118,82 @@ inline bool make_tensor_map(CUtensorMap* map, const void* base, int bh,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The tensor maps of a launch. Encoding one costs the host about as much as
+// a launch, and the launches of one forward or backward need the same few,
+// so the last few are kept per host thread, keyed by what defines them (a
+// map holds the address and the shape, never the data).
+struct MapCache {
+  static constexpr int kSlots = 8;
+  struct Slot {
+    const void* base = nullptr;
+    int bh = 0, len = 0;
+    CUtensorMap map;
+  } slots[kSlots];
+  int next = 0;
+
+  // copies the map out: a later miss may overwrite the slot
+  bool get(CUtensorMap* out, const void* base, int bh, int len) {
+    for (const Slot& s : slots)
+      if (s.base == base && s.bh == bh && s.len == len) {
+        *out = s.map;
+        return true;
+      }
+    if (!make_tensor_map(out, base, bh, len)) return false;
+    Slot& s = slots[next];
+    next = (next + 1) % kSlots;
+    s.base = base;
+    s.bh = bh;
+    s.len = len;
+    s.map = *out;
+    return true;
+  }
+};
+
+// opts the kernel in to its dynamic shared memory, once per device
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem, bool (&done)[64]) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || (device < 64 && done[device])) return err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && device < 64) done[device] = true;
+  return err;
+}
+
 // ---------------------------------------------------------------------------
 // device: addresses, barriers, copies
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// dynamic shared memory, moved up to the 1024-byte boundary the swizzle
+// needs
+template <typename Smem>
+__device__ __forceinline__ Smem& shared_storage(uint8_t* raw) {
+  const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<Smem*>(raw + pad);
+}
+
+// ring position: stage and the parity of its current lap
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  template <int ST>
+  __device__ __forceinline__ void advance() {
+    if (++stage == ST) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -189,6 +270,11 @@ __device__ __forceinline__ void tma_load_rows(void* dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
       "r"(row), "r"(bh)
       : "memory");
+}
+
+// makes what threads wrote to shared memory visible to wgmma and TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 template <int kRegs>
@@ -297,12 +383,38 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 8) += A (64 x 16, registers) . B (16 rows x 8 columns, MN-major):
+// against a tile of ones, d holds A's row-sums in every column
+__device__ __forceinline__ void wgmma_rs(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // pins an accumulator between the asynchronous products and the code that
 // reads or writes it, so that the compiler moves neither across a wait
 template <int kN>
 __device__ __forceinline__ void fence_acc(float (&d)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for an A operand in registers: a product that is still running
+// reads it, so it must stay where it is until the wait
+template <int kN>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[kN][4]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack2_bf16(float lo, float hi) {
@@ -318,6 +430,40 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float* d,
   a[1] = pack2_bf16(d[8 * kk + 2], d[8 * kk + 3]);
   a[2] = pack2_bf16(d[8 * kk + 4], d[8 * kk + 5]);
   a[3] = pack2_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// a warp's 16 x 64 part of a warpgroup's f32 accumulator, rows g and g + 8
+// of each 16 times `mul_lo` and `mul_hi`, as bf16 through `slice` (the
+// warpgroup's 64 x 64 swizzled buffer) to rows [row0, row0 + 64) of a
+// (len, 64) matrix; rows past len are not written. Each warp touches only
+// its own 16 rows of the slice.
+__device__ __forceinline__ void store_slice(__nv_bfloat16* dst,
+                                            __nv_bfloat16* slice,
+                                            const float (&acc)[32],
+                                            float mul_lo, float mul_hi,
+                                            int row0, int len, int warp,
+                                            int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r = warp * 16 + g;   // r and r + 8 share (r & 7) = g
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = ((nt ^ g) << 3) + 2 * t4;
+    *reinterpret_cast<uint32_t*>(slice + r * 64 + col) =
+        pack2_bf16(acc[4 * nt] * mul_lo, acc[4 * nt + 1] * mul_lo);
+    *reinterpret_cast<uint32_t*>(slice + (r + 8) * 64 + col) =
+        pack2_bf16(acc[4 * nt + 2] * mul_hi, acc[4 * nt + 3] * mul_hi);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int idx = i * 32 + lane;
+    const int rl = warp * 16 + (idx >> 3), chunk = idx & 7;
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        slice + rl * 64 + ((chunk ^ (rl & 7)) << 3));
+    if (row0 + rl < len)
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + rl) * 64 + chunk * 8) =
+          val;
+  }
 }
 
 }  // namespace hopper

@@ -3,7 +3,9 @@ and its differentiation.
 
 Counterpart of ``pcdms_tpu/ops/flash_attention.py``. The three Pallas TPU
 kernels there (frozen-max, online-softmax and short-kv) are hand-written
-CUDA C++ for Hopper here (``csrc/flash_attention.cu``). Each has a wrapper
+CUDA C++ for Hopper here (``csrc/flash_attention.cu``); in bf16 the
+frozen-max and online kernels are warp-specialised (TMA copies into a
+shared-memory ring, ``wgmma`` products; ``fwd_plan``). Each has a wrapper
 that launches the kernel for a CUDA tensor (or raises) and takes the plain
 PyTorch version, which repeats the kernel's arithmetic, for a CPU tensor.
 Each wrapper counts its launches in ``LAUNCHES`` (which also counts the
@@ -49,7 +51,13 @@ _LOG2E = 1.4426950408889634
 _FROZEN_MARGIN = 24.0
 _FROZEN_KEYS = 128
 _SHORTKV_MAX = 384
-_BLOCK_K = 64          # the kernels' k tile; the plain online version walks it
+# the bf16 frozen / online kernels' tiling (the constants of
+# ``csrc/flash_attention.cu``): q rows a block, keys a ring stage, stages
+FWD_BLOCK_ROWS, FWD_STAGE_KEYS, FWD_STAGES = 128, 128, 4
+# the online kernel updates its running max once per stage; the plain online
+# version walks the same step, so that each P is rounded where the kernel
+# rounds it
+_BLOCK_K = FWD_STAGE_KEYS
 _HEAD_DIM = 64         # the kernels' head_dim
 # the short-kv kernel also takes CLIP ViT-H's head_dim 80
 _SHORTKV_HEAD_DIMS = (64, 80)
@@ -113,7 +121,7 @@ def shortkv_plain(q, k, v, scale: float):
 
 
 def _online_softmax(q, k, v, scale: float, exp_bf16: bool = False):
-    """The online-softmax loop over k tiles of 64: returns the unnormalised
+    """The online-softmax loop over k tiles of 128: returns the unnormalised
     f32 accumulator, the running max m and the row-sum l, (BH, Lq, 1)."""
     bh, lq, d = q.shape
     m = torch.full((bh, lq, 1), _NEG_INF, dtype=torch.float32,
@@ -138,10 +146,21 @@ def _online_softmax(q, k, v, scale: float, exp_bf16: bool = False):
 
 
 def flash_online_plain(q, k, v, scale: float, exp_bf16: bool = False):
-    """``_flash_kernel``: running max and alpha-rescale over k tiles of 64.
+    """``_flash_kernel``: running max and alpha-rescale over k tiles of 128.
     ``exp_bf16`` demotes each score tile to bf16 before max / exp2."""
     acc, _, l = _online_softmax(q, k, v, scale, exp_bf16)
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def fwd_plan(lq: int, lk: int, bh: int) -> dict:
+    """How the bf16 frozen / online kernel cuts (bh, lq, lk): block i of a
+    head owns q rows [i * block_rows, (i + 1) * block_rows) and writes those
+    below lq; tile j holds keys [j * stage_keys, (j + 1) * stage_keys), zero
+    past lk, and is one step of the online softmax; the frozen max is taken
+    of tile 0."""
+    return dict(grid=(-(-lq // FWD_BLOCK_ROWS), bh),
+                block_rows=FWD_BLOCK_ROWS, stage_keys=FWD_STAGE_KEYS,
+                stages=FWD_STAGES, tiles=-(-lk // FWD_STAGE_KEYS))
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +192,15 @@ def _check(q, k, v, head_dims=(_HEAD_DIM,)):
         raise ValueError("flash attention needs lq > 0 and lk > 0")
 
 
+def _check_scale(q, scale: float) -> None:
+    """The bf16 frozen / online / LSE kernel takes its row max of the raw
+    products and scales it after: that needs a positive softmax scale. The
+    f32 and short-kv kernels scale every score and take any."""
+    if q.dtype == torch.bfloat16 and not scale > 0:
+        raise ValueError(f"the bf16 flash attention kernels take a positive "
+                         f"softmax scale, got {scale}")
+
+
 def _launch(entry: str, q, k, v, scale: float, *extra,
             head_dims=(_HEAD_DIM,)):
     _check(q, k, v, head_dims)
@@ -191,6 +219,7 @@ def flash_frozen(q, k, v, scale: float):
     """Frozen-max flash attention on (BH, L, 64) tensors."""
     if q.device.type == "cpu":
         return flash_frozen_plain(q, k, v, scale)
+    _check_scale(q, scale)
     out = _launch("pcdms_flash_frozen", q, k, v, scale)
     LAUNCHES["flash_frozen"] += 1
     return out
@@ -200,6 +229,7 @@ def flash_online(q, k, v, scale: float, exp_bf16: bool = False):
     """Online-softmax flash attention on (BH, L, 64) tensors."""
     if q.device.type == "cpu":
         return flash_online_plain(q, k, v, scale, exp_bf16)
+    _check_scale(q, scale)
     out = _launch("pcdms_flash_online", q, k, v, scale, int(exp_bf16))
     LAUNCHES["flash_online"] += 1
     return out

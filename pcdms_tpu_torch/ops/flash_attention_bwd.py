@@ -25,7 +25,7 @@ import torch
 
 from pcdms_tpu_torch.ops import _build
 from pcdms_tpu_torch.ops.flash_attention import (
-    _LOG2E, LAUNCHES, _check, _online_softmax, _scores_log2,
+    _LOG2E, LAUNCHES, _check, _check_scale, _online_softmax, _scores_log2,
 )
 
 
@@ -35,7 +35,7 @@ from pcdms_tpu_torch.ops.flash_attention import (
 
 def flash_fwd_lse_plain(q, k, v, scale: float):
     """``_fwd_lse_kernel``: the online forward (running max, alpha-rescale
-    over 64-key tiles) and L = m + log2(max(l, 1e-30)), f32 (BH, Lq)."""
+    over 128-key tiles) and L = m + log2(max(l, 1e-30)), f32 (BH, Lq)."""
     acc, m, l = _online_softmax(q, k, v, scale)
     l = l.clamp_min(1e-30)
     return (acc / l).to(q.dtype), (m + torch.log2(l))[..., 0]
@@ -110,6 +110,7 @@ def flash_fwd_lse(q, k, v, scale: float):
     """Forward with LSE on (BH, L, 64) tensors -> (out, lse2 (BH, Lq) f32)."""
     if q.device.type == "cpu":
         return flash_fwd_lse_plain(q, k, v, scale)
+    _check_scale(q, scale)
     _check(q, k, v)
     out = torch.empty_like(q)
     lse2 = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)

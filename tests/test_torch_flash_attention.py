@@ -3,12 +3,15 @@
 On the CPU: the plain versions of the three CUDA kernels against the Pallas
 kernels in interpret mode (as tests/test_flash_attention.py runs them), the
 router's decisions, and the wrappers' refusal to run a kernel on a CPU
-tensor. The kernels themselves are held against the plain versions on a
-card by tests/test_torch_kernels_cuda.py. Bars: f32 2e-5, bf16 3e-2, the
-bf16-softmax variant 2e-2.
+tensor, and the bf16 frozen / online kernel's tiling (``fwd_plan``) and
+source as far as the CPU reaches them. The kernels themselves are held
+against the plain versions on a card by tests/test_torch_kernels_cuda.py.
+Bars: f32 2e-5, bf16 3e-2, the bf16-softmax variant 2e-2.
 """
 
+import inspect
 import math
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -167,3 +170,137 @@ def test_launch_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _qkv(64, 64, 1))
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa._launch("pcdms_flash_frozen", q, k, v, 0.125)
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125, float("nan")])
+def test_launch_refuses_a_scale_that_is_not_positive(scale):
+    """The bf16 frozen / online / LSE kernel scales its row max after taking
+    it, which holds for a positive scale only: its wrappers raise on any
+    other. The f32 and short-kv kernels scale every score and take any."""
+    q = torch.from_numpy(_qkv(64, 64, 1)[0])
+    with pytest.raises(ValueError, match="positive softmax scale"):
+        fa._check_scale(q.to(torch.bfloat16), scale)
+    fa._check_scale(q, scale)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 frozen / online kernel's tiling and source
+# ---------------------------------------------------------------------------
+
+_CSRC = Path(fa.__file__).resolve().parent / "csrc"
+
+
+@pytest.mark.parametrize("bh,lq,lk", [
+    (10, 8192, 8192), (20, 2048, 2048), (40, 512, 512),   # the UNet's levels
+    (80, 8192, 8192), (10, 640, 600), (3, 129, 127), (3, 1, 64),
+    (3, 70, 130), (3, 192, 8200), (3, 200, 100), (1, 1, 1)])
+def test_fwd_plan_covers_every_row_once(bh, lq, lk):
+    """The blocks own every q row exactly once, the ring's tiles hold every
+    key exactly once, and neither a block nor a tile is empty."""
+    plan = fa.fwd_plan(lq, lk, bh)
+    assert plan["grid"][1] == bh
+    rows, keys = plan["block_rows"], plan["stage_keys"]
+    owned = np.zeros(lq, int)
+    for i in range(plan["grid"][0]):
+        owned[i * rows:(i + 1) * rows] += 1
+    assert (owned == 1).all()
+    assert (plan["grid"][0] - 1) * rows < lq
+    walked = np.zeros(lk, int)
+    for j in range(plan["tiles"]):
+        walked[j * keys:(j + 1) * keys] += 1
+    assert (walked == 1).all()
+    assert (plan["tiles"] - 1) * keys < lk
+    # the frozen max is taken of tile 0: the first min(lk, 128) keys
+    assert min(lk, keys) == min(lk, fa._FROZEN_KEYS)
+
+
+@pytest.mark.parametrize("bh,length,blocks,tiles", [
+    (10, 8192, 64, 64), (20, 2048, 16, 16), (40, 512, 4, 4)])
+def test_fwd_plan_at_the_unet_levels(bh, length, blocks, tiles):
+    """128 q rows a block and 128 keys a stage at the UNet's three
+    self-attention shapes: 640, 320 and 160 blocks."""
+    assert fa.fwd_plan(length, length, bh) == dict(
+        grid=(blocks, bh), block_rows=128, stage_keys=128, stages=4,
+        tiles=tiles)
+    assert blocks * bh in (640, 320, 160)
+
+
+def test_fwd_plan_has_the_kernels_constants():
+    """The plan's block rows, stage keys and stages are those the CUDA
+    source compiles, and the plain online version walks the kernel's
+    softmax step."""
+    src = (_CSRC / "flash_attention.cu").read_text()
+    hopper = (_CSRC / "hopper.cuh").read_text()
+    assert "constexpr int kConsumers = 2;" in hopper
+    assert "constexpr int kBlockRows = kConsumers * 64;" in hopper
+    assert "using hp::kBlockRows;" in src
+    assert fa.FWD_BLOCK_ROWS == 2 * 64
+    assert (f"constexpr int kFwdKeys = {fa.FWD_STAGE_KEYS}, "
+            f"kFwdStages = {fa.FWD_STAGES};") in src
+    assert "constexpr int kFrozenKeys = 128;" in src
+    assert fa._BLOCK_K == fa.FWD_STAGE_KEYS == fa._FROZEN_KEYS == 128
+    # q and the ring fit the 227 KB a block may use
+    ring = (fa.FWD_BLOCK_ROWS + 2 * fa.FWD_STAGES * fa.FWD_STAGE_KEYS) * 128
+    assert ring + 4096 <= 227 * 1024
+
+
+def _section(src, start, end):
+    return src[src.index(start):src.index(end)]
+
+
+def test_bf16_forward_source_is_the_hopper_design():
+    """The bf16 frozen / online kernel issues wgmma and fills its ring by
+    TMA under mbarriers; the warp-level mma remains in the short-kv kernel
+    only; nothing reads the environment."""
+    src = (_CSRC / "flash_attention.cu").read_text()
+    assert '#include "hopper.cuh"' in src
+    hopper_part = _section(src, "// bf16 frozen / online: TMA ring",
+                           "// bf16 short-kv: mma.sync")
+    shortkv_part = _section(src, "// bf16 short-kv: mma.sync",
+                            "// f32, FMA: one thread per q row")
+    rest = src.replace(shortkv_part, "")
+    for call in ("hp::wgmma_ss(", "hp::wgmma_rs(", "hp::tma_load_rows(",
+                 "hp::mbar_wait(", "hp::reg_alloc<", "hp::store_slice(",
+                 "hp::MapCache", "hp::allow_smem("):
+        assert call in hopper_part, call
+    for gone in ("mma.sync", "mma_bf16(", "mma_abt", "mma_ab", "ldmatrix",
+                 "load_tile_bf16", "exp2f(", "getenv"):
+        assert gone not in hopper_part, gone
+    for kept in ("mma_abt<D>(", "mma_ab<D>("):
+        assert kept in shortkv_part and kept not in rest, kept
+    assert "getenv" not in src
+    # one template serves frozen, online, online[exp_bf16] and the LSE
+    # forward: three instantiations, lse a runtime pointer
+    assert src.count("__global__") == 3
+    for entry, mode in (("pcdms_flash_frozen", "launch<kFrozen, false>"),
+                        ("pcdms_flash_fwd_lse", "launch<kOnline, false>")):
+        body = src[src.index(f'extern "C" int {entry}('):]
+        assert mode in body[:body.index("\n}\n")], entry
+
+
+def test_shared_hopper_helpers_live_in_the_header_once():
+    """Forward and backward sources share one copy of the ring, the
+    epilogue and the tensor-map cache, which copies the map out."""
+    hopper = (_CSRC / "hopper.cuh").read_text()
+    sources = [(_CSRC / name).read_text() for name in
+               ("flash_attention.cu", "flash_attention_bwd.cu")]
+    for needle in ("struct Ring {", "struct MapCache {",
+                   "Smem& shared_storage(", "void store_slice(",
+                   "cudaError_t allow_smem(", "float ex2(float x)"):
+        assert hopper.count(needle) == 1, needle
+        for src in sources:
+            assert needle not in src, needle
+    assert "*out = s.map;" in hopper and "s.map = *out;" in hopper
+
+
+@pytest.mark.parametrize("wrapper,plain", [
+    ("flash_frozen", "flash_frozen_plain"),
+    ("flash_online", "flash_online_plain")])
+def test_wrappers_launch_or_raise_on_cuda(wrapper, plain):
+    """Past the CPU branch a wrapper launches its kernel and counts it: no
+    route back to the plain version, no ``try``."""
+    src = inspect.getsource(getattr(fa, wrapper))
+    cuda_part = src.split(f"return {plain}", 1)[1]
+    assert "_launch(" in cuda_part and f'LAUNCHES["{wrapper}"] += 1' in (
+        cuda_part)
+    assert "plain" not in cuda_part and "try" not in cuda_part

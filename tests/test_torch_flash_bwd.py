@@ -193,10 +193,13 @@ def test_bwd_plan_covers_every_row_once(bh, lq, lk):
 
 def test_bwd_plan_has_the_kernels_constants():
     """The plan's block and tile rows are those the CUDA source compiles."""
-    src = (Path(fb.__file__).resolve().parent / "csrc"
-           / "flash_attention_bwd.cu").read_text()
-    assert "constexpr int kConsumers = 2;" in src
-    assert "constexpr int kBlockRows = kConsumers * 64;" in src
+    csrc = Path(fb.__file__).resolve().parent / "csrc"
+    src = (csrc / "flash_attention_bwd.cu").read_text()
+    # the block's shape is shared with the forward kernels
+    hopper = (csrc / "hopper.cuh").read_text()
+    assert "constexpr int kConsumers = 2;" in hopper
+    assert "constexpr int kBlockRows = kConsumers * 64;" in hopper
+    assert "using hp::kBlockRows;" in src and "using hp::kConsumers;" in src
     assert fb.BLOCK_ROWS == 2 * 64
     plan = fb.bwd_plan(8192, 8192, 10)
     assert f"kDqTile = {plan['dq']['tile']}," in src

@@ -53,8 +53,14 @@ def _run(kernel, q, k, v, scale):
             fa.flash_online_plain(q, k, v, scale, eb))
 
 
+# on both sides of the bf16 frozen / online kernel's 128-row blocks and
+# 128-key ring stages, and fewer keys than the 128 the frozen max is taken of
+FWD_EDGES = [(129, 127), (127, 129), (200, 100), (385, 513), (1, 64)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("lq,lk", [(300, 600), (128, 128), (64, 1)])
+@pytest.mark.parametrize("lq,lk", [(300, 600), (128, 128), (64, 1)]
+                         + FWD_EDGES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kernel", ["frozen", "online", "online_exp_bf16",
                                     "shortkv"])
@@ -72,6 +78,108 @@ def test_kernel_matches_plain(cuda, kernel, dtype, lq, lk):
     else:
         bar = 1e-2 * want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= bar
+
+
+def _fwd_kernels(q, k, v, scale):
+    """The three bf16 wgmma forward variants and the LSE forward: name ->
+    tuple of outputs."""
+    return {"frozen": (fa.flash_frozen(q, k, v, scale),),
+            "online": (fa.flash_online(q, k, v, scale),),
+            "online_exp_bf16": (fa.flash_online(q, k, v, scale, True),),
+            "fwd_lse": fb.flash_fwd_lse(q, k, v, scale)}
+
+
+def _fwd_plains(q, k, v, scale):
+    return {"frozen": (fa.flash_frozen_plain(q, k, v, scale),),
+            "online": (fa.flash_online_plain(q, k, v, scale),),
+            "online_exp_bf16": (fa.flash_online_plain(q, k, v, scale, True),),
+            "fwd_lse": fb.flash_fwd_lse_plain(q, k, v, scale)}
+
+
+def _assert_fwd_matches(got, want):
+    for name in want:
+        out, p_out = got[name][0], want[name][0]
+        assert out.dtype == p_out.dtype and out.shape == p_out.shape
+        assert torch.isfinite(out).all(), name
+        assert _max_rel(out, p_out) <= 1e-2, name
+    lse2, p_lse2 = got["fwd_lse"][1], want["fwd_lse"][1]
+    assert lse2.dtype == torch.float32 and lse2.shape == p_lse2.shape
+    assert _max_rel(lse2, p_lse2) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", FWD_EDGES + [(70, 130), (192, 8200),
+                                               (2048, 1100)])
+def test_lse_forward_matches_plain(cuda, lq, lk):
+    """The LSE forward (the online kernel with its per-row L) in bf16 on
+    both sides of the block and stage sizes."""
+    q, k, v = _qkv(cuda, torch.bfloat16, 3, lq, lk)
+    scale = 1.0 / math.sqrt(D)
+    fa.reset_launches()
+    out, lse2 = fb.flash_fwd_lse(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in fa.LAUNCHES.items() if c} == {"flash_fwd_lse": 1}
+    p_out, p_lse2 = fb.flash_fwd_lse_plain(q, k, v, scale)
+    assert torch.isfinite(out).all() and torch.isfinite(lse2).all()
+    assert _max_rel(out, p_out) <= 1e-2
+    assert _max_rel(lse2, p_lse2) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [float("inf"), float("nan")])
+@pytest.mark.parametrize("lq,lk", [(70, 130), (129, 127), (200, 60),
+                                   (300, 600)])
+def test_forward_kernels_never_read_the_neighbouring_head(cuda, lq, lk, bad):
+    """Heads share one buffer: with every value of heads 0 and 2 set to Inf
+    or NaN, head 1's output is that of head 1 alone, bit for bit. A tile
+    that ran past a ragged length into the next head's rows would carry
+    them into a max or a product."""
+    q, k, v = _qkv(cuda, torch.bfloat16, 1, lq, lk)
+    three = []
+    for x in (q, k, v):
+        y = torch.full((3, *x.shape[1:]), bad, dtype=x.dtype, device=cuda)
+        y[1] = x[0]
+        three.append(y)
+    scale = 1.0 / math.sqrt(D)
+    alone = _fwd_kernels(q, k, v, scale)
+    among = _fwd_kernels(*three, scale)
+    torch.cuda.synchronize()
+    for name, outs in alone.items():
+        for a, b in zip(outs, among[name]):
+            assert torch.isfinite(b[1]).all(), name
+            assert torch.equal(a[0], b[1]), name
+    _assert_fwd_matches(alone, _fwd_plains(q, k, v, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,lq,lk", [(3, 129, 127), (4, 2048, 1100)])
+def test_forward_kernels_are_deterministic(cuda, bh, lq, lk):
+    """Two calls on the same inputs give the same bits."""
+    q, k, v = _qkv(cuda, torch.bfloat16, bh, lq, lk)
+    scale = 1.0 / math.sqrt(D)
+    first = _fwd_kernels(q, k, v, scale)
+    second = _fwd_kernels(q, k, v, scale)
+    torch.cuda.synchronize()
+    for name, outs in first.items():
+        for a, b in zip(outs, second[name]):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_forward_kernels_across_many_live_tensors(cuda):
+    """The launcher keeps the last few tensor maps; more live q / k / v sets
+    than it keeps, visited in turn, still give each set its own result."""
+    scale = 1.0 / math.sqrt(D)
+    sets = [_qkv(cuda, torch.bfloat16, 2, 100 + 7 * i, 90 + 5 * i,
+                 seed=20 + i) for i in range(7)]
+    first = [_fwd_kernels(*x, scale) for x in sets]
+    for _ in range(2):
+        for x, want in zip(sets, first):
+            got = _fwd_kernels(*x, scale)
+            for name, outs in want.items():
+                for g, w in zip(got[name], outs):
+                    assert torch.equal(g, w), name
+    _assert_fwd_matches(first[3], _fwd_plains(*sets[3], scale))
 
 
 @pytest.mark.cuda
