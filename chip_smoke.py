@@ -15,7 +15,11 @@ Phases, each reported on its own lines:
      blocks and 128-key stages), and time the kernel, the plain version, and
      ``scaled_dot_product_attention`` as a yardstick at the three levels,
      and the frozen kernel, the LSE forward and SDPA at the reference
-     protocol's batch 8 (B*H = 80); then the fused conv kernel against its plain version at the 14 conv
+     protocol's batch 8 (B*H = 80); the short-kv kernel (in bf16 at head_dim
+     64 persistent, k and v resident, TMA feeding wgmma) at its six shapes
+     (``phase_shortkv``), it and SDPA timed by device time (CUDA-graph
+     replay) beside ten back-to-back calls, which at these sizes read the
+     host; then the fused conv kernel against its plain version at the 14 conv
      shapes of the full-width UNet (bf16, in the mode the UNet uses there),
      mode 0 and apply_act=False at level 0, f32 and a ragged shape, each UNet
      shape timed beside the plain version, the port's unfused route
@@ -23,9 +27,10 @@ Phases, each reported on its own lines:
      bound, with the weight re-lay timed on its own;
   3. one full-width stage-2 UNet forward (512x1024 canvas, one pair,
      CFG-doubled to 2, bf16, random weights) with the kernels and with plain
-     attention, compared by the relative L2 error of eps; then the same
-     weights with ``fused_conv=True`` (44 fused-conv launches) against the
-     unfused forward;
+     attention, compared by the relative L2 error of eps; the same under
+     PCDMS_SHORTKV=pallas (17 short-kv launches); then the same weights with
+     ``fused_conv=True`` (44 fused-conv launches) against the unfused
+     forward;
   4. the sampler path: ``stage2_generate`` at full width (DDIM 4 steps and
      UniPC 3 steps at default routing, DDIM 2 steps under
      PCDMS_FROZEN_MAX=0 PCDMS_SHORTKV=pallas, and DDIM 4 steps with the
@@ -88,8 +93,11 @@ SEED = 0
 # (B*H, Lq, Lk) of the UNet self-attention at a 512x1024 canvas, one pair
 # CFG-doubled: 64x128, 32x64 and 16x32 latent tokens with 5 / 10 / 20 heads
 PATH_SHAPES = [(10, 8192, 8192), (20, 2048, 2048), (40, 512, 512)]
-# the 258-token cross-attention at the same levels (short-kv kernel)
-SHORTKV_SHAPES = [(10, 8192, 258), (20, 2048, 258), (40, 512, 258)]
+# the short-kv kernel's calls: the 258-token cross-attention at the same
+# levels and in the mid block (8x16 latents), the mid block's 128-token
+# self-attention, and level 0 at the batch test's UNet batch 16
+SHORTKV_SHAPES = [(10, 8192, 258), (20, 2048, 258), (40, 512, 258),
+                  (40, 128, 258), (40, 128, 128), (80, 8192, 258)]
 # CLIP ViT-H's 257-token self-attention, 2 images x 16 heads of 80
 SHORTKV_D80_SHAPE = (32, 257, 257)
 # kernel vs plain version. f32 outputs: max abs error <= 2e-5. bf16 outputs
@@ -186,6 +194,35 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph and replayed between two events (the median of ``replays``),
+    so that the host's enqueue of each call is not in it. ``fn`` must have
+    run once outside the graph (the nvcc build, the shared-memory opt-in,
+    the tensor maps)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return sorted(times)[replays // 2]
+
+
 def bound(flops: float, nbytes: float):
     """Least time on an H100 SXM: bytes over the HBM rate vs bf16 flops over
     the tensor-core peak. Returns (ms, 'bytes' | 'operations')."""
@@ -208,6 +245,59 @@ def phase_build():
         for line in _build.build_log(stem).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
+
+
+def phase_shortkv(fa, shapes):
+    """The bf16 short-kv kernel vs its plain version at ``shapes`` ((B*H,
+    Lq, Lk, head_dim)), each timed by device time (``graph_ms``) and by ten
+    back-to-back calls (``cuda_ms``, which at these sizes reads the host's
+    enqueue), beside SDPA's forward timed both ways, the plain version and
+    the bound. Takes any tree's ``flash_attention`` module, so that the old
+    and the new kernel are timed by one script in turns. Returns one record
+    a shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    records = []
+    for bh, lq, lk, d in shapes:
+        q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for n in (lq, lk, lk))
+        scale = 1.0 / math.sqrt(d)
+        got = fa.shortkv_attention(q, k, v, scale)
+        want = fa.shortkv_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        amax = want.float().abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        del got, want
+
+        def kernel():
+            return fa.shortkv_attention(q, k, v, scale)
+
+        def library():
+            return sdpa(q[None], k[None], v[None], scale=scale)
+
+        ms, lib_ms = graph_ms(kernel), graph_ms(library)
+        ms_stream, lib_stream = cuda_ms(kernel, 10), cuda_ms(library, 10)
+        plain_ms = cuda_ms(lambda: fa.shortkv_plain(q, k, v, scale), 3, 1)
+        b_ms, b_by = bound_ms(bh, lq, lk, d)
+        line = (f"[shortkv] bf16 bh={bh} lq={lq} lk={lk} d={d}: max_abs_err="
+                f"{err:.3e} (bar {BAR_REL:g} x max|want| {amax:.3e}); "
+                f"device ms (CUDA graph): kernel {ms:.4f} library {lib_ms:.4f}"
+                f"; host-bound ms (10 calls): kernel {ms_stream:.4f} library "
+                f"{lib_stream:.4f}; plain_ms={plain_ms:.4f} bound_ms="
+                f"{b_ms:.4f} ({b_by}) = {b_ms / ms:.1%} of the kernel's")
+        print(line, flush=True)
+        if not finite or not err <= BAR_REL * amax:
+            fail(f"flash_shortkv disagrees with its plain version: {line}")
+        records.append(dict(shape=[bh, lq, lk], head_dim=d, max_abs_err=err,
+                            ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms,
+                            ms_host_bound=ms_stream,
+                            library_ms_host_bound=lib_stream))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return records
 
 
 def phase_kernels(fa, fb):
@@ -268,26 +358,27 @@ def phase_kernels(fa, fb):
         ("flash_online", fa.flash_online, fa.flash_online_plain,
          PATH_SHAPES + [(10, 640, 600)] + EDGE_SHAPES),
         ("flash_shortkv", fa.shortkv_attention, fa.shortkv_plain,
-         SHORTKV_SHAPES + [(10, 300, 100)]),
+         [(10, 300, 100), (3, 129, 512), (3, 1, 1)]),
     ]
     for name, kernel, plain, shapes in variants:
         for i, shape in enumerate(shapes):
             rec = check(name, kernel, plain, *shape, bf16,
-                        timed=shape in PATH_SHAPES + SHORTKV_SHAPES)
+                        timed=shape in PATH_SHAPES)
             if i == 0:
                 records[name] = rec
-            elif rec and name != "flash_shortkv":
+            elif rec:
                 records[name].setdefault("other_levels", []).append(
                     dict(rec, shape=list(shape)))
         bh, lq, lk = (2, 640, 258) if name == "flash_shortkv" else (2, 640,
                                                                      600)
         check(name, kernel, plain, bh, lq, lk, f32, False)
-    # CLIP ViT-H's head_dim 80 (the short-kv kernel alone takes it)
-    bh, lq, lk = SHORTKV_D80_SHAPE
-    check("flash_shortkv", fa.shortkv_attention, fa.shortkv_plain, bh, lq,
-          lk, bf16, True, d=80)
-    check("flash_shortkv", fa.shortkv_attention, fa.shortkv_plain, 4, lq, lk,
-          f32, False, d=80)
+    # the short-kv kernel at its six shapes by device time, and at CLIP
+    # ViT-H's head_dim 80 (the short-kv kernel alone takes it)
+    shortkv = phase_shortkv(fa, [(*shape, 64) for shape in SHORTKV_SHAPES]
+                            + [(*SHORTKV_D80_SHAPE, 80)])
+    records["flash_shortkv"] = dict(shortkv[0], other_levels=shortkv[1:])
+    check("flash_shortkv", fa.shortkv_attention, fa.shortkv_plain, 4, 257,
+          257, f32, False, d=80)
     ob = (lambda q, k, v, s: fa.flash_online(q, k, v, s, True),
           lambda q, k, v, s: fa.flash_online_plain(q, k, v, s, True))
     for shape in [(10, 2048, 2048), (10, 640, 600)] + EDGE_SHAPES:
@@ -494,6 +585,30 @@ def phase_unet(fa, models, dev):
         fail(f"expected 15 frozen-kernel launches per UNet forward, got "
              f"{launches}")
 
+    # the same weights with the short-kv kernel on the 16 cross-attentions
+    # and the mid block's self-attention (PCDMS_SHORTKV=pallas)
+    with torch.inference_mode():
+        os.environ["PCDMS_SHORTKV"] = "pallas"
+        try:
+            fa.reset_launches()
+            eps_s = unet(sample, ts, ctx, labels, pose, zero_ctx_prefix=1)
+            torch.cuda.synchronize()
+            s_launches = {n: c for n, c in fa.LAUNCHES.items() if c}
+            by_dim = dict(fa.SHORTKV_LAUNCHES)
+        finally:
+            os.environ.pop("PCDMS_SHORTKV")
+    rel = _rel_l2(eps_s, eps_p)
+    print(f"[unet] PCDMS_SHORTKV=pallas: eps rel_l2 kernels vs plain = "
+          f"{rel:.3e} (bar {BAR_UNET_REL_L2:g}); launches {s_launches}, "
+          f"short-kv by head_dim {by_dim}", flush=True)
+    if not torch.isfinite(eps_s).all() or not rel <= BAR_UNET_REL_L2:
+        fail("full-width UNet eps under PCDMS_SHORTKV=pallas: kernels "
+             "disagree with plain attention")
+    if s_launches != {"flash_frozen": 15, "flash_shortkv": 17} or by_dim[
+            64] != 17:
+        fail(f"expected 15 frozen and 17 short-kv launches (head_dim 64) per "
+             f"UNet forward under PCDMS_SHORTKV=pallas, got {s_launches}")
+
     # the same weights and attention kernels with every resnet conv fused
     with torch.inference_mode():
         unet.cfg = dataclasses.replace(unet.cfg, fused_conv=True)
@@ -592,6 +707,10 @@ def phase_pipeline(fa, models, dev):
                      f"out of range, shape {tuple(images.shape)}")
             if not env and counts["flash_frozen"] != 15 * steps:
                 fail(f"{label}: expected {15 * steps} frozen launches, "
+                     f"got {counts}")
+            if env.get("PCDMS_SHORTKV") == "pallas" and (
+                    counts["flash_shortkv"] != 17 * steps):
+                fail(f"{label}: expected {17 * steps} short-kv launches, "
                      f"got {counts}")
             if counts["fused_gn_silu_conv"] != (44 * steps if fused else 0):
                 fail(f"{label}: expected {44 * steps if fused else 0} fused "

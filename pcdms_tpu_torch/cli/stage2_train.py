@@ -32,9 +32,11 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     add_common_train_flags(p)
     p.add_argument("--image_encoder_p_path", type=str, default=None,
-                   help="local DINOv2-giant dir (not ported yet)")
+                   help="local DINOv2-giant dir (used with the DeepFashion "
+                        "data path, not ported yet)")
     p.add_argument("--image_encoder_g_path", type=str, default=None,
-                   help="local CLIP ViT-H dir (not ported yet)")
+                   help="local CLIP ViT-H dir (used with the DeepFashion "
+                        "data path, not ported yet)")
     p.add_argument("--imgp_drop_rate", type=float, default=0.1)
     p.add_argument("--imgg_drop_rate", type=float, default=0.1)
     p.add_argument("--log_every", type=int, default=50)
@@ -52,9 +54,9 @@ def check_supported(args) -> None:
             "item 18): pass --random_init")
     if not args.synthetic_data:
         raise NotImplementedError(
-            "the DeepFashion data path and the DINOv2 / CLIP encoders are "
-            "not ported yet (ROADMAP items 11 and 19b): pass "
-            "--synthetic_data")
+            "the DeepFashion data path of the trainer is not ported yet "
+            "(ROADMAP item 19b; the DINOv2 / CLIP encoders it feeds are, in "
+            "train/encoders.py): pass --synthetic_data")
     if args.zero1 or args.dcn_slices > 1:
         raise NotImplementedError(
             "--zero1 and --dcn_slices > 1 need the DDP / ZeRO-1 port "

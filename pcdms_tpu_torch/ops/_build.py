@@ -32,7 +32,8 @@ _ENTRIES = {
     "flash_attention": {
         "pcdms_flash_frozen": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
         "pcdms_flash_online": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
-        "pcdms_flash_shortkv": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+        "pcdms_flash_shortkv": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I,
+                                _P],
         "pcdms_flash_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     },
     "flash_attention_bwd": {

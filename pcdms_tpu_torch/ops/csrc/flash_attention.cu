@@ -9,12 +9,12 @@
 //                optionally with the score tile demoted to bf16 before
 //                max / exp2 (PCDMS_EXP_BF16, l.122-133).
 //   * SHORTKV -> _shortkv_kernel (l.316-333): one-pass softmax with the exact
-//                row max; here a first pass over all (<= 384) keys finds it.
+//                row max; here a first sweep over all (<= 512) keys finds it.
 //                It alone also takes head_dim 80 (CLIP ViT-H's 16 heads of
 //                80): the JAX kernel takes any head_dim, padding v to d_aug
-//                (l.338-350); here the kernel is a template on D, and D = 80
-//                is five mma k-steps of 16 for Q.K^T and ten 8-column
-//                tiles for P.V.
+//                (l.338-350); here head_dim 80 keeps a warp-level kernel,
+//                five mma k-steps of 16 for Q.K^T and ten 8-column tiles
+//                for P.V.
 // and of pcdms_tpu/ops/flash_attention_bwd.py:
 //   * ONLINE with an lse output -> _fwd_lse_kernel (l.53-92): the training
 //                forward, which also writes L = m + log2(l) per row for the
@@ -77,10 +77,37 @@
 //     units made the kernel slower at every share tried. Two consumers are
 //     all the registers allow. Not done: 2-CTA clusters with multicast, a
 //     persistent grid.
-// SHORTKV (bf16) keeps the warp-level design: one block owns 64 q rows (4
-// warps x 16 rows) and loops over 64-key tiles staged in padded shared
-// memory, mma.sync m16n8k16, P re-packed in registers, V through
-// ldmatrix.trans. It is bound by launch and bytes at its shapes.
+// SHORTKV, bf16, head_dim 64: bound by bytes. At the UNet's level 0 (10 x
+// 8192 q rows, 258 keys) q and o are 21 MB against 0.66 MB of k and v and
+// 5 GFLOP, so the kernel has to stream q in and o out at the memory's rate
+// and keep everything else off that stream. The design:
+//   * Persistent: one block an SM walks a contiguous run of (head, 128-row
+//     q tile) pairs (skv_run_edge), warp-specialised as above (two
+//     consumer warpgroups of 64 rows, one producer thread issuing TMA).
+//   * K and V resident: on a new head the producer loads all of its k and
+//     v (<= 512 keys, 128 KB) by TMA once, and reloads only where the run
+//     crosses into the next head, once the consumers have released them.
+//   * q streamed a pair ahead through two stages; the epilogue (O / l to
+//     bf16 through the pair's own q buffer) overlaps the next pair's load.
+//   * Two sweeps over the resident tiles on wgmma: sweep 1 takes the exact
+//     row max of the scaled scores (any scale); sweep 2 turns S into P =
+//     exp2(s - m), rounded to bf16, and runs O += P.V and l += P.1 against
+//     the tile of ones. With a tail of <= 16 keys (257 and 258 keys: two
+//     full tiles) S of all three tiles stays in registers from sweep 1 (64
+//     + 64 + 8 of a consumer's 240), so nothing is recomputed; otherwise
+//     the tail's and the last full tile's stay. Each tile's exp2 runs
+//     under the P.V of the tile before it.
+//   * The tail: keys past the last full 128 go through a narrower product
+//     (16, 64 or 128 keys, a template argument): at 258 keys the third tile
+//     costs a 16-key product, not a 128-key one. Keys from lk on (zeros by
+//     TMA) are -inf in the max and exactly 0 in P.
+//   * What is left (PERF.md): at 258 keys the products, the exp2 and the
+//     FP32 arithmetic each take about as long as the bytes, and the two
+//     consumer warpgroups overlap them poorly.
+// SHORTKV, bf16, head_dim 80 keeps the first, warp-level design: one block
+// owns 64 q rows (4 warps x 16 rows) and loops over 64-key tiles staged in
+// padded shared memory, mma.sync m16n8k16, P re-packed in registers, V
+// through ldmatrix.trans.
 // f32 (a spot-check route, not the main path): one thread per q row with FMA
 // dot products against f32 k/v tiles in shared memory, so f32 inputs keep
 // full f32 precision (tensor-core TF32 would not).
@@ -431,7 +458,411 @@ cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 short-kv: mma.sync, 64 q rows a block
+// bf16 short-kv, head_dim 64: persistent, K / V resident, TMA -> wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kSkvTileKeys = 128;                // keys of a full tile
+constexpr int kSkvMaxKeys = 4 * kSkvTileKeys;    // K / V resident: lk <= 512
+constexpr int kSkvQStages = 2;                   // q streamed a pair ahead
+// setmaxnreg.inc draws only on what the producer's .dec gives back: the
+// consumers' gain over the launch's 168 registers must not exceed it, or
+// they wait for registers for ever
+constexpr int kSkvProducerRegs = 24, kSkvConsumerRegs = 240;
+constexpr int kLaunchRegs = 65536 / kBlockThreads / 8 * 8;
+static_assert(kConsumers * (kSkvConsumerRegs - kLaunchRegs) <=
+                  kLaunchRegs - kSkvProducerRegs,
+              "the producer must give back what the consumers take");
+
+struct SkvSmem {
+  // a pair's q rows; its epilogue's staging once the products are done
+  __nv_bfloat16 q[kSkvQStages][kBlockRows * 64];
+  // one head's k and v, kept until the block's run reaches the next head
+  __nv_bfloat16 k[kSkvMaxKeys * 64], v[kSkvMaxKeys * 64];
+  __nv_bfloat16 ones[16 * 64];
+  uint64_t q_full[kSkvQStages], q_empty[kSkvQStages];
+  uint64_t k_full, v_full, kv_empty;
+};
+
+// The (head, q tile) pairs [edge(b), edge(b + 1)) are block b's run, pair
+// i = head * q_tiles + tile: contiguous, so that a block reloads k and v
+// only where its run crosses into the next head (shortkv_plan in
+// ops/flash_attention.py walks the same runs).
+__device__ __forceinline__ int skv_run_edge(int b, int pairs) {
+  return static_cast<int>(static_cast<long long>(b) * pairs / gridDim.x);
+}
+
+// A consumer thread's share of its warpgroup's 64 rows: S of a full tile
+// (of two with a 16-key tail: 204 registers with the rest), S of the tail,
+// O unnormalised, P of one tile, the row-sums as P . 1 (l[0] and l[2]).
+// S[i] is row (i >> 1) & 1 of the thread's two, key key0 + (i >> 2) * 8 +
+// (i & 1) of its tile, key0 = 2 * (lane % 4).
+template <int TW>
+struct SkvRows {
+  float s[kSkvTileKeys / 2];
+  float s2[TW == 16 ? kSkvTileKeys / 2 : 1];
+  float st[TW / 2];
+  float acc[32];
+  float l[4];
+  uint32_t p[kSkvTileKeys / 16][4];
+
+  // pins every register the products read or write, so that the compiler
+  // moves no access across the start or the wait of a batch
+  __device__ __forceinline__ void fence() {
+    hp::fence_acc(s);
+    hp::fence_acc(s2);
+    hp::fence_acc(st);
+    hp::fence_acc(acc);
+    hp::fence_acc(l);
+    hp::fence_frag(p);
+  }
+  __device__ __forceinline__ void open() {
+    fence();
+    hp::wgmma_fence();
+  }
+  __device__ __forceinline__ void close() {
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    fence();
+  }
+};
+
+// queues S = Q.K^T (64 x 2N) against the first 2N keys of a k tile
+template <int N>
+__device__ __forceinline__ void skv_queue_scores(float (&s)[N],
+                                                 uint64_t q_desc,
+                                                 const __nv_bfloat16* k) {
+  const uint64_t k_desc = hp::make_desc(k);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hp::wgmma_ss(s, q_desc + kk * hp::kStepK, k_desc + kk * hp::kStepK,
+                 kk > 0);
+}
+
+// queues O += P.V and l += P.1 over the first W keys of a v tile, read
+// MN-major, P from registers
+template <int W, int TW>
+__device__ __forceinline__ void skv_queue_pv(SkvRows<TW>& r,
+                                             const __nv_bfloat16* v,
+                                             uint64_t ones_desc) {
+  const uint64_t v_desc = hp::make_desc(v);
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk) {
+    hp::wgmma_rs(r.acc, r.p[kk], v_desc + kk * hp::kStepMN);
+    hp::wgmma_rs(r.l, r.p[kk], ones_desc);
+  }
+}
+
+// the row max of a tile's scores, scaled first (any sign of scale), into m;
+// kMasked: keys from lk on (zeros by TMA, which would score 0) enter no max
+template <bool kMasked, int N>
+__device__ __forceinline__ void skv_tile_max(const float (&s)[N],
+                                             float (&m)[2], float scale_log2,
+                                             int key0, int lk) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float x = s[i] * scale_log2;
+    if (kMasked && key0 + (i >> 2) * 8 + (i & 1) >= lk) x = kNegInf;
+    m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], x);
+  }
+}
+
+// S -> P = exp2(s . scale_log2 - m) in place, exactly 0 from lk on
+template <bool kMasked, int N>
+__device__ __forceinline__ void skv_tile_exp(float (&s)[N],
+                                             const float (&neg_m)[2],
+                                             float scale_log2, int key0,
+                                             int lk) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float x = hp::ex2(fmaf(s[i], scale_log2, neg_m[(i >> 1) & 1]));
+    s[i] = kMasked && key0 + (i >> 2) * 8 + (i & 1) >= lk ? 0.f : x;
+  }
+}
+
+// P rounded to bf16 as the A operand of P.V
+template <int N>
+__device__ __forceinline__ void skv_pack(uint32_t (&p)[kSkvTileKeys / 16][4],
+                                         const float (&s)[N]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) hp::pack_a(p[kk], s, kk);
+}
+
+// Queues P.V of the tile whose P is packed, turns `next` (S of the tile
+// after it) into P while the products run, and packs it once they are done.
+template <int W, bool kMaskedNext, int TW, int N>
+__device__ __forceinline__ void skv_pv_exp(SkvRows<TW>& r,
+                                           const __nv_bfloat16* v,
+                                           uint64_t ones_desc,
+                                           float (&next)[N],
+                                           const float (&neg_m)[2],
+                                           float scale_log2, int key0,
+                                           int lk) {
+  r.open();
+  skv_queue_pv<W>(r, v, ones_desc);
+  hp::wgmma_commit();
+  skv_tile_exp<kMaskedNext>(next, neg_m, scale_log2, key0, lk);
+  hp::wgmma_wait<0>();
+  r.fence();
+  skv_pack(r.p, next);
+}
+
+// TW: keys of the tail tile, the last (lk - 1) % 128 + 1 keys rounded up
+// to 16, 64 or 128; the n_full tiles before it are 128 keys and unmasked.
+template <int TW>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    flash_shortkv_hopper(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         __nv_bfloat16* __restrict__ o, int lq, int lk,
+                         int q_tiles, int pairs, float scale_log2) {
+  constexpr int KT = kSkvTileKeys, QS = kSkvQStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  SkvSmem& sm = hp::shared_storage<SkvSmem>(smem_raw);
+
+  const int tid = threadIdx.x, wg = tid / kWg;
+  const int begin = skv_run_edge(blockIdx.x, pairs);
+  const int end = skv_run_edge(blockIdx.x + 1, pairs);
+  const int n_full = (lk - 1) / KT;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < QS; ++s) {
+      hp::mbar_init(&sm.q_full[s], 1);
+      hp::mbar_init(&sm.q_empty[s], kConsumers * 4);   // a consumer warp
+    }
+    hp::mbar_init(&sm.k_full, 1);
+    hp::mbar_init(&sm.v_full, 1);
+    hp::mbar_init(&sm.kv_empty, kConsumers * 4);
+    hp::mbar_fence_init();
+  }
+  for (int i = tid; i < 16 * 64 / 2; i += kBlockThreads)
+    reinterpret_cast<uint32_t*>(sm.ones)[i] = 0x3f803f80u;   // bf16 1.0 x 2
+  hp::fence_proxy_async();
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer: q a pair ahead, k and v once a head ----
+    hp::reg_dealloc<kSkvProducerRegs>();
+    if (tid == kConsumers * kWg) {
+      const int boxes = (lk + hp::kBoxRows - 1) / hp::kBoxRows;
+      hp::Ring ring;
+      int head = -1;
+      uint32_t loads = 0;
+      for (int i = begin; i < end; ++i) {
+        const int h = i / q_tiles, row0 = (i - h * q_tiles) * kBlockRows;
+        hp::mbar_wait(&sm.q_empty[ring.stage], ring.phase ^ 1);
+        hp::mbar_arrive_expect_tx(&sm.q_full[ring.stage],
+                                  kConsumers * hp::kBoxBytes);
+#pragma unroll
+        for (int c = 0; c < kConsumers; ++c)
+          hp::tma_load_rows(sm.q[ring.stage] + c * kSlice, &map_q,
+                            &sm.q_full[ring.stage], row0 + c * 64, h);
+        ring.advance<QS>();
+        if (h != head) {
+          // every consumer warp is done with the last head's k and v
+          hp::mbar_wait(&sm.kv_empty, (loads & 1) ^ 1);
+          hp::mbar_arrive_expect_tx(&sm.k_full, boxes * hp::kBoxBytes);
+          for (int b = 0; b < boxes; ++b)
+            hp::tma_load_rows(sm.k + b * kSlice, &map_k, &sm.k_full,
+                              b * hp::kBoxRows, h);
+          hp::mbar_arrive_expect_tx(&sm.v_full, boxes * hp::kBoxBytes);
+          for (int b = 0; b < boxes; ++b)
+            hp::tma_load_rows(sm.v + b * kSlice, &map_v, &sm.v_full,
+                              b * hp::kBoxRows, h);
+          head = h;
+          ++loads;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows of each pair a warpgroup ----
+    hp::reg_alloc<kSkvConsumerRegs>();
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int t4 = lane & 3;
+    const uint64_t ones_desc = hp::make_desc(sm.ones);
+    const __nv_bfloat16* k_tail = sm.k + n_full * KT * 64;
+    const __nv_bfloat16* v_tail = sm.v + n_full * KT * 64;
+    const int key0 = 2 * t4, tail0 = n_full * KT + key0;
+
+    SkvRows<TW> r;
+    hp::Ring ring;
+    int head = -1;
+    uint32_t loads = 0;
+    for (int i = begin; i < end; ++i) {
+      const int h = i / q_tiles, row0 = (i - h * q_tiles) * kBlockRows;
+      if (h != head) {
+        if (head >= 0) {   // every product of this warp has finished
+          __syncwarp();
+          if (lane == 0) hp::mbar_arrive(&sm.kv_empty);
+        }
+        head = h;
+        ++loads;
+      }
+      const uint32_t kv_phase = (loads - 1) & 1;
+      __nv_bfloat16* q_slice = sm.q[ring.stage] + wg * kSlice;
+      const uint64_t q_desc = hp::make_desc(q_slice);
+      hp::mbar_wait(&sm.k_full, kv_phase);
+      hp::mbar_wait(&sm.q_full[ring.stage], ring.phase);
+
+      // sweep 1: the exact row max over every key below lk. The S of the
+      // tail and of the last full tile (with a 16-key tail, of the last two)
+      // stay in registers, and sweep 2 starts from them; each tile's max is
+      // taken under the next tile's product.
+      float m[2] = {kNegInf, kNegInf};
+      if constexpr (TW == 16) {
+        if (n_full == 0) {
+          r.open();
+          skv_queue_scores(r.st, q_desc, k_tail);
+          r.close();
+          skv_tile_max<true>(r.st, m, scale_log2, tail0, lk);
+        } else {
+          r.open();
+          skv_queue_scores(r.st, q_desc, k_tail);
+          skv_queue_scores(r.s, q_desc, sm.k);
+          r.close();
+          if (n_full == 1) {
+            skv_tile_max<true>(r.st, m, scale_log2, tail0, lk);
+            skv_tile_max<false>(r.s, m, scale_log2, key0, lk);
+          } else {
+            r.open();
+            skv_queue_scores(r.s2, q_desc, sm.k + KT * 64);
+            hp::wgmma_commit();
+            skv_tile_max<true>(r.st, m, scale_log2, tail0, lk);
+            skv_tile_max<false>(r.s, m, scale_log2, key0, lk);
+            hp::wgmma_wait<0>();
+            r.fence();
+            if (n_full == 3) {   // tile 2 takes tile 0's registers
+              r.open();
+              skv_queue_scores(r.s, q_desc, sm.k + 2 * KT * 64);
+              hp::wgmma_commit();
+              skv_tile_max<false>(r.s2, m, scale_log2, key0, lk);
+              hp::wgmma_wait<0>();
+              r.fence();
+              skv_tile_max<false>(r.s, m, scale_log2, key0, lk);
+            } else {
+              skv_tile_max<false>(r.s2, m, scale_log2, key0, lk);
+            }
+          }
+        }
+      } else {
+        r.open();
+        skv_queue_scores(r.st, q_desc, k_tail);
+        r.close();
+        skv_tile_max<true>(r.st, m, scale_log2, tail0, lk);
+        for (int j = 0; j < n_full; ++j) {
+          r.open();
+          skv_queue_scores(r.s, q_desc, sm.k + j * KT * 64);
+          r.close();
+          skv_tile_max<false>(r.s, m, scale_log2, key0, lk);
+        }
+      }
+      const float neg_m[2] = {-quad_max(m[0]), -quad_max(m[1])};
+
+      // sweep 2: P and O += P.V from the last full tile down to tile 0,
+      // then the tail; the exp2 of each tile runs under the P.V of the one
+      // before it, where its S is at hand
+#pragma unroll
+      for (int e = 0; e < 32; ++e) r.acc[e] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r.l[e] = 0.f;
+      hp::mbar_wait(&sm.v_full, kv_phase);
+      const float c = scale_log2;
+      if constexpr (TW == 16) {
+        if (n_full == 3) {   // s: S of tile 2, s2: of tile 1
+          skv_tile_exp<false>(r.s, neg_m, c, key0, lk);
+          skv_pack(r.p, r.s);
+          r.open();
+          skv_queue_pv<KT>(r, sm.v + 2 * KT * 64, ones_desc);
+          skv_queue_scores(r.s, q_desc, sm.k);
+          hp::wgmma_commit();
+          skv_tile_exp<false>(r.s2, neg_m, c, key0, lk);
+          hp::wgmma_wait<0>();
+          r.fence();
+          skv_pack(r.p, r.s2);
+          skv_pv_exp<KT, false>(r, sm.v + KT * 64, ones_desc, r.s, neg_m, c,
+                                key0, lk);
+          skv_pv_exp<KT, true>(r, sm.v, ones_desc, r.st, neg_m, c, tail0, lk);
+        } else if (n_full == 2) {   // s: S of tile 0, s2: of tile 1
+          skv_tile_exp<false>(r.s2, neg_m, c, key0, lk);
+          skv_pack(r.p, r.s2);
+          skv_pv_exp<KT, false>(r, sm.v + KT * 64, ones_desc, r.s, neg_m, c,
+                                key0, lk);
+          skv_pv_exp<KT, true>(r, sm.v, ones_desc, r.st, neg_m, c, tail0, lk);
+        } else if (n_full == 1) {
+          skv_tile_exp<false>(r.s, neg_m, c, key0, lk);
+          skv_pack(r.p, r.s);
+          skv_pv_exp<KT, true>(r, sm.v, ones_desc, r.st, neg_m, c, tail0, lk);
+        } else {
+          skv_tile_exp<true>(r.st, neg_m, c, tail0, lk);
+          skv_pack(r.p, r.st);
+        }
+      } else if (n_full > 0) {
+        skv_tile_exp<false>(r.s, neg_m, c, key0, lk);
+        skv_pack(r.p, r.s);
+        for (int j = n_full - 1; j > 0; --j) {   // tile j - 1's S again
+          r.open();
+          skv_queue_pv<KT>(r, sm.v + j * KT * 64, ones_desc);
+          skv_queue_scores(r.s, q_desc, sm.k + (j - 1) * KT * 64);
+          r.close();
+          skv_tile_exp<false>(r.s, neg_m, c, key0, lk);
+          skv_pack(r.p, r.s);
+        }
+        skv_pv_exp<KT, true>(r, sm.v, ones_desc, r.st, neg_m, c, tail0, lk);
+      } else {
+        skv_tile_exp<true>(r.st, neg_m, c, tail0, lk);
+        skv_pack(r.p, r.st);
+      }
+      r.open();
+      skv_queue_pv<TW>(r, v_tail, ones_desc);
+      r.close();
+
+      // epilogue: O / l to bf16 through this warpgroup's q slice, rows
+      // past lq skipped; the slice is the stage's again once every
+      // consumer warp has arrived
+      const float l0 = fmaxf(r.l[0], 1e-30f), l1 = fmaxf(r.l[2], 1e-30f);
+      hp::named_barrier(1 + wg, kWg);
+      hp::store_slice(o + (size_t)h * lq * 64, q_slice, r.acc, 1.f / l0,
+                      1.f / l1, row0 + wg * 64, lq, warp, lane);
+      hp::fence_proxy_async();   // before the stage's next TMA copy
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(&sm.q_empty[ring.stage]);
+      ring.advance<QS>();
+    }
+  }
+}
+
+template <int TW>
+cudaError_t launch_shortkv_tail(const FwdMaps& maps, __nv_bfloat16* o,
+                                int bh, int lq, int lk, float scale_log2,
+                                int sms, cudaStream_t st) {
+  constexpr int smem = sizeof(SkvSmem) + 1024;
+  static bool allowed[64] = {};
+  cudaError_t err = hp::allow_smem(flash_shortkv_hopper<TW>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const int q_tiles = (lq + kBlockRows - 1) / kBlockRows;
+  const int pairs = bh * q_tiles, grid = sms < pairs ? sms : pairs;
+  flash_shortkv_hopper<TW><<<grid, kBlockThreads, smem, st>>>(
+      maps.q, maps.k, maps.v, o, lq, lk, q_tiles, pairs, scale_log2);
+  return cudaGetLastError();
+}
+
+// one persistent block an SM (sms of them at most), any softmax scale
+cudaError_t launch_shortkv_bf16(const void* q, const void* k, const void* v,
+                                __nv_bfloat16* o, int bh, int lq, int lk,
+                                float scale_log2, int sms, cudaStream_t st) {
+  if (lk > kSkvMaxKeys || sms < 1) return cudaErrorInvalidValue;
+  FwdMaps maps;
+  if (!maps.encode(q, k, v, bh, lq, lk)) return cudaErrorInvalidValue;
+  const int tail = lk - (lk - 1) / kSkvTileKeys * kSkvTileKeys;   // 1..128
+  if (tail <= 16)
+    return launch_shortkv_tail<16>(maps, o, bh, lq, lk, scale_log2, sms, st);
+  if (tail <= 64)
+    return launch_shortkv_tail<64>(maps, o, bh, lq, lk, scale_log2, sms, st);
+  return launch_shortkv_tail<128>(maps, o, bh, lq, lk, scale_log2, sms, st);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 short-kv, head_dim 80: mma.sync, 64 q rows a block
 // ---------------------------------------------------------------------------
 
 // One warp's 16 x 64 score tile, exp2 domain, masked past `limit`.
@@ -628,38 +1059,39 @@ __global__ void __launch_bounds__(kThreadsF32)
 }
 
 template <int MODE, bool EXP_BF16, int D = kD>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bh, int lq, int lk, float scale_log2,
+               cudaStream_t st) {
+  const dim3 grid((lq + kBlockQ - 1) / kBlockQ, bh);
+  flash_fwd_f32<MODE, EXP_BF16, D><<<grid, kThreadsF32, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, lq, lk,
+      scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// frozen / online / LSE forward: the f32 kernel or the bf16 wgmma one
+template <int MODE, bool EXP_BF16>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int bh, int lq, int lk, float scale_log2, int is_bf16,
            void* stream) {
-  const dim3 grid((lq + kBlockQ - 1) / kBlockQ, bh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!is_bf16) {
-    flash_fwd_f32<MODE, EXP_BF16, D><<<grid, kThreadsF32, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, lq, lk,
-        scale_log2);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if constexpr (MODE == kShortKv) {
-    flash_shortkv_bf16<D><<<grid, kThreadsBf16, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        lq, lk, scale_log2);
-    return static_cast<int>(cudaGetLastError());
-  } else {
-    return static_cast<int>(launch_fwd_bf16<MODE, EXP_BF16>(
-        q, k, v, static_cast<__nv_bfloat16*>(o), lse, bh, lq, lk, scale_log2,
-        st));
-  }
+  if (!is_bf16)
+    return launch_f32<MODE, EXP_BF16>(q, k, v, o, lse, bh, lq, lk,
+                                      scale_log2, st);
+  return static_cast<int>(launch_fwd_bf16<MODE, EXP_BF16>(
+      q, k, v, static_cast<__nv_bfloat16*>(o), lse, bh, lq, lk, scale_log2,
+      st));
 }
 
 }  // namespace
 
 // q, k, v, o: contiguous (bh, lq | lk, 64), 16-byte aligned, bf16 (is_bf16
 // = 1) or f32 (head_dim 64 or 80 for the short-kv entry, which takes it as
-// an argument). scale_log2 = softmax scale * log2(e), positive for the bf16
-// frozen / online / LSE kernel, any for the f32 and short-kv kernels.
+// an argument, with lk <= 512 for bf16 at 64, and sms, the grid's bound:
+// one persistent block an SM). scale_log2 = softmax scale * log2(e),
+// positive for the bf16 frozen / online / LSE kernel, any for the f32 and
+// short-kv kernels.
 extern "C" int pcdms_flash_frozen(const void* q, const void* k, const void* v,
                                   void* o, int bh, int lq, int lk,
                                   float scale_log2, int is_bf16,
@@ -682,13 +1114,28 @@ extern "C" int pcdms_flash_online(const void* q, const void* k, const void* v,
 extern "C" int pcdms_flash_shortkv(const void* q, const void* k,
                                    const void* v, void* o, int bh, int lq,
                                    int lk, float scale_log2, int is_bf16,
-                                   int head_dim, void* stream) {
-  if (head_dim == 80)
-    return launch<kShortKv, false, 80>(q, k, v, o, nullptr, bh, lq, lk,
-                                       scale_log2, is_bf16, stream);
-  if (head_dim != kD) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<kShortKv, false>(q, k, v, o, nullptr, bh, lq, lk,
-                                 scale_log2, is_bf16, stream);
+                                   int head_dim, int sms, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim != kD && head_dim != 80)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!is_bf16)
+    return head_dim == 80
+               ? launch_f32<kShortKv, false, 80>(q, k, v, o, nullptr, bh, lq,
+                                                 lk, scale_log2, st)
+               : launch_f32<kShortKv, false>(q, k, v, o, nullptr, bh, lq, lk,
+                                             scale_log2, st);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  auto* ob = static_cast<__nv_bfloat16*>(o);
+  if (head_dim == 80) {
+    const dim3 grid((lq + kBlockQ - 1) / kBlockQ, bh);
+    flash_shortkv_bf16<80><<<grid, kThreadsBf16, 0, st>>>(qb, kb, vb, ob, lq,
+                                                          lk, scale_log2);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return static_cast<int>(
+      launch_shortkv_bf16(q, k, v, ob, bh, lq, lk, scale_log2, sms, st));
 }
 
 // The online variant that also writes lse (bh, lq) f32: the per-row

@@ -353,6 +353,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"((int)accumulate));
 }
 
+// the same with a 16-row B tile: d is 64 x 16
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a,
+                                         uint64_t b, bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : PCDMS_ACC8(d, 0)
+      : "l"(a), "l"(b), "r"((int)accumulate));
+}
+
 // the same with a 128-row B tile: d is 64 x 128
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
                                          uint64_t b, bool accumulate) {

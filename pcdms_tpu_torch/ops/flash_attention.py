@@ -5,7 +5,9 @@ Counterpart of ``pcdms_tpu/ops/flash_attention.py``. The three Pallas TPU
 kernels there (frozen-max, online-softmax and short-kv) are hand-written
 CUDA C++ for Hopper here (``csrc/flash_attention.cu``); in bf16 the
 frozen-max and online kernels are warp-specialised (TMA copies into a
-shared-memory ring, ``wgmma`` products; ``fwd_plan``). Each has a wrapper
+shared-memory ring, ``wgmma`` products; ``fwd_plan``), and so is the
+short-kv kernel at head_dim 64, persistent with k and v resident
+(``shortkv_plan``; it takes lk <= 512). Each has a wrapper
 that launches the kernel for a CUDA tensor (or raises) and takes the plain
 PyTorch version, which repeats the kernel's arithmetic, for a CPU tensor.
 Each wrapper counts its launches in ``LAUNCHES`` (which also counts the
@@ -37,6 +39,7 @@ The switches are read on every call. The TPU block picking (``_pick_blocks``,
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 
@@ -61,6 +64,12 @@ _BLOCK_K = FWD_STAGE_KEYS
 _HEAD_DIM = 64         # the kernels' head_dim
 # the short-kv kernel also takes CLIP ViT-H's head_dim 80
 _SHORTKV_HEAD_DIMS = (64, 80)
+# the bf16 short-kv kernel at head_dim 64 (``csrc/flash_attention.cu``):
+# q rows a (head, q tile) pair, keys of a full tile; k and v stay resident
+# in shared memory, which holds SKV_MAX_KEYS of each
+SKV_BLOCK_ROWS, SKV_TILE_KEYS, SKV_MAX_KEYS = 128, 128, 512
+# keys of the tail tile's product, by how many keys the tail holds
+_SKV_TAIL_WIDTHS = (16, 64, 128)
 
 # launches per kernel, read by chip_smoke.py: also those of the backward
 # kernels (flash_attention_bwd) and of the fused conv (fused_conv)
@@ -163,6 +172,30 @@ def fwd_plan(lq: int, lk: int, bh: int) -> dict:
                 stages=FWD_STAGES, tiles=-(-lk // FWD_STAGE_KEYS))
 
 
+def shortkv_plan(lq: int, lk: int, bh: int, sms: int) -> dict:
+    """How the bf16 short-kv kernel (head_dim 64) walks (bh, lq, lk). Pair i
+    = head * q_tiles + tile owns q rows [tile * block_rows, (tile + 1) *
+    block_rows) of its head. ``grid`` = min(sms, pairs) persistent blocks;
+    block b walks the contiguous run ``runs[b]`` = [b * pairs // grid,
+    (b + 1) * pairs // grid) and loads the head's k and v at ``reloads[b]``,
+    the pairs of its run that start a head for it. The keys are ``full``
+    unmasked tiles of tile_keys, then a tail of the remaining 1..128 keys
+    through a product ``tail_width`` wide, masked from lk on."""
+    q_tiles = -(-lq // SKV_BLOCK_ROWS)
+    pairs = bh * q_tiles
+    grid = min(sms, pairs)
+    runs = [range(b * pairs // grid, (b + 1) * pairs // grid)
+            for b in range(grid)]
+    reloads = [[i for i in run if i == run.start
+                or i // q_tiles != (i - 1) // q_tiles] for run in runs]
+    full = (lk - 1) // SKV_TILE_KEYS
+    tail = lk - full * SKV_TILE_KEYS
+    return dict(grid=grid, block_rows=SKV_BLOCK_ROWS, q_tiles=q_tiles,
+                pairs=pairs, runs=runs, reloads=reloads,
+                tile_keys=SKV_TILE_KEYS, full=full, tail=tail,
+                tail_width=next(w for w in _SKV_TAIL_WIDTHS if tail <= w))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers: CUDA tensor -> kernel (or raise), CPU tensor -> plain
 # ---------------------------------------------------------------------------
@@ -199,6 +232,22 @@ def _check_scale(q, scale: float) -> None:
     if q.dtype == torch.bfloat16 and not scale > 0:
         raise ValueError(f"the bf16 flash attention kernels take a positive "
                          f"softmax scale, got {scale}")
+
+
+def _check_shortkv_keys(k) -> None:
+    """The bf16 short-kv kernel at head_dim 64 keeps a head's k and v
+    resident in shared memory, SKV_MAX_KEYS of each; every short-kv call is
+    held to that domain, and longer kv raises. The router sends at most
+    384 keys."""
+    if k.shape[1] > SKV_MAX_KEYS:
+        raise ValueError(f"the short-kv kernels take at most {SKV_MAX_KEYS} "
+                         f"keys, got {k.shape[1]}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``: the short-kv kernel's persistent grid."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch(entry: str, q, k, v, scale: float, *extra,
@@ -240,8 +289,9 @@ def shortkv_attention(q, k, v, scale: float):
     or 80."""
     if q.device.type == "cpu":
         return shortkv_plain(q, k, v, scale)
+    _check_shortkv_keys(k)
     out = _launch("pcdms_flash_shortkv", q, k, v, scale, q.shape[-1],
-                  head_dims=_SHORTKV_HEAD_DIMS)
+                  _sm_count(q.device.index), head_dims=_SHORTKV_HEAD_DIMS)
     LAUNCHES["flash_shortkv"] += 1
     SHORTKV_LAUNCHES[q.shape[-1]] += 1
     return out

@@ -81,12 +81,52 @@ def test_plain_online_exp_bf16_matches_pallas(lq, lk):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("lk", [258, 100])
+@pytest.mark.parametrize("lk", [258, 100, 128, 257, 384])
 def test_plain_shortkv_matches_pallas(lk, dtype):
     scale = 1.0 / math.sqrt(D)
     (jq, jk, jv), (tq, tk, tv) = _cast(_qkv(300, lk, lk), dtype)
     want = _shortkv_attention_3d(jq, jk, jv, scale, 128, True)
     _assert_close(fa.shortkv_plain(tq, tk, tv, scale), want, BARS[dtype])
+
+
+def _shortkv_hard_qkv(kind, lq, lk, seed, bh=BH):
+    """Inputs that random ones never make. 'partial_max': keys from 128 on
+    score about 160 above keys 0-127 in the exp2 domain, so a max taken of
+    the first 128 keys alone overflows exp2. 'all_negative': q positive, k
+    negative, every score below -130 in the exp2 domain, so a zero key
+    (score 0) in the max would underflow every real weight to 0."""
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(0.5, 1.5, (bh, lq, D)).astype(np.float32)
+    v = rng.standard_normal((bh, lk, D)).astype(np.float32)
+    if kind == "partial_max":
+        k = 0.5 * rng.standard_normal((bh, lk, D)).astype(np.float32)
+        k[:, 128:] += 14.0      # 64 x 14 x log2(e) / 8 = 162
+    else:
+        k = -rng.uniform(14.0, 16.0, (bh, lk, D)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("kind,lk", [("partial_max", 258),
+                                     ("partial_max", 384),
+                                     ("all_negative", 258),
+                                     ("all_negative", 128)])
+def test_plain_shortkv_hard_inputs_match_pallas(kind, lk):
+    """f32: the plain short-kv version and the Pallas kernel agree, finite,
+    on inputs where only the exact max over every key (and no other) gives
+    finite, non-zero weights."""
+    scale = 1.0 / math.sqrt(D)
+    arrays = _shortkv_hard_qkv(kind, 200, lk, 31)
+    s2 = np.einsum("bqd,bkd->bqk", arrays[0], arrays[1]) * scale * np.log2(
+        np.e)
+    if kind == "partial_max":
+        assert (s2[..., 128:].max(-1) - s2[..., :128].max(-1)).min() > 128
+    else:
+        assert s2.max() < -130
+    (jq, jk, jv), (tq, tk, tv) = _cast(arrays, "f32")
+    got = fa.shortkv_plain(tq, tk, tv, scale)
+    assert torch.isfinite(got).all() and got.abs().max() > 0.1
+    _assert_close(got, _shortkv_attention_3d(jq, jk, jv, scale, 128, True),
+                  BARS["f32"])
 
 
 @pytest.mark.parametrize("kernel", ["frozen", "online", "shortkv"])
@@ -183,6 +223,19 @@ def test_launch_refuses_a_scale_that_is_not_positive(scale):
     fa._check_scale(q, scale)
 
 
+@pytest.mark.parametrize("lk,ok", [(1, True), (384, True), (512, True),
+                                   (513, False), (1024, False)])
+def test_shortkv_refuses_more_keys_than_it_keeps(lk, ok):
+    """The bf16 short-kv kernel keeps a head's k and v in shared memory, 512
+    keys of each: its wrapper checks the kv length before the launch."""
+    k = torch.zeros((2, lk, D), dtype=torch.bfloat16)
+    if ok:
+        fa._check_shortkv_keys(k)
+    else:
+        with pytest.raises(ValueError, match="at most 512 keys"):
+            fa._check_shortkv_keys(k)
+
+
 # ---------------------------------------------------------------------------
 # the bf16 frozen / online kernel's tiling and source
 # ---------------------------------------------------------------------------
@@ -244,38 +297,132 @@ def test_fwd_plan_has_the_kernels_constants():
     assert ring + 4096 <= 227 * 1024
 
 
+# (B*H, Lq, Lk) of the UNet's short-kv calls at batch 2: the 258-token
+# cross-attention at the three levels and in the mid block, the mid block's
+# 128-token self-attention; and level 0 at the batch test's UNet batch 16
+SHORTKV_UNET = [(10, 8192, 258), (20, 2048, 258), (40, 512, 258),
+                (40, 128, 258), (40, 128, 128), (80, 8192, 258)]
+SHORTKV_RAGGED = [(3, lq, lk) for lq in (1, 127, 129)
+                  for lk in (1, 127, 128, 129, 170, 257, 258, 300,
+                            384, 390, 460, 512)]
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("bh,lq,lk", SHORTKV_UNET + SHORTKV_RAGGED)
+def test_shortkv_plan_walks_every_pair_once(bh, lq, lk, sms):
+    """The persistent blocks walk every (head, q tile) pair exactly once in
+    contiguous runs, no block is empty, and a block loads k and v at the
+    first pair of its run and wherever its run crosses into the next head,
+    nowhere else. The key tiles hold every key once: full 128-key tiles,
+    then a tail no wider than its product."""
+    plan = fa.shortkv_plan(lq, lk, bh, sms)
+    tiles = plan["q_tiles"]
+    assert tiles == -(-lq // 128) and plan["pairs"] == bh * tiles
+    assert plan["grid"] == min(sms, bh * tiles) == len(plan["runs"])
+    walked = np.zeros((bh, tiles), int)
+    nxt = 0
+    for run, reloads in zip(plan["runs"], plan["reloads"]):
+        assert len(run) > 0 and run.start == nxt and run.step == 1
+        nxt = run.stop
+        heads = [i // tiles for i in run]
+        for i in run:
+            walked[i // tiles, i % tiles] += 1
+        assert reloads[0] == run.start
+        assert [i // tiles for i in reloads] == sorted(set(heads))
+        assert all(i == run.start or (i - 1) // tiles != i // tiles
+                   for i in reloads)
+    assert nxt == plan["pairs"] and (walked == 1).all()
+    # every q row belongs to one pair, and only the last tile is ragged
+    assert (tiles - 1) * plan["block_rows"] < lq <= tiles * plan["block_rows"]
+    full, tail, width = plan["full"], plan["tail"], plan["tail_width"]
+    assert full * plan["tile_keys"] + tail == lk and 1 <= tail <= 128
+    assert width == min(w for w in (16, 64, 128) if w >= tail)
+    # the tail's product stays inside the resident k and v
+    assert full * plan["tile_keys"] + width <= fa.SKV_MAX_KEYS
+
+
+@pytest.mark.parametrize("bh,lq,lk,blocks,runs,crossing,width", [
+    (10, 8192, 258, 132, (4, 5), 6, 16), (20, 2048, 258, 132, (2, 3), 8, 16),
+    (40, 512, 258, 132, (1, 2), 4, 16), (40, 128, 258, 40, (1, 1), 0, 16),
+    (40, 128, 128, 40, (1, 1), 0, 128), (80, 8192, 258, 132, (38, 39), 76,
+                                         16)])
+def test_shortkv_plan_at_the_unet_shapes(bh, lq, lk, blocks, runs, crossing,
+                                         width):
+    """On an H100's 132 SMs: 640 pairs at level 0 in runs of 4-5, 6 of them
+    crossing a head boundary (the other 3 boundaries fall between runs);
+    the mid block's 40 pairs one a block; 258 keys are two full tiles and a
+    16-key tail, 128 keys one 128-key tail."""
+    plan = fa.shortkv_plan(lq, lk, bh, 132)
+    assert plan["grid"] == blocks
+    assert {len(r) for r in plan["runs"]} == set(runs)
+    assert sum(len(r) - 1 for r in plan["reloads"]) == crossing
+    assert plan["tail_width"] == width
+
+
+def test_shortkv_plan_has_the_kernels_constants():
+    """The plan's tiling is the one the CUDA source compiles; k and v of 512
+    keys, two q stages and the tile of ones fit the 227 KB a block may
+    use."""
+    src = (_CSRC / "flash_attention.cu").read_text()
+    assert "constexpr int kSkvTileKeys = 128;" in src
+    assert "constexpr int kSkvMaxKeys = 4 * kSkvTileKeys;" in src
+    assert "constexpr int kSkvQStages = 2;" in src
+    assert fa.SKV_TILE_KEYS == 128 and fa.SKV_MAX_KEYS == 4 * 128
+    assert fa.SKV_BLOCK_ROWS == fa.FWD_BLOCK_ROWS == 2 * 64
+    for width in (16, 64, 128):
+        assert f"launch_shortkv_tail<{width}>(" in src
+    smem = (2 * fa.SKV_BLOCK_ROWS + 2 * fa.SKV_MAX_KEYS + 16) * 128
+    assert smem + 1024 + 64 <= 227 * 1024
+    assert fa._SHORTKV_MAX <= fa.SKV_MAX_KEYS
+
+
 def _section(src, start, end):
     return src[src.index(start):src.index(end)]
 
 
 def test_bf16_forward_source_is_the_hopper_design():
-    """The bf16 frozen / online kernel issues wgmma and fills its ring by
-    TMA under mbarriers; the warp-level mma remains in the short-kv kernel
-    only; nothing reads the environment."""
+    """The bf16 frozen / online kernel and the bf16 short-kv kernel at
+    head_dim 64 issue wgmma and fill shared memory by TMA under mbarriers;
+    the warp-level mma remains in the head_dim-80 short-kv kernel only;
+    nothing reads the environment."""
     src = (_CSRC / "flash_attention.cu").read_text()
     assert '#include "hopper.cuh"' in src
     hopper_part = _section(src, "// bf16 frozen / online: TMA ring",
-                           "// bf16 short-kv: mma.sync")
-    shortkv_part = _section(src, "// bf16 short-kv: mma.sync",
-                            "// f32, FMA: one thread per q row")
-    rest = src.replace(shortkv_part, "")
+                           "// bf16 short-kv, head_dim 64:")
+    skv_part = _section(src, "// bf16 short-kv, head_dim 64:",
+                        "// bf16 short-kv, head_dim 80: mma.sync")
+    d80_part = _section(src, "// bf16 short-kv, head_dim 80: mma.sync",
+                        "// f32, FMA: one thread per q row")
+    rest = src.replace(d80_part, "")
     for call in ("hp::wgmma_ss(", "hp::wgmma_rs(", "hp::tma_load_rows(",
                  "hp::mbar_wait(", "hp::reg_alloc<", "hp::store_slice(",
                  "hp::MapCache", "hp::allow_smem("):
         assert call in hopper_part, call
-    for gone in ("mma.sync", "mma_bf16(", "mma_abt", "mma_ab", "ldmatrix",
-                 "load_tile_bf16", "exp2f(", "getenv"):
-        assert gone not in hopper_part, gone
+    for call in ("hp::wgmma_ss(", "hp::wgmma_rs(", "hp::tma_load_rows(",
+                 "hp::mbar_wait(", "hp::reg_alloc<", "hp::store_slice(",
+                 "hp::allow_smem(", "maps.encode(", "gridDim.x"):
+        assert call in skv_part, call
+    for part in (hopper_part, skv_part):
+        for gone in ("mma.sync", "mma_bf16(", "mma_abt", "mma_ab", "ldmatrix",
+                     "load_tile_bf16", "exp2f(", "getenv"):
+            assert gone not in part, gone
     for kept in ("mma_abt<D>(", "mma_ab<D>("):
-        assert kept in shortkv_part and kept not in rest, kept
+        assert kept in d80_part and kept not in rest, kept
     assert "getenv" not in src
     # one template serves frozen, online, online[exp_bf16] and the LSE
-    # forward: three instantiations, lse a runtime pointer
-    assert src.count("__global__") == 3
+    # forward, one the short-kv tails at head_dim 64; the head_dim-80 and
+    # the f32 kernels: four templates, lse a runtime pointer
+    assert src.count("__global__") == 4
     for entry, mode in (("pcdms_flash_frozen", "launch<kFrozen, false>"),
                         ("pcdms_flash_fwd_lse", "launch<kOnline, false>")):
         body = src[src.index(f'extern "C" int {entry}('):]
         assert mode in body[:body.index("\n}\n")], entry
+    # a bf16 head_dim-64 call reaches the new kernel, the old one only 80
+    body = src[src.index('extern "C" int pcdms_flash_shortkv('):]
+    body = body[:body.index("\n}\n")]
+    assert "launch_shortkv_bf16(" in body
+    assert "flash_shortkv_bf16<80>" in body and "flash_shortkv_bf16<64>" not in (
+        src)
 
 
 def test_shared_hopper_helpers_live_in_the_header_once():
@@ -293,14 +440,15 @@ def test_shared_hopper_helpers_live_in_the_header_once():
     assert "*out = s.map;" in hopper and "s.map = *out;" in hopper
 
 
-@pytest.mark.parametrize("wrapper,plain", [
-    ("flash_frozen", "flash_frozen_plain"),
-    ("flash_online", "flash_online_plain")])
-def test_wrappers_launch_or_raise_on_cuda(wrapper, plain):
+@pytest.mark.parametrize("wrapper,plain,counter", [
+    ("flash_frozen", "flash_frozen_plain", "flash_frozen"),
+    ("flash_online", "flash_online_plain", "flash_online"),
+    ("shortkv_attention", "shortkv_plain", "flash_shortkv")])
+def test_wrappers_launch_or_raise_on_cuda(wrapper, plain, counter):
     """Past the CPU branch a wrapper launches its kernel and counts it: no
     route back to the plain version, no ``try``."""
     src = inspect.getsource(getattr(fa, wrapper))
     cuda_part = src.split(f"return {plain}", 1)[1]
-    assert "_launch(" in cuda_part and f'LAUNCHES["{wrapper}"] += 1' in (
+    assert "_launch(" in cuda_part and f'LAUNCHES["{counter}"] += 1' in (
         cuda_part)
     assert "plain" not in cuda_part and "try" not in cuda_part

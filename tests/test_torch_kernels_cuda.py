@@ -6,7 +6,8 @@ JAX-free, so it also runs where JAX is absent:
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 
 Forward bars: f32 max abs error 2e-5; bf16 (and the bf16-softmax variant)
-max abs error 1e-2 of the output's largest magnitude, which admits the one
+max abs error 1e-2 of the output's largest magnitude (also with inputs on
+which only the short-kv kernel's exact row max stays finite), which admits the one
 bf16 ulp (at most 2^-7 of a value) by which two accumulation orders may
 round apart. Backward bars, each scaled to its output: bf16 max abs error
 1e-2 of the largest magnitude and relative L2 5e-3; f32 max abs error 2e-5
@@ -81,19 +82,26 @@ def test_kernel_matches_plain(cuda, kernel, dtype, lq, lk):
 
 
 def _fwd_kernels(q, k, v, scale):
-    """The three bf16 wgmma forward variants and the LSE forward: name ->
-    tuple of outputs."""
-    return {"frozen": (fa.flash_frozen(q, k, v, scale),),
-            "online": (fa.flash_online(q, k, v, scale),),
-            "online_exp_bf16": (fa.flash_online(q, k, v, scale, True),),
-            "fwd_lse": fb.flash_fwd_lse(q, k, v, scale)}
+    """The three bf16 wgmma forward variants, the LSE forward and, where kv
+    is short enough, the persistent short-kv kernel: name -> tuple of
+    outputs."""
+    out = {"frozen": (fa.flash_frozen(q, k, v, scale),),
+           "online": (fa.flash_online(q, k, v, scale),),
+           "online_exp_bf16": (fa.flash_online(q, k, v, scale, True),),
+           "fwd_lse": fb.flash_fwd_lse(q, k, v, scale)}
+    if k.shape[1] <= fa.SKV_MAX_KEYS:
+        out["shortkv"] = (fa.shortkv_attention(q, k, v, scale),)
+    return out
 
 
 def _fwd_plains(q, k, v, scale):
-    return {"frozen": (fa.flash_frozen_plain(q, k, v, scale),),
-            "online": (fa.flash_online_plain(q, k, v, scale),),
-            "online_exp_bf16": (fa.flash_online_plain(q, k, v, scale, True),),
-            "fwd_lse": fb.flash_fwd_lse_plain(q, k, v, scale)}
+    out = {"frozen": (fa.flash_frozen_plain(q, k, v, scale),),
+           "online": (fa.flash_online_plain(q, k, v, scale),),
+           "online_exp_bf16": (fa.flash_online_plain(q, k, v, scale, True),),
+           "fwd_lse": fb.flash_fwd_lse_plain(q, k, v, scale)}
+    if k.shape[1] <= fa.SKV_MAX_KEYS:
+        out["shortkv"] = (fa.shortkv_plain(q, k, v, scale),)
+    return out
 
 
 def _assert_fwd_matches(got, want):
@@ -128,12 +136,16 @@ def test_lse_forward_matches_plain(cuda, lq, lk):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", [float("inf"), float("nan")])
 @pytest.mark.parametrize("lq,lk", [(70, 130), (129, 127), (200, 60),
-                                   (300, 600)])
-def test_forward_kernels_never_read_the_neighbouring_head(cuda, lq, lk, bad):
+                                   (300, 600), (129, 258), (300, 384)])
+def test_forward_kernels_never_read_the_neighbouring_head(cuda, monkeypatch,
+                                                          lq, lk, bad):
     """Heads share one buffer: with every value of heads 0 and 2 set to Inf
     or NaN, head 1's output is that of head 1 alone, bit for bit. A tile
     that ran past a ragged length into the next head's rows would carry
-    them into a max or a product."""
+    them into a max or a product. The short-kv kernel runs on 2 SMs here,
+    so that a persistent block's run crosses from head to head and reloads
+    k and v on the way."""
+    monkeypatch.setattr(fa, "_sm_count", lambda index: 2)
     q, k, v = _qkv(cuda, torch.bfloat16, 1, lq, lk)
     three = []
     for x in (q, k, v):
@@ -180,6 +192,110 @@ def test_forward_kernels_across_many_live_tensors(cuda):
                 for g, w in zip(got[name], outs):
                     assert torch.equal(g, w), name
     _assert_fwd_matches(first[3], _fwd_plains(*sets[3], scale))
+
+
+# the UNet's short-kv calls at batch 2 (the 258-token cross-attention at
+# the three levels and in the mid block, the mid block's self-attention) and
+# level 0 at the batch test's UNet batch 16; ragged lengths on both sides of
+# the 128-row pairs and the 128-key tiles, up to the 512 keys k and v may
+# hold, with every tail width (16, 64, 128 keys) behind 0 to 3 full tiles
+SHORTKV_UNET = [(10, 8192, 258), (20, 2048, 258), (40, 512, 258),
+                (40, 128, 258), (40, 128, 128), (80, 8192, 258)]
+SHORTKV_RAGGED = [(3, lq, lk) for lq in (1, 127, 129)
+                  for lk in (1, 127, 128, 129, 170, 257, 258, 300,
+                            384, 390, 460, 512)]
+
+
+def _assert_shortkv_matches(q, k, v, scale):
+    fa.reset_launches()
+    got = fa.shortkv_attention(q, k, v, scale)
+    want = fa.shortkv_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert fa.SHORTKV_LAUNCHES == {64: 1, 80: 0}
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    assert _max_rel(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,lq,lk", SHORTKV_UNET)
+def test_shortkv_kernel_at_the_unet_shapes(cuda, bh, lq, lk):
+    """The persistent bf16 short-kv kernel at head_dim 64 on the card's own
+    SMs at the shapes the UNet gives it."""
+    _assert_shortkv_matches(*_qkv(cuda, torch.bfloat16, bh, lq, lk), 0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("bh,lq,lk", SHORTKV_RAGGED)
+def test_shortkv_kernel_at_ragged_shapes(cuda, monkeypatch, bh, lq, lk, sms):
+    """Ragged q and kv lengths, on 1 and 7 SMs too: one block walks every
+    head, or runs cross heads mid-way and reload k and v."""
+    monkeypatch.setattr(fa, "_sm_count", lambda index: sms)
+    _assert_shortkv_matches(*_qkv(cuda, torch.bfloat16, bh, lq, lk), 0.125)
+
+
+def _shortkv_hard(dev, kind, bh, lq, lk, seed=16):
+    """'partial_max': keys from 128 on score about 160 above keys 0-127 in
+    the exp2 domain, so a max taken of tile 0 alone overflows exp2.
+    'all_negative': q positive, k negative, every score below -130, so a
+    zero-filled key (score 0) in the max would underflow every weight."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.rand((bh, lq, D), generator=gen, device=dev) + 0.5
+    v = torch.randn((bh, lk, D), generator=gen, device=dev)
+    if kind == "partial_max":
+        k = 0.5 * torch.randn((bh, lk, D), generator=gen, device=dev)
+        k[:, 128:] += 14.0      # 64 x 14 x log2(e) / 8 = 162
+    else:
+        k = -(torch.rand((bh, lk, D), generator=gen, device=dev) * 2 + 14)
+    return [x.to(torch.bfloat16) for x in (q, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,bh,lq,lk", [
+    ("partial_max", 3, 300, 258), ("partial_max", 3, 129, 384),
+    ("partial_max", 3, 129, 512), ("partial_max", 10, 8192, 258),
+    ("all_negative", 3, 300, 258), ("all_negative", 3, 129, 128),
+    ("all_negative", 10, 8192, 258)])
+def test_shortkv_kernel_takes_the_exact_max(cuda, kind, bh, lq, lk):
+    """The row max is taken of every key below lk and of no key past it:
+    inputs on which a partial max overflows and a max that counts the
+    zero-filled keys underflows, held to the plain version's output."""
+    q, k, v = _shortkv_hard(cuda, kind, bh, lq, lk)
+    s2 = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
+        0.125 * math.log2(math.e))
+    if kind == "partial_max":
+        gap = s2[..., 128:].amax(-1) - s2[..., :128].amax(-1)
+        assert gap.min().item() > 128
+    else:
+        assert s2.max().item() < -130
+    _assert_shortkv_matches(q, k, v, 0.125)
+
+
+@pytest.mark.cuda
+def test_shortkv_launches_by_head_dim(cuda):
+    """Each short-kv call counts once, under its head_dim: bf16 and f32 at
+    64 (the persistent kernel and the FMA one), bf16 at 80."""
+    fa.reset_launches()
+    for dtype in (torch.bfloat16, torch.float32):
+        fa.shortkv_attention(*_qkv(cuda, dtype, 2, 70, 258), 0.125)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v = (torch.randn((2, n, 80), generator=gen, device=cuda)
+               .to(torch.bfloat16) for n in (70, 257, 257))
+    fa.shortkv_attention(q, k, v, 1.0 / math.sqrt(80))
+    torch.cuda.synchronize()
+    assert fa.SHORTKV_LAUNCHES == {64: 2, 80: 1}
+    assert {n: c for n, c in fa.LAUNCHES.items() if c} == {"flash_shortkv": 3}
+
+
+@pytest.mark.cuda
+def test_shortkv_refuses_more_keys_than_it_keeps(cuda):
+    """More than 512 keys raise before a launch; 512 run."""
+    fa.reset_launches()
+    with pytest.raises(ValueError, match="at most 512 keys"):
+        fa.shortkv_attention(*_qkv(cuda, torch.bfloat16, 1, 64, 513), 0.125)
+    assert fa.LAUNCHES["flash_shortkv"] == 0
+    _assert_shortkv_matches(*_qkv(cuda, torch.bfloat16, 1, 64, 512), 0.125)
 
 
 @pytest.mark.cuda
