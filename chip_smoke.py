@@ -6,20 +6,26 @@ Phases, each reported on its own lines:
   1. build the CUDA kernels from ``pcdms_tpu_torch/ops/csrc`` with nvcc (one
      process per source, started together: the flash-attention forward and
      backward kernels and the fused GroupNorm + SiLU + conv3x3 kernel), with
-     each kernel's registers and spills;
+     each kernel's registers, spills and ptxas warnings (a short-kv
+     instantiation that spills or has its wgmma serialised fails);
   2. hold each forward attention kernel against its plain PyTorch version on
      the card at the main path's shapes (bf16, with f32 spot checks; the
-     short-kv kernel also at CLIP ViT-H's head_dim 80; the frozen, online and
+     short-kv kernel also at CLIP ViT-H's head_dim 80, at ragged shapes
+     too; the frozen, online and
      online[exp_bf16] kernels, which in bf16 are warp-specialised, a TMA ring
      feeding wgmma, also at ragged shapes on both sides of their 128-row
      blocks and 128-key stages), and time the kernel, the plain version, and
      ``scaled_dot_product_attention`` as a yardstick at the three levels,
      and the frozen kernel, the LSE forward and SDPA at the reference
-     protocol's batch 8 (B*H = 80); the short-kv kernel (in bf16 at head_dim
-     64 persistent, k and v resident, TMA feeding wgmma) at its six shapes
-     (``phase_shortkv``), it and SDPA timed by device time (CUDA-graph
-     replay) beside ten back-to-back calls, which at these sizes read the
-     host; then the fused conv kernel against its plain version at the 14 conv
+     protocol's batch 8 (B*H = 80); the short-kv kernel (in bf16
+     persistent, k and v resident, TMA feeding wgmma) at its six head_dim-64
+     shapes and at CLIP ViT-H's over 2, 4 and 8 images (``phase_shortkv``),
+     it and SDPA timed by device time (CUDA-graph replay) beside ten
+     back-to-back calls, which at these sizes read the host; CLIP ViT-H's
+     full-width forward (batch 2, 224 px, random weights) under
+     PCDMS_SHORTKV=pallas (32 short-kv launches at head_dim 80) against
+     plain attention (``phase_clip``); then the fused conv kernel against
+     its plain version at the 14 conv
      shapes of the full-width UNet (bf16, in the mode the UNet uses there),
      mode 0 and apply_act=False at level 0, f32 and a ragged shape, each UNet
      shape timed beside the plain version, the port's unfused route
@@ -80,6 +86,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -98,8 +105,15 @@ PATH_SHAPES = [(10, 8192, 8192), (20, 2048, 2048), (40, 512, 512)]
 # self-attention, and level 0 at the batch test's UNet batch 16
 SHORTKV_SHAPES = [(10, 8192, 258), (20, 2048, 258), (40, 512, 258),
                   (40, 128, 258), (40, 128, 128), (80, 8192, 258)]
-# CLIP ViT-H's 257-token self-attention, 2 images x 16 heads of 80
-SHORTKV_D80_SHAPE = (32, 257, 257)
+# CLIP ViT-H's 257-token self-attention, 16 heads of 80, over 2 images (the
+# batch test's train mode), 4 (the JAX batch test's default --batch_size 4)
+# and 8 (the stage-2 trainer's --train_batch_size 8)
+SHORTKV_D80_SHAPES = [(32, 257, 257), (64, 257, 257), (128, 257, 257)]
+# ragged head_dim-80 shapes: both sides of the 128-row pairs, every tail
+# width (16, 64, 128 keys) behind 0 to 3 full tiles, one row, one key
+SHORTKV_D80_EDGES = [(3, 1, 1), (3, 127, 129), (3, 129, 257), (3, 300, 100),
+                     (3, 129, 200), (3, 70, 384), (3, 129, 460),
+                     (3, 200, 512)]
 # kernel vs plain version. f32 outputs: max abs error <= 2e-5. bf16 outputs
 # (and the bf16-softmax variant): max abs error <= 1e-2 * max|plain|. The
 # two round the same f32 sum to bf16 after a different accumulation order,
@@ -238,13 +252,41 @@ def bound_ms(bh: int, lq: int, lk: int, d: int = 64, itemsize: int = 2):
                  (2 * bh * lq * d + 2 * bh * lk * d) * itemsize)
 
 
+def _kernel_name(mangled: str) -> str:
+    try:
+        out = subprocess.run(["c++filt", mangled], capture_output=True,
+                             text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return mangled
+    name = out.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ").strip() or mangled
+
+
 def phase_build():
+    """Build the kernels; print, per kernel, the registers and spills that
+    ptxas reports and every ptxas warning. Fails if a short-kv
+    instantiation spills or ptxas serialises its wgmma (C75xx)."""
     from pcdms_tpu_torch.ops import _build
+    bad = []
     for stem, seconds in _build.build().items():
         print(f"[build] {stem}.cu: {seconds:.1f} s (nvcc, sm_90a)")
+        entry = None
         for line in _build.build_log(stem).splitlines():
-            if "registers" in line or "spill" in line:
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                entry = _kernel_name(found.group(1))
+            elif "spill" in line or "Used" in line:
+                print(f"[build]   {entry}: {line.strip()}")
+                spills = re.search(r"(\d+) bytes spill stores", line)
+                if (entry and "flash_shortkv_hopper" in entry and spills
+                        and spills.group(1) != "0"):
+                    bad.append(f"{entry} spills: {line.strip()}")
+            elif "warning" in line or "(C75" in line:
                 print(f"[build]   {line.strip()}")
+                if "C75" in line and "flash_shortkv_hopper" in line:
+                    bad.append(line.strip())
+    if bad:
+        fail("short-kv kernel build: " + "; ".join(bad))
 
 
 def phase_shortkv(fa, shapes):
@@ -374,9 +416,13 @@ def phase_kernels(fa, fb):
         check(name, kernel, plain, bh, lq, lk, f32, False)
     # the short-kv kernel at its six shapes by device time, and at CLIP
     # ViT-H's head_dim 80 (the short-kv kernel alone takes it)
-    shortkv = phase_shortkv(fa, [(*shape, 64) for shape in SHORTKV_SHAPES]
-                            + [(*SHORTKV_D80_SHAPE, 80)])
-    records["flash_shortkv"] = dict(shortkv[0], other_levels=shortkv[1:])
+    shortkv = phase_shortkv(fa, [(*shape, 64) for shape in SHORTKV_SHAPES])
+    d80 = phase_shortkv(fa, [(*shape, 80) for shape in SHORTKV_D80_SHAPES])
+    records["flash_shortkv"] = dict(shortkv[0], other_levels=shortkv[1:],
+                                    head_dim_80=d80)
+    for shape in SHORTKV_D80_EDGES:
+        check("flash_shortkv", fa.shortkv_attention, fa.shortkv_plain,
+              *shape, bf16, False, d=80)
     check("flash_shortkv", fa.shortkv_attention, fa.shortkv_plain, 4, 257,
           257, f32, False, d=80)
     ob = (lambda q, k, v, s: fa.flash_online(q, k, v, s, True),
@@ -400,6 +446,60 @@ def phase_kernels(fa, fb):
     del q, k, v
     torch.cuda.empty_cache()
     return records
+
+
+def phase_clip(fa, dev):
+    """CLIP ViT-H at full width (32 layers, 16 heads of 80; batch 2 at 224
+    px, random weights from the seed, bf16) as the batch test's train mode
+    runs it (``train/encoders.clip_image_embed``): under
+    PCDMS_SHORTKV=pallas every self-attention takes the short-kv kernel at
+    head_dim 80 (32 launches); by default plain attention. The image
+    embeddings must agree within BAR_UNET_REL_L2 (both run the same bf16
+    network and differ only where the attention weights are rounded)."""
+    from pcdms_tpu_torch.models.vit import (
+        VisionTransformer, clip_vit_h14_config,
+    )
+    from pcdms_tpu_torch.train.encoders import clip_image_embed
+
+    with torch.device(dev):
+        torch.manual_seed(SEED)
+        model = VisionTransformer(clip_vit_h14_config())
+    model = model.to(torch.bfloat16).eval()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    pixels = torch.randn((2, 224, 224, 3), generator=gen, device=dev)
+
+    def embed():
+        return clip_image_embed(model, pixels)
+
+    os.environ["PCDMS_SHORTKV"] = "pallas"
+    try:
+        fa.reset_launches()
+        got = embed()
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in fa.LAUNCHES.items() if c}
+        by_dim = dict(fa.SHORTKV_LAUNCHES)
+        kernel_ms = cuda_ms(embed, 3, 1)
+    finally:
+        os.environ.pop("PCDMS_SHORTKV")
+    want = embed()
+    plain_ms = cuda_ms(embed, 3, 1)
+    rel = _rel_l2(got, want)
+    print(f"[clip] CLIP ViT-H forward, batch 2 at 224 px, bf16: image "
+          f"embedding {tuple(got.shape)} rel_l2 short-kv kernel vs plain "
+          f"attention = {rel:.3e} (bar {BAR_UNET_REL_L2:g}); launches "
+          f"{launches}, by head_dim {by_dim}; forward ms (CUDA events over "
+          f"3 calls): kernel {kernel_ms:.2f} plain {plain_ms:.2f}",
+          flush=True)
+    if got.shape != (2, 1024) or not torch.isfinite(got).all() or (
+            not rel <= BAR_UNET_REL_L2):
+        fail("CLIP ViT-H image embedding through the short-kv kernel "
+             "disagrees with plain attention")
+    if launches != {"flash_shortkv": 32} or by_dim != {64: 0, 80: 32}:
+        fail(f"expected 32 short-kv launches at head_dim 80 per CLIP ViT-H "
+             f"forward, got {launches} {by_dim}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_fused_conv(fc):
@@ -1232,6 +1332,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     records = phase_kernels(fa, fb)
+    phase_clip(fa, dev)
     records["fused_gn_silu_conv"] = phase_fused_conv(fc)
     models = build_models(dev)
     phase_unet(fa, models, dev)

@@ -12,9 +12,7 @@
 //                row max; here a first sweep over all (<= 512) keys finds it.
 //                It alone also takes head_dim 80 (CLIP ViT-H's 16 heads of
 //                80): the JAX kernel takes any head_dim, padding v to d_aug
-//                (l.338-350); here head_dim 80 keeps a warp-level kernel,
-//                five mma k-steps of 16 for Q.K^T and ten 8-column tiles
-//                for P.V.
+//                (l.338-350); here one template serves 64 and 80.
 // and of pcdms_tpu/ops/flash_attention_bwd.py:
 //   * ONLINE with an lse output -> _fwd_lse_kernel (l.53-92): the training
 //                forward, which also writes L = m + log2(l) per row for the
@@ -77,16 +75,17 @@
 //     units made the kernel slower at every share tried. Two consumers are
 //     all the registers allow. Not done: 2-CTA clusters with multicast, a
 //     persistent grid.
-// SHORTKV, bf16, head_dim 64: bound by bytes. At the UNet's level 0 (10 x
-// 8192 q rows, 258 keys) q and o are 21 MB against 0.66 MB of k and v and
-// 5 GFLOP, so the kernel has to stream q in and o out at the memory's rate
-// and keep everything else off that stream. The design:
+// SHORTKV, bf16, head_dim 64 and 80: bound by bytes. At the UNet's level 0
+// (10 x 8192 q rows, 258 keys, head_dim 64) q and o are 21 MB against 0.66
+// MB of k and v and 5 GFLOP, so the kernel has to stream q in and o out at
+// the memory's rate and keep everything else off that stream. The design:
 //   * Persistent: one block an SM walks a contiguous run of (head, 128-row
 //     q tile) pairs (skv_run_edge), warp-specialised as above (two
 //     consumer warpgroups of 64 rows, one producer thread issuing TMA).
 //   * K and V resident: on a new head the producer loads all of its k and
-//     v (<= 512 keys, 128 KB) by TMA once, and reloads only where the run
-//     crosses into the next head, once the consumers have released them.
+//     v (<= 512 keys, 128 KB; 160 KB at head_dim 80) by TMA once, and
+//     reloads only where the run crosses into the next head, once the
+//     consumers have released them.
 //   * q streamed a pair ahead through two stages; the epilogue (O / l to
 //     bf16 through the pair's own q buffer) overlaps the next pair's load.
 //   * Two sweeps over the resident tiles on wgmma: sweep 1 takes the exact
@@ -101,13 +100,19 @@
 //     (16, 64 or 128 keys, a template argument): at 258 keys the third tile
 //     costs a 16-key product, not a 128-key one. Keys from lk on (zeros by
 //     TMA) are -inf in the max and exactly 0 in P.
+//   * head_dim 80 (CLIP ViT-H, 257 keys): a row of 160 bytes is wider than
+//     a 128-byte-swizzled TMA box, so each row is split in two. Its first
+//     64 columns keep the head_dim-64 layout, maps and descriptors; its
+//     last 16 come through a second tensor map over the same tensor
+//     (column 64 on, 32-byte swizzle) into a region of their own
+//     (hopper.cuh). Q.K^T takes a fifth k-step on the 16-column parts;
+//     P.V splits N: each k-step of P meets the 64-column part of v
+//     (m64n64k16 into O's 32 registers) and the 16-column part (m64n16k16
+//     into 8 more). The epilogue stages the 16 columns through their own
+//     q buffer. Shared memory: 204 KB of the 227.
 //   * What is left (PERF.md): at 258 keys the products, the exp2 and the
 //     FP32 arithmetic each take about as long as the bytes, and the two
 //     consumer warpgroups overlap them poorly.
-// SHORTKV, bf16, head_dim 80 keeps the first, warp-level design: one block
-// owns 64 q rows (4 warps x 16 rows) and loops over 64-key tiles staged in
-// padded shared memory, mma.sync m16n8k16, P re-packed in registers, V
-// through ldmatrix.trans.
 // f32 (a spot-check route, not the main path): one thread per q row with FMA
 // dot products against f32 k/v tiles in shared memory, so f32 inputs keep
 // full f32 precision (tensor-core TF32 would not).
@@ -124,9 +129,8 @@ namespace {
 using namespace pcdms;
 namespace hp = pcdms::hopper;
 
-constexpr int kBlockQ = 64;        // q rows per block (short-kv, f32)
-constexpr int kBlockK = kTile;     // keys per shared-memory tile (same)
-constexpr int kThreadsBf16 = 128;  // short-kv: 4 warps x 16 q rows
+constexpr int kBlockQ = 64;        // q rows per block (f32)
+constexpr int kBlockK = kTile;     // keys per shared-memory tile (f32)
 constexpr int kThreadsF32 = kBlockQ;
 constexpr float kFrozenMargin = 24.0f;
 constexpr int kFrozenKeys = 128;
@@ -426,13 +430,18 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   }
 }
 
-// the three tensor maps of a launch; hp::MapCache keeps the last few per
-// host thread
+// the last few tensor maps of the forward launches, per host thread
+hp::MapCache& fwd_map_cache() {
+  static thread_local hp::MapCache cache;
+  return cache;
+}
+
+// the three tensor maps of a launch
 struct FwdMaps {
   CUtensorMap q, k, v;
   bool encode(const void* q_, const void* k_, const void* v_, int bh, int lq,
               int lk) {
-    static thread_local hp::MapCache cache;
+    hp::MapCache& cache = fwd_map_cache();
     return cache.get(&q, q_, bh, lq) && cache.get(&k, k_, bh, lk) &&
            cache.get(&v, v_, bh, lk);
   }
@@ -458,7 +467,7 @@ cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 short-kv, head_dim 64: persistent, K / V resident, TMA -> wgmma
+// bf16 short-kv, head_dim 64 and 80: persistent, K / V resident, TMA -> wgmma
 // ---------------------------------------------------------------------------
 
 constexpr int kSkvTileKeys = 128;                // keys of a full tile
@@ -472,7 +481,19 @@ constexpr int kLaunchRegs = 65536 / kBlockThreads / 8 * 8;
 static_assert(kConsumers * (kSkvConsumerRegs - kLaunchRegs) <=
                   kLaunchRegs - kSkvProducerRegs,
               "the producer must give back what the consumers take");
+using hp::kCols16;
 
+// head_dim 80: the last 16 columns of q, k and v, each 32-byte swizzled
+// (hopper.cuh), beside the first 64 in the head_dim-64 layout
+template <int X>
+struct SkvCols16 {
+  alignas(1024) __nv_bfloat16 q[kSkvQStages][kBlockRows * X];
+  alignas(1024) __nv_bfloat16 k[kSkvMaxKeys * X], v[kSkvMaxKeys * X];
+};
+template <>
+struct SkvCols16<0> {};
+
+template <int D>
 struct SkvSmem {
   // a pair's q rows; its epilogue's staging once the products are done
   __nv_bfloat16 q[kSkvQStages][kBlockRows * 64];
@@ -481,7 +502,10 @@ struct SkvSmem {
   __nv_bfloat16 ones[16 * 64];
   uint64_t q_full[kSkvQStages], q_empty[kSkvQStages];
   uint64_t k_full, v_full, kv_empty;
+  SkvCols16<D - 64> x;   // head_dim 80: columns 64-79
 };
+static_assert(sizeof(SkvSmem<80>) + 1024 <= 232448,
+              "q, k and v of 512 keys at head_dim 80 fit a block");
 
 // The (head, q tile) pairs [edge(b), edge(b + 1)) are block b's run, pair
 // i = head * q_tiles + tile: contiguous, so that a block reloads k and v
@@ -492,16 +516,18 @@ __device__ __forceinline__ int skv_run_edge(int b, int pairs) {
 }
 
 // A consumer thread's share of its warpgroup's 64 rows: S of a full tile
-// (of two with a 16-key tail: 204 registers with the rest), S of the tail,
-// O unnormalised, P of one tile, the row-sums as P . 1 (l[0] and l[2]).
-// S[i] is row (i >> 1) & 1 of the thread's two, key key0 + (i >> 2) * 8 +
-// (i & 1) of its tile, key0 = 2 * (lane % 4).
-template <int TW>
+// (of two with a 16-key tail: 204 registers with the rest at head_dim 64,
+// 212 at 80), S of the tail, O unnormalised (its columns past 64 in ox),
+// P of one tile, the row-sums as P . 1 (l[0] and l[2]). S[i] is row
+// (i >> 1) & 1 of the thread's two, key key0 + (i >> 2) * 8 + (i & 1) of
+// its tile, key0 = 2 * (lane % 4).
+template <int TW, int D>
 struct SkvRows {
   float s[kSkvTileKeys / 2];
   float s2[TW == 16 ? kSkvTileKeys / 2 : 1];
   float st[TW / 2];
   float acc[32];
+  float ox[D > 64 ? (D - 64) / 2 : 1];
   float l[4];
   uint32_t p[kSkvTileKeys / 16][4];
 
@@ -512,6 +538,7 @@ struct SkvRows {
     hp::fence_acc(s2);
     hp::fence_acc(st);
     hp::fence_acc(acc);
+    if constexpr (D > 64) hp::fence_acc(ox);
     hp::fence_acc(l);
     hp::fence_frag(p);
   }
@@ -526,28 +553,43 @@ struct SkvRows {
   }
 };
 
-// queues S = Q.K^T (64 x 2N) against the first 2N keys of a k tile
-template <int N>
-__device__ __forceinline__ void skv_queue_scores(float (&s)[N],
-                                                 uint64_t q_desc,
-                                                 const __nv_bfloat16* k) {
-  const uint64_t k_desc = hp::make_desc(k);
+// a pair's q slice as wgmma operands: its first 64 columns and, at head_dim
+// 80, its last 16
+struct SkvQ {
+  uint64_t q, qx;
+};
+
+// queues S = Q.K^T (64 x 2N) against the 2N keys from key `first` on: four
+// k-steps of the 64-column parts, at head_dim 80 a fifth of the 16-column
+// parts
+template <int D, int N>
+__device__ __forceinline__ void skv_queue_scores(float (&s)[N], SkvQ q,
+                                                 const SkvSmem<D>& sm,
+                                                 int first) {
+  const uint64_t k_desc = hp::make_desc(sm.k + first * 64);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    hp::wgmma_ss(s, q_desc + kk * hp::kStepK, k_desc + kk * hp::kStepK,
+    hp::wgmma_ss(s, q.q + kk * hp::kStepK, k_desc + kk * hp::kStepK,
                  kk > 0);
+  if constexpr (D > 64)
+    hp::wgmma_ss(s, q.qx, hp::make_desc16(sm.x.k + first * kCols16), true);
 }
 
-// queues O += P.V and l += P.1 over the first W keys of a v tile, read
-// MN-major, P from registers
-template <int W, int TW>
-__device__ __forceinline__ void skv_queue_pv(SkvRows<TW>& r,
-                                             const __nv_bfloat16* v,
+// queues O += P.V and l += P.1 over the W keys from key `first` on, v read
+// MN-major, P from registers; at head_dim 80 each k-step's P also meets v's
+// last 16 columns (m64n16k16 into ox)
+template <int W, int TW, int D>
+__device__ __forceinline__ void skv_queue_pv(SkvRows<TW, D>& r,
+                                             const SkvSmem<D>& sm, int first,
                                              uint64_t ones_desc) {
-  const uint64_t v_desc = hp::make_desc(v);
+  const uint64_t v_desc = hp::make_desc(sm.v + first * 64);
+  [[maybe_unused]] uint64_t vx_desc = 0;
+  if constexpr (D > 64) vx_desc = hp::make_desc16(sm.x.v + first * kCols16);
 #pragma unroll
   for (int kk = 0; kk < W / 16; ++kk) {
     hp::wgmma_rs(r.acc, r.p[kk], v_desc + kk * hp::kStepMN);
+    if constexpr (D > 64)
+      hp::wgmma_rs(r.ox, r.p[kk], vx_desc + kk * hp::kStep16MN);
     hp::wgmma_rs(r.l, r.p[kk], ones_desc);
   }
 }
@@ -587,18 +629,19 @@ __device__ __forceinline__ void skv_pack(uint32_t (&p)[kSkvTileKeys / 16][4],
   for (int kk = 0; kk < N / 8; ++kk) hp::pack_a(p[kk], s, kk);
 }
 
-// Queues P.V of the tile whose P is packed, turns `next` (S of the tile
-// after it) into P while the products run, and packs it once they are done.
-template <int W, bool kMaskedNext, int TW, int N>
-__device__ __forceinline__ void skv_pv_exp(SkvRows<TW>& r,
-                                           const __nv_bfloat16* v,
+// Queues P.V of the tile whose P is packed (keys from `first` on), turns
+// `next` (S of the tile after it) into P while the products run, and packs
+// it once they are done.
+template <int W, bool kMaskedNext, int TW, int D, int N>
+__device__ __forceinline__ void skv_pv_exp(SkvRows<TW, D>& r,
+                                           const SkvSmem<D>& sm, int first,
                                            uint64_t ones_desc,
                                            float (&next)[N],
                                            const float (&neg_m)[2],
                                            float scale_log2, int key0,
                                            int lk) {
   r.open();
-  skv_queue_pv<W>(r, v, ones_desc);
+  skv_queue_pv<W>(r, sm, first, ones_desc);
   hp::wgmma_commit();
   skv_tile_exp<kMaskedNext>(next, neg_m, scale_log2, key0, lk);
   hp::wgmma_wait<0>();
@@ -608,16 +651,25 @@ __device__ __forceinline__ void skv_pv_exp(SkvRows<TW>& r,
 
 // TW: keys of the tail tile, the last (lk - 1) % 128 + 1 keys rounded up
 // to 16, 64 or 128; the n_full tiles before it are 128 keys and unmasked.
-template <int TW>
+// D: head_dim, 64 or 80 (map_qx, map_kx and map_vx map the last 16 columns
+// at 80 and are not read at 64).
+template <int TW, int D>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     flash_shortkv_hopper(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_qx,
+                         const __grid_constant__ CUtensorMap map_kx,
+                         const __grid_constant__ CUtensorMap map_vx,
                          __nv_bfloat16* __restrict__ o, int lq, int lk,
                          int q_tiles, int pairs, float scale_log2) {
   constexpr int KT = kSkvTileKeys, QS = kSkvQStages;
+  constexpr bool kWide = D > 64;
+  // bytes a copy of 64 rows brings, all column parts
+  constexpr uint32_t kRowsBytes =
+      hp::kBoxBytes + (kWide ? hp::kBox16Bytes : 0);
   extern __shared__ __align__(1024) uint8_t smem_raw[];
-  SkvSmem& sm = hp::shared_storage<SkvSmem>(smem_raw);
+  SkvSmem<D>& sm = hp::shared_storage<SkvSmem<D>>(smem_raw);
 
   const int tid = threadIdx.x, wg = tid / kWg;
   const int begin = skv_run_edge(blockIdx.x, pairs);
@@ -652,23 +704,36 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
         const int h = i / q_tiles, row0 = (i - h * q_tiles) * kBlockRows;
         hp::mbar_wait(&sm.q_empty[ring.stage], ring.phase ^ 1);
         hp::mbar_arrive_expect_tx(&sm.q_full[ring.stage],
-                                  kConsumers * hp::kBoxBytes);
+                                  kConsumers * kRowsBytes);
 #pragma unroll
-        for (int c = 0; c < kConsumers; ++c)
+        for (int c = 0; c < kConsumers; ++c) {
           hp::tma_load_rows(sm.q[ring.stage] + c * kSlice, &map_q,
                             &sm.q_full[ring.stage], row0 + c * 64, h);
+          if constexpr (kWide)
+            hp::tma_load_rows(sm.x.q[ring.stage] + c * 64 * kCols16,
+                              &map_qx, &sm.q_full[ring.stage], row0 + c * 64,
+                              h, 64);
+        }
         ring.advance<QS>();
         if (h != head) {
           // every consumer warp is done with the last head's k and v
           hp::mbar_wait(&sm.kv_empty, (loads & 1) ^ 1);
-          hp::mbar_arrive_expect_tx(&sm.k_full, boxes * hp::kBoxBytes);
-          for (int b = 0; b < boxes; ++b)
+          hp::mbar_arrive_expect_tx(&sm.k_full, boxes * kRowsBytes);
+          for (int b = 0; b < boxes; ++b) {
             hp::tma_load_rows(sm.k + b * kSlice, &map_k, &sm.k_full,
                               b * hp::kBoxRows, h);
-          hp::mbar_arrive_expect_tx(&sm.v_full, boxes * hp::kBoxBytes);
-          for (int b = 0; b < boxes; ++b)
+            if constexpr (kWide)
+              hp::tma_load_rows(sm.x.k + b * 64 * kCols16, &map_kx,
+                                &sm.k_full, b * hp::kBoxRows, h, 64);
+          }
+          hp::mbar_arrive_expect_tx(&sm.v_full, boxes * kRowsBytes);
+          for (int b = 0; b < boxes; ++b) {
             hp::tma_load_rows(sm.v + b * kSlice, &map_v, &sm.v_full,
                               b * hp::kBoxRows, h);
+            if constexpr (kWide)
+              hp::tma_load_rows(sm.x.v + b * 64 * kCols16, &map_vx,
+                                &sm.v_full, b * hp::kBoxRows, h, 64);
+          }
           head = h;
           ++loads;
         }
@@ -680,11 +745,10 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     const int warp = (tid >> 5) & 3, lane = tid & 31;
     const int t4 = lane & 3;
     const uint64_t ones_desc = hp::make_desc(sm.ones);
-    const __nv_bfloat16* k_tail = sm.k + n_full * KT * 64;
-    const __nv_bfloat16* v_tail = sm.v + n_full * KT * 64;
-    const int key0 = 2 * t4, tail0 = n_full * KT + key0;
+    const int tail = n_full * KT;   // the tail's first key
+    const int key0 = 2 * t4, tail0 = tail + key0;
 
-    SkvRows<TW> r;
+    SkvRows<TW, D> r;
     hp::Ring ring;
     int head = -1;
     uint32_t loads = 0;
@@ -700,7 +764,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       }
       const uint32_t kv_phase = (loads - 1) & 1;
       __nv_bfloat16* q_slice = sm.q[ring.stage] + wg * kSlice;
-      const uint64_t q_desc = hp::make_desc(q_slice);
+      SkvQ q{hp::make_desc(q_slice), 0};
+      if constexpr (kWide)
+        q.qx = hp::make_desc16(sm.x.q[ring.stage] + wg * 64 * kCols16);
       hp::mbar_wait(&sm.k_full, kv_phase);
       hp::mbar_wait(&sm.q_full[ring.stage], ring.phase);
 
@@ -712,20 +778,20 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       if constexpr (TW == 16) {
         if (n_full == 0) {
           r.open();
-          skv_queue_scores(r.st, q_desc, k_tail);
+          skv_queue_scores(r.st, q, sm, tail);
           r.close();
           skv_tile_max<true>(r.st, m, scale_log2, tail0, lk);
         } else {
           r.open();
-          skv_queue_scores(r.st, q_desc, k_tail);
-          skv_queue_scores(r.s, q_desc, sm.k);
+          skv_queue_scores(r.st, q, sm, tail);
+          skv_queue_scores(r.s, q, sm, 0);
           r.close();
           if (n_full == 1) {
             skv_tile_max<true>(r.st, m, scale_log2, tail0, lk);
             skv_tile_max<false>(r.s, m, scale_log2, key0, lk);
           } else {
             r.open();
-            skv_queue_scores(r.s2, q_desc, sm.k + KT * 64);
+            skv_queue_scores(r.s2, q, sm, KT);
             hp::wgmma_commit();
             skv_tile_max<true>(r.st, m, scale_log2, tail0, lk);
             skv_tile_max<false>(r.s, m, scale_log2, key0, lk);
@@ -733,7 +799,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
             r.fence();
             if (n_full == 3) {   // tile 2 takes tile 0's registers
               r.open();
-              skv_queue_scores(r.s, q_desc, sm.k + 2 * KT * 64);
+              skv_queue_scores(r.s, q, sm, 2 * KT);
               hp::wgmma_commit();
               skv_tile_max<false>(r.s2, m, scale_log2, key0, lk);
               hp::wgmma_wait<0>();
@@ -746,12 +812,12 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
         }
       } else {
         r.open();
-        skv_queue_scores(r.st, q_desc, k_tail);
+        skv_queue_scores(r.st, q, sm, tail);
         r.close();
         skv_tile_max<true>(r.st, m, scale_log2, tail0, lk);
         for (int j = 0; j < n_full; ++j) {
           r.open();
-          skv_queue_scores(r.s, q_desc, sm.k + j * KT * 64);
+          skv_queue_scores(r.s, q, sm, j * KT);
           r.close();
           skv_tile_max<false>(r.s, m, scale_log2, key0, lk);
         }
@@ -763,6 +829,10 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       // before it, where its S is at hand
 #pragma unroll
       for (int e = 0; e < 32; ++e) r.acc[e] = 0.f;
+      if constexpr (kWide) {
+#pragma unroll
+        for (int e = 0; e < (D - 64) / 2; ++e) r.ox[e] = 0.f;
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) r.l[e] = 0.f;
       hp::mbar_wait(&sm.v_full, kv_phase);
@@ -772,26 +842,29 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
           skv_tile_exp<false>(r.s, neg_m, c, key0, lk);
           skv_pack(r.p, r.s);
           r.open();
-          skv_queue_pv<KT>(r, sm.v + 2 * KT * 64, ones_desc);
-          skv_queue_scores(r.s, q_desc, sm.k);
+          skv_queue_pv<KT>(r, sm, 2 * KT, ones_desc);
+          skv_queue_scores(r.s, q, sm, 0);
           hp::wgmma_commit();
           skv_tile_exp<false>(r.s2, neg_m, c, key0, lk);
           hp::wgmma_wait<0>();
           r.fence();
           skv_pack(r.p, r.s2);
-          skv_pv_exp<KT, false>(r, sm.v + KT * 64, ones_desc, r.s, neg_m, c,
-                                key0, lk);
-          skv_pv_exp<KT, true>(r, sm.v, ones_desc, r.st, neg_m, c, tail0, lk);
+          skv_pv_exp<KT, false>(r, sm, KT, ones_desc, r.s, neg_m, c, key0,
+                                lk);
+          skv_pv_exp<KT, true>(r, sm, 0, ones_desc, r.st, neg_m, c, tail0,
+                               lk);
         } else if (n_full == 2) {   // s: S of tile 0, s2: of tile 1
           skv_tile_exp<false>(r.s2, neg_m, c, key0, lk);
           skv_pack(r.p, r.s2);
-          skv_pv_exp<KT, false>(r, sm.v + KT * 64, ones_desc, r.s, neg_m, c,
-                                key0, lk);
-          skv_pv_exp<KT, true>(r, sm.v, ones_desc, r.st, neg_m, c, tail0, lk);
+          skv_pv_exp<KT, false>(r, sm, KT, ones_desc, r.s, neg_m, c, key0,
+                                lk);
+          skv_pv_exp<KT, true>(r, sm, 0, ones_desc, r.st, neg_m, c, tail0,
+                               lk);
         } else if (n_full == 1) {
           skv_tile_exp<false>(r.s, neg_m, c, key0, lk);
           skv_pack(r.p, r.s);
-          skv_pv_exp<KT, true>(r, sm.v, ones_desc, r.st, neg_m, c, tail0, lk);
+          skv_pv_exp<KT, true>(r, sm, 0, ones_desc, r.st, neg_m, c, tail0,
+                               lk);
         } else {
           skv_tile_exp<true>(r.st, neg_m, c, tail0, lk);
           skv_pack(r.p, r.st);
@@ -801,28 +874,33 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
         skv_pack(r.p, r.s);
         for (int j = n_full - 1; j > 0; --j) {   // tile j - 1's S again
           r.open();
-          skv_queue_pv<KT>(r, sm.v + j * KT * 64, ones_desc);
-          skv_queue_scores(r.s, q_desc, sm.k + (j - 1) * KT * 64);
+          skv_queue_pv<KT>(r, sm, j * KT, ones_desc);
+          skv_queue_scores(r.s, q, sm, (j - 1) * KT);
           r.close();
           skv_tile_exp<false>(r.s, neg_m, c, key0, lk);
           skv_pack(r.p, r.s);
         }
-        skv_pv_exp<KT, true>(r, sm.v, ones_desc, r.st, neg_m, c, tail0, lk);
+        skv_pv_exp<KT, true>(r, sm, 0, ones_desc, r.st, neg_m, c, tail0, lk);
       } else {
         skv_tile_exp<true>(r.st, neg_m, c, tail0, lk);
         skv_pack(r.p, r.st);
       }
       r.open();
-      skv_queue_pv<TW>(r, v_tail, ones_desc);
+      skv_queue_pv<TW>(r, sm, tail, ones_desc);
       r.close();
 
-      // epilogue: O / l to bf16 through this warpgroup's q slice, rows
-      // past lq skipped; the slice is the stage's again once every
-      // consumer warp has arrived
+      // epilogue: O / l to bf16 through this warpgroup's q slice (and, at
+      // head_dim 80, its 16-column slice), rows past lq skipped; the slices
+      // are the stage's again once every consumer warp has arrived
       const float l0 = fmaxf(r.l[0], 1e-30f), l1 = fmaxf(r.l[2], 1e-30f);
+      __nv_bfloat16* o_h = o + (size_t)h * lq * D;
       hp::named_barrier(1 + wg, kWg);
-      hp::store_slice(o + (size_t)h * lq * 64, q_slice, r.acc, 1.f / l0,
-                      1.f / l1, row0 + wg * 64, lq, warp, lane);
+      hp::store_slice(o_h, q_slice, r.acc, 1.f / l0, 1.f / l1,
+                      row0 + wg * 64, lq, warp, lane, D);
+      if constexpr (kWide)
+        hp::store_slice16(o_h + 64, sm.x.q[ring.stage] + wg * 64 * kCols16,
+                          r.ox, 1.f / l0, 1.f / l1, row0 + wg * 64, lq, warp,
+                          lane, D);
       hp::fence_proxy_async();   // before the stage's next TMA copy
       __syncwarp();
       if (lane == 0) hp::mbar_arrive(&sm.q_empty[ring.stage]);
@@ -831,27 +909,54 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   }
 }
 
-template <int TW>
-cudaError_t launch_shortkv_tail(const FwdMaps& maps, __nv_bfloat16* o,
+// the six tensor maps of a short-kv launch: q, k and v (at head_dim 80
+// their first 64 columns) and, at 80, their last 16 (at 64 copies of the
+// first three, never read)
+template <int D>
+struct SkvMaps {
+  CUtensorMap q, k, v, qx, kx, vx;
+  bool encode(const void* q_, const void* k_, const void* v_, int bh,
+              int lq, int lk) {
+    hp::MapCache& cache = fwd_map_cache();
+    if (!(cache.get(&q, q_, bh, lq, D) && cache.get(&k, k_, bh, lk, D) &&
+          cache.get(&v, v_, bh, lk, D)))
+      return false;
+    if constexpr (D == 64) {
+      qx = q;
+      kx = k;
+      vx = v;
+      return true;
+    }
+    return cache.get(&qx, q_, bh, lq, D, kCols16) &&
+           cache.get(&kx, k_, bh, lk, D, kCols16) &&
+           cache.get(&vx, v_, bh, lk, D, kCols16);
+  }
+};
+
+template <int TW, int D>
+cudaError_t launch_shortkv_tail(const SkvMaps<D>& maps, __nv_bfloat16* o,
                                 int bh, int lq, int lk, float scale_log2,
                                 int sms, cudaStream_t st) {
-  constexpr int smem = sizeof(SkvSmem) + 1024;
+  constexpr int smem = sizeof(SkvSmem<D>) + 1024;
   static bool allowed[64] = {};
-  cudaError_t err = hp::allow_smem(flash_shortkv_hopper<TW>, smem, allowed);
+  cudaError_t err =
+      hp::allow_smem(flash_shortkv_hopper<TW, D>, smem, allowed);
   if (err != cudaSuccess) return err;
   const int q_tiles = (lq + kBlockRows - 1) / kBlockRows;
   const int pairs = bh * q_tiles, grid = sms < pairs ? sms : pairs;
-  flash_shortkv_hopper<TW><<<grid, kBlockThreads, smem, st>>>(
-      maps.q, maps.k, maps.v, o, lq, lk, q_tiles, pairs, scale_log2);
+  flash_shortkv_hopper<TW, D><<<grid, kBlockThreads, smem, st>>>(
+      maps.q, maps.k, maps.v, maps.qx, maps.kx, maps.vx, o, lq, lk, q_tiles,
+      pairs, scale_log2);
   return cudaGetLastError();
 }
 
 // one persistent block an SM (sms of them at most), any softmax scale
+template <int D>
 cudaError_t launch_shortkv_bf16(const void* q, const void* k, const void* v,
                                 __nv_bfloat16* o, int bh, int lq, int lk,
                                 float scale_log2, int sms, cudaStream_t st) {
   if (lk > kSkvMaxKeys || sms < 1) return cudaErrorInvalidValue;
-  FwdMaps maps;
+  SkvMaps<D> maps;
   if (!maps.encode(q, k, v, bh, lq, lk)) return cudaErrorInvalidValue;
   const int tail = lk - (lk - 1) / kSkvTileKeys * kSkvTileKeys;   // 1..128
   if (tail <= 16)
@@ -859,116 +964,6 @@ cudaError_t launch_shortkv_bf16(const void* q, const void* k, const void* v,
   if (tail <= 64)
     return launch_shortkv_tail<64>(maps, o, bh, lq, lk, scale_log2, sms, st);
   return launch_shortkv_tail<128>(maps, o, bh, lq, lk, scale_log2, sms, st);
-}
-
-// ---------------------------------------------------------------------------
-// bf16 short-kv, head_dim 80: mma.sync, 64 q rows a block
-// ---------------------------------------------------------------------------
-
-// One warp's 16 x 64 score tile, exp2 domain, masked past `limit`.
-// s[nt][e]: row g (e < 2) or g + 8 (e >= 2), key k0 + nt*8 + 2*t4 + (e & 1).
-template <int D>
-__device__ __forceinline__ void tile_scores(float s[8][4],
-                                            const uint32_t qa[][4],
-                                            const __nv_bfloat16* ks, int k0,
-                                            int limit, float scale_log2,
-                                            int lane) {
-  const int t4 = lane & 3;
-  mma_abt<D>(s, qa, ks, lane);
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
-      s[nt][e] = key < limit ? s[nt][e] * scale_log2 : kNegInf;
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreadsBf16)
-    flash_shortkv_bf16(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ o, int lq, int lk,
-                       float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * stride_of<D>()];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBlockK * stride_of<D>()];
-
-  const int bh = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  q += (size_t)bh * lq * D;
-  o += (size_t)bh * lq * D;
-  k += (size_t)bh * lk * D;
-  v += (size_t)bh * lk * D;
-  const int r0 = blockIdx.x * kBlockQ + warp * 16 + g, r1 = r0 + 8;
-  const bool live0 = r0 < lq, live1 = r1 < lq;
-
-  // Q as mma A fragments (16 rows x D per warp), zero past lq
-  uint32_t qa[D / 16][4];
-  load_a_frags<D>(qa, q, blockIdx.x * kBlockQ + warp * 16, lq, lane);
-
-  // first pass: the row max over all keys; q.k^T only
-  float m[2] = {kNegInf, kNegInf};
-  for (int k0 = 0; k0 < lk; k0 += kBlockK) {
-    __syncthreads();
-    load_tile_bf16<D>(ks, k, k0, lk);
-    __syncthreads();
-    float s[8][4];
-    tile_scores<D>(s, qa, ks, k0, lk, scale_log2, lane);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      m[0] = fmaxf(m[0], fmaxf(s[nt][0], s[nt][1]));
-      m[1] = fmaxf(m[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-  }
-  m[0] = quad_max(m[0]);
-  m[1] = quad_max(m[1]);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float l[2] = {0.f, 0.f};  // this lane's share of the row-sums
-
-  for (int k0 = 0; k0 < lk; k0 += kBlockK) {
-    __syncthreads();
-    load_tile_bf16<D>(ks, k, k0, lk);
-    load_tile_bf16<D>(vs, v, k0, lk);
-    __syncthreads();
-
-    float s[8][4];
-    tile_scores<D>(s, qa, ks, k0, lk, scale_log2, lane);
-
-    // P = exp2(s - m) in bf16 (the A operand of P.V); the row-sum adds the
-    // same rounded weights the numerator uses
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = round_bf16(exp2f(s[nt][e] - m[e >> 1]));
-        s[nt][e] = p;
-        l[e >> 1] += p;
-      }
-    }
-    uint32_t pa[4][4];
-    pack_a(pa, s);
-    mma_ab<D>(acc, pa, vs, lane);   // acc += P . V
-  }
-
-  const float l0 = fmaxf(quad_sum(l[0]), 1e-30f);
-  const float l1 = fmaxf(quad_sum(l[1]), 1e-30f);
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + t4 * 2;
-    if (live0)
-      *reinterpret_cast<uint32_t*>(o + (size_t)r0 * D + c) =
-          pack_bf16(acc[dt][0] / l0, acc[dt][1] / l0);
-    if (live1)
-      *reinterpret_cast<uint32_t*>(o + (size_t)r1 * D + c) =
-          pack_bf16(acc[dt][2] / l1, acc[dt][3] / l1);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1088,8 +1083,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 // q, k, v, o: contiguous (bh, lq | lk, 64), 16-byte aligned, bf16 (is_bf16
 // = 1) or f32 (head_dim 64 or 80 for the short-kv entry, which takes it as
-// an argument, with lk <= 512 for bf16 at 64, and sms, the grid's bound:
-// one persistent block an SM). scale_log2 = softmax scale * log2(e),
+// an argument, with lk <= 512 for bf16, and sms, the grid's bound: one
+// persistent block an SM). scale_log2 = softmax scale * log2(e),
 // positive for the bf16 frozen / online / LSE kernel, any for the f32 and
 // short-kv kernels.
 extern "C" int pcdms_flash_frozen(const void* q, const void* k, const void* v,
@@ -1124,18 +1119,13 @@ extern "C" int pcdms_flash_shortkv(const void* q, const void* k,
                                                  lk, scale_log2, st)
                : launch_f32<kShortKv, false>(q, k, v, o, nullptr, bh, lq, lk,
                                              scale_log2, st);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
   auto* ob = static_cast<__nv_bfloat16*>(o);
-  if (head_dim == 80) {
-    const dim3 grid((lq + kBlockQ - 1) / kBlockQ, bh);
-    flash_shortkv_bf16<80><<<grid, kThreadsBf16, 0, st>>>(qb, kb, vb, ob, lq,
-                                                          lk, scale_log2);
-    return static_cast<int>(cudaGetLastError());
-  }
   return static_cast<int>(
-      launch_shortkv_bf16(q, k, v, ob, bh, lq, lk, scale_log2, sms, st));
+      head_dim == 80
+          ? launch_shortkv_bf16<80>(q, k, v, ob, bh, lq, lk, scale_log2, sms,
+                                    st)
+          : launch_shortkv_bf16<64>(q, k, v, ob, bh, lq, lk, scale_log2, sms,
+                                    st));
 }
 
 // The online variant that also writes lse (bh, lq) f32: the per-row

@@ -21,6 +21,19 @@
 //   two-dimensional map over BH * L rows would bring the next head's rows
 //   instead). A copy always counts the whole box, 8192 bytes, on its
 //   mbarrier, however many rows were out of range.
+// * Rows of 80 (160 bytes: more than a 128-byte-swizzled box may span).
+//   A (BH, L, 80) tensor has two maps over the same (80, L, BH)
+//   dimensions: box (64, 64, 1) with the 128-byte swizzle brings the first
+//   64 columns as above (the copy's column coordinate is 0), and box
+//   (16, 64, 1) with the 32-byte swizzle the last 16 (column coordinate
+//   64): rows of 32 bytes, the 16-byte chunk c of row r at c ^ ((r >> 2) &
+//   1) (bit 4 ^= bit 7), 2048 bytes a copy. Such a 16-column tile is read
+//   by wgmma through descriptors of layout type 3 (B32) with SBO = 256, the
+//   distance between 8-row groups: K-major (Q and K of S = Q.K^T: one
+//   k-step of 16 columns is the whole row) and MN-major (V of P.V: the 16
+//   columns are N, 8 keys lie 32 bytes apart, the next 8 at SBO; the
+//   k-step of 16 keys advances the start by 512 bytes, descriptor + 32; the
+//   leading byte offset, the next 16 columns, is never reached at N = 16).
 // * K-major operand (the product contracts over the tile's 64 columns: the
 //   A operand of S = Q.K^T, and K as its B operand): descriptor start = the
 //   tile's (or the 64-row slice's) address, stride byte offset (SBO) = 1024,
@@ -70,6 +83,9 @@ namespace hopper {
 constexpr int kRowBytes = 128;           // one 64-element bf16 row
 constexpr int kBoxRows = 64;             // rows of one TMA copy
 constexpr int kBoxBytes = kBoxRows * kRowBytes;
+// the last 16 columns of an 80-wide row, 32-byte swizzled
+constexpr int kCols16 = 16;
+constexpr int kBox16Bytes = kBoxRows * kCols16 * 2;
 
 // the warp-specialised block: consumer warpgroups of 64 rows each, then one
 // producer warpgroup whose registers setmaxnreg moves to the consumers
@@ -101,49 +117,62 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// the map of a contiguous (bh, len, 64) bf16 tensor, box 64 x 64 x 1,
-// 128-byte swizzle, zeros past len; false if the encoding is refused
+// the map of a contiguous (bh, len, width) bf16 tensor, width 64 or 80,
+// box box_cols x 64 x 1: box_cols 64 with the 128-byte swizzle or 16 with
+// the 32-byte swizzle (the last 16 columns of an 80-wide row); zeros past
+// len; false if the encoding is refused
 inline bool make_tensor_map(CUtensorMap* map, const void* base, int bh,
-                            int len) {
+                            int len, int width, int box_cols) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {64, (cuuint64_t)len, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {kRowBytes, (cuuint64_t)len * kRowBytes};
-  const cuuint32_t box[3] = {64, kBoxRows, 1};
+  const cuuint64_t row_bytes = (cuuint64_t)width * 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)len,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {row_bytes, (cuuint64_t)len * row_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, kBoxRows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                               : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The tensor maps of a launch. Encoding one costs the host about as much as
 // a launch, and the launches of one forward or backward need the same few,
-// so the last few are kept per host thread, keyed by what defines them (a
-// map holds the address and the shape, never the data).
+// so the last few are kept per host thread, keyed by everything that
+// defines them (a map holds the address, the shape, the box and the
+// swizzle, never the data): a map of 64-wide rows is never returned for an
+// 80-wide tensor on the same storage, nor a 16-column box for a 64-column
+// one.
 struct MapCache {
   static constexpr int kSlots = 8;
   struct Slot {
     const void* base = nullptr;
-    int bh = 0, len = 0;
+    int bh = 0, len = 0, width = 0, box_cols = 0;
     CUtensorMap map;
   } slots[kSlots];
   int next = 0;
 
   // copies the map out: a later miss may overwrite the slot
-  bool get(CUtensorMap* out, const void* base, int bh, int len) {
+  bool get(CUtensorMap* out, const void* base, int bh, int len,
+           int width = 64, int box_cols = 64) {
     for (const Slot& s : slots)
-      if (s.base == base && s.bh == bh && s.len == len) {
+      if (s.base == base && s.bh == bh && s.len == len &&
+          s.width == width && s.box_cols == box_cols) {
         *out = s.map;
         return true;
       }
-    if (!make_tensor_map(out, base, bh, len)) return false;
+    if (!make_tensor_map(out, base, bh, len, width, box_cols)) return false;
     Slot& s = slots[next];
     next = (next + 1) % kSlots;
     s.base = base;
     s.bh = bh;
     s.len = len;
+    s.width = width;
+    s.box_cols = box_cols;
     s.map = *out;
     return true;
   }
@@ -258,16 +287,17 @@ __device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
                : "memory");
 }
 
-// rows [row, row + 64) of head `bh` -> 8192 swizzled bytes at dst, counted
-// on `bar`; rows past the tensor's length arrive as zeros
+// rows [row, row + 64) of head `bh` -> one box of swizzled bytes at dst
+// (8192, or 2048 for a 16-column box), counted on `bar`, from column `col`
+// on; rows past the tensor's length arrive as zeros
 __device__ __forceinline__ void tma_load_rows(void* dst,
                                               const CUtensorMap* map,
                                               uint64_t* bar, int row,
-                                              int bh) {
+                                              int bh, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
       "r"(row), "r"(bh)
       : "memory");
 }
@@ -305,6 +335,16 @@ __device__ __forceinline__ uint64_t make_desc(const void* p) {
 
 constexpr uint64_t kStepK = 32 >> 4;       // K-major: 16 columns on
 constexpr uint64_t kStepMN = 2048 >> 4;    // MN-major: 16 rows on
+
+// descriptor of a 32-byte-swizzled tile of 16 columns (layout type 3,
+// SBO = 256: eight 32-byte rows), 256-byte aligned, at `p`
+__device__ __forceinline__ uint64_t make_desc16(const void* p) {
+  const uint64_t addr = (smem_u32(p) & 0x3FFFFu) >> 4;
+  return addr | (uint64_t(1) << 16) | (uint64_t(256 >> 4) << 32) |
+         (uint64_t(3) << 62);
+}
+
+constexpr uint64_t kStep16MN = 512 >> 4;   // MN-major: 16 rows on
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -397,6 +437,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 16) += A (64 x 16, registers) . B (16 rows x 16 columns of a
+// shared tile, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n"
+      "}\n"
+      : PCDMS_ACC8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // d (64 x 8) += A (64 x 16, registers) . B (16 rows x 8 columns, MN-major):
 // against a tile of ones, d holds A's row-sums in every column
 __device__ __forceinline__ void wgmma_rs(float (&d)[4],
@@ -449,14 +506,14 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float* d,
 // a warp's 16 x 64 part of a warpgroup's f32 accumulator, rows g and g + 8
 // of each 16 times `mul_lo` and `mul_hi`, as bf16 through `slice` (the
 // warpgroup's 64 x 64 swizzled buffer) to rows [row0, row0 + 64) of a
-// (len, 64) matrix; rows past len are not written. Each warp touches only
-// its own 16 rows of the slice.
+// (len, ld) matrix, its first 64 columns; rows past len are not written.
+// Each warp touches only its own 16 rows of the slice.
 __device__ __forceinline__ void store_slice(__nv_bfloat16* dst,
                                             __nv_bfloat16* slice,
                                             const float (&acc)[32],
                                             float mul_lo, float mul_hi,
                                             int row0, int len, int warp,
-                                            int lane) {
+                                            int lane, int ld = 64) {
   const int g = lane >> 2, t4 = lane & 3;
   const int r = warp * 16 + g;   // r and r + 8 share (r & 7) = g
 #pragma unroll
@@ -475,9 +532,38 @@ __device__ __forceinline__ void store_slice(__nv_bfloat16* dst,
     const uint4 val = *reinterpret_cast<const uint4*>(
         slice + rl * 64 + ((chunk ^ (rl & 7)) << 3));
     if (row0 + rl < len)
-      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + rl) * 64 + chunk * 8) =
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + rl) * ld + chunk * 8) =
           val;
   }
+}
+
+// The same for a warp's 16 x 16 part of a 64 x 16 accumulator (the last 16
+// columns of an 80-wide row), through `slice` (the warpgroup's 64 x 16
+// buffer, 32-byte swizzled: chunk c of row r at c ^ ((r >> 2) & 1)) to
+// columns [0, 16) of rows [row0, row0 + 64) of a (len, ld) matrix at dst.
+__device__ __forceinline__ void store_slice16(__nv_bfloat16* dst,
+                                              __nv_bfloat16* slice,
+                                              const float (&acc)[8],
+                                              float mul_lo, float mul_hi,
+                                              int row0, int len, int warp,
+                                              int lane, int ld) {
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r = warp * 16 + g;   // r and r + 8 share (r >> 2) & 1
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int col = ((nt ^ ((r >> 2) & 1)) << 3) + 2 * t4;
+    *reinterpret_cast<uint32_t*>(slice + r * kCols16 + col) =
+        pack2_bf16(acc[4 * nt] * mul_lo, acc[4 * nt + 1] * mul_lo);
+    *reinterpret_cast<uint32_t*>(slice + (r + 8) * kCols16 + col) =
+        pack2_bf16(acc[4 * nt + 2] * mul_hi, acc[4 * nt + 3] * mul_hi);
+  }
+  __syncwarp();
+  const int rl = warp * 16 + (lane >> 1), chunk = lane & 1;
+  const uint4 val = *reinterpret_cast<const uint4*>(
+      slice + rl * kCols16 + ((chunk ^ ((rl >> 2) & 1)) << 3));
+  if (row0 + rl < len)
+    *reinterpret_cast<uint4*>(dst + (size_t)(row0 + rl) * ld + chunk * 8) =
+        val;
 }
 
 }  // namespace hopper

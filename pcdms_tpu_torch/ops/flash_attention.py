@@ -6,7 +6,7 @@ kernels there (frozen-max, online-softmax and short-kv) are hand-written
 CUDA C++ for Hopper here (``csrc/flash_attention.cu``); in bf16 the
 frozen-max and online kernels are warp-specialised (TMA copies into a
 shared-memory ring, ``wgmma`` products; ``fwd_plan``), and so is the
-short-kv kernel at head_dim 64, persistent with k and v resident
+short-kv kernel at head_dim 64 and 80, persistent with k and v resident
 (``shortkv_plan``; it takes lk <= 512). Each has a wrapper
 that launches the kernel for a CUDA tensor (or raises) and takes the plain
 PyTorch version, which repeats the kernel's arithmetic, for a CPU tensor.
@@ -64,12 +64,16 @@ _BLOCK_K = FWD_STAGE_KEYS
 _HEAD_DIM = 64         # the kernels' head_dim
 # the short-kv kernel also takes CLIP ViT-H's head_dim 80
 _SHORTKV_HEAD_DIMS = (64, 80)
-# the bf16 short-kv kernel at head_dim 64 (``csrc/flash_attention.cu``):
-# q rows a (head, q tile) pair, keys of a full tile; k and v stay resident
-# in shared memory, which holds SKV_MAX_KEYS of each
+# the bf16 short-kv kernel (``csrc/flash_attention.cu``): q rows a (head, q
+# tile) pair, keys of a full tile; k and v stay resident in shared memory,
+# which holds SKV_MAX_KEYS of each
 SKV_BLOCK_ROWS, SKV_TILE_KEYS, SKV_MAX_KEYS = 128, 128, 512
 # keys of the tail tile's product, by how many keys the tail holds
 _SKV_TAIL_WIDTHS = (16, 64, 128)
+# the column parts of a row in shared memory, by head_dim: 64 columns in
+# 128-byte-swizzled rows, at head_dim 80 (160-byte rows, wider than a
+# 128-byte-swizzled copy) and the last 16 in 32-byte-swizzled rows
+SKV_COLUMN_PARTS = {64: (64,), 80: (64, 16)}
 
 # launches per kernel, read by chip_smoke.py: also those of the backward
 # kernels (flash_attention_bwd) and of the fused conv (fused_conv)
@@ -172,15 +176,21 @@ def fwd_plan(lq: int, lk: int, bh: int) -> dict:
                 stages=FWD_STAGES, tiles=-(-lk // FWD_STAGE_KEYS))
 
 
-def shortkv_plan(lq: int, lk: int, bh: int, sms: int) -> dict:
-    """How the bf16 short-kv kernel (head_dim 64) walks (bh, lq, lk). Pair i
-    = head * q_tiles + tile owns q rows [tile * block_rows, (tile + 1) *
-    block_rows) of its head. ``grid`` = min(sms, pairs) persistent blocks;
-    block b walks the contiguous run ``runs[b]`` = [b * pairs // grid,
-    (b + 1) * pairs // grid) and loads the head's k and v at ``reloads[b]``,
-    the pairs of its run that start a head for it. The keys are ``full``
-    unmasked tiles of tile_keys, then a tail of the remaining 1..128 keys
-    through a product ``tail_width`` wide, masked from lk on."""
+def shortkv_plan(lq: int, lk: int, bh: int, sms: int,
+                 head_dim: int = _HEAD_DIM) -> dict:
+    """How the bf16 short-kv kernel walks (bh, lq, lk). Pair i = head *
+    q_tiles + tile owns q rows [tile * block_rows, (tile + 1) * block_rows)
+    of its head. ``grid`` = min(sms, pairs) persistent blocks; block b walks
+    the contiguous run ``runs[b]`` = [b * pairs // grid, (b + 1) * pairs //
+    grid) and loads the head's k and v at ``reloads[b]``, the pairs of its
+    run that start a head for it. The keys are ``full`` unmasked tiles of
+    tile_keys, then a tail of the remaining 1..128 keys through a product
+    ``tail_width`` wide, masked from lk on. Each row of q, k and v comes in
+    ``column_parts`` (64, then 16 more at head_dim 80): Q.K^T takes a k-step
+    of 16 columns per 16 of them, and P.V one product per part."""
+    if head_dim not in SKV_COLUMN_PARTS:
+        raise ValueError(f"the short-kv kernel takes head_dim "
+                         f"{tuple(SKV_COLUMN_PARTS)}, got {head_dim}")
     q_tiles = -(-lq // SKV_BLOCK_ROWS)
     pairs = bh * q_tiles
     grid = min(sms, pairs)
@@ -193,7 +203,8 @@ def shortkv_plan(lq: int, lk: int, bh: int, sms: int) -> dict:
     return dict(grid=grid, block_rows=SKV_BLOCK_ROWS, q_tiles=q_tiles,
                 pairs=pairs, runs=runs, reloads=reloads,
                 tile_keys=SKV_TILE_KEYS, full=full, tail=tail,
-                tail_width=next(w for w in _SKV_TAIL_WIDTHS if tail <= w))
+                tail_width=next(w for w in _SKV_TAIL_WIDTHS if tail <= w),
+                column_parts=SKV_COLUMN_PARTS[head_dim])
 
 
 # ---------------------------------------------------------------------------
@@ -235,10 +246,9 @@ def _check_scale(q, scale: float) -> None:
 
 
 def _check_shortkv_keys(k) -> None:
-    """The bf16 short-kv kernel at head_dim 64 keeps a head's k and v
-    resident in shared memory, SKV_MAX_KEYS of each; every short-kv call is
-    held to that domain, and longer kv raises. The router sends at most
-    384 keys."""
+    """The bf16 short-kv kernel keeps a head's k and v resident in shared
+    memory, SKV_MAX_KEYS of each; every short-kv call is held to that
+    domain, and longer kv raises. The router sends at most 384 keys."""
     if k.shape[1] > SKV_MAX_KEYS:
         raise ValueError(f"the short-kv kernels take at most {SKV_MAX_KEYS} "
                          f"keys, got {k.shape[1]}")

@@ -89,33 +89,42 @@ def test_plain_shortkv_matches_pallas(lk, dtype):
     _assert_close(fa.shortkv_plain(tq, tk, tv, scale), want, BARS[dtype])
 
 
-def _shortkv_hard_qkv(kind, lq, lk, seed, bh=BH):
+# the partial-max inputs' offset of keys from 128 on, by head_dim: with q
+# about 1, it lifts their scores by d x offset x log2(e) / sqrt(d), about
+# 162 in the exp2 domain at either head_dim (64: 14.0, 80: 12.5)
+PARTIAL_MAX_OFFSET = {64: 14.0, 80: 12.5}
+
+
+def _shortkv_hard_qkv(kind, lq, lk, seed, bh=BH, d=D):
     """Inputs that random ones never make. 'partial_max': keys from 128 on
     score about 160 above keys 0-127 in the exp2 domain, so a max taken of
     the first 128 keys alone overflows exp2. 'all_negative': q positive, k
     negative, every score below -130 in the exp2 domain, so a zero key
     (score 0) in the max would underflow every real weight to 0."""
     rng = np.random.default_rng(seed)
-    q = rng.uniform(0.5, 1.5, (bh, lq, D)).astype(np.float32)
-    v = rng.standard_normal((bh, lk, D)).astype(np.float32)
+    q = rng.uniform(0.5, 1.5, (bh, lq, d)).astype(np.float32)
+    v = rng.standard_normal((bh, lk, d)).astype(np.float32)
     if kind == "partial_max":
-        k = 0.5 * rng.standard_normal((bh, lk, D)).astype(np.float32)
-        k[:, 128:] += 14.0      # 64 x 14 x log2(e) / 8 = 162
+        k = 0.5 * rng.standard_normal((bh, lk, d)).astype(np.float32)
+        k[:, 128:] += PARTIAL_MAX_OFFSET[d]
     else:
-        k = -rng.uniform(14.0, 16.0, (bh, lk, D)).astype(np.float32)
+        k = -rng.uniform(14.0, 16.0, (bh, lk, d)).astype(np.float32)
     return q, k, v
 
 
-@pytest.mark.parametrize("kind,lk", [("partial_max", 258),
-                                     ("partial_max", 384),
-                                     ("all_negative", 258),
-                                     ("all_negative", 128)])
-def test_plain_shortkv_hard_inputs_match_pallas(kind, lk):
+@pytest.mark.parametrize("kind,lk,d", [
+    pytest.param(kind, lk, d, id=f"{kind}-{lk}" + ("" if d == 64 else f"-d{d}"))
+    for d in (64, 80)
+    for kind, lk in [("partial_max", 258), ("partial_max", 384),
+                     ("all_negative", 258), ("all_negative", 128)]]
+    + [pytest.param("partial_max", 257, 80, id="partial_max-257-d80"),
+       pytest.param("all_negative", 257, 80, id="all_negative-257-d80")])
+def test_plain_shortkv_hard_inputs_match_pallas(kind, lk, d):
     """f32: the plain short-kv version and the Pallas kernel agree, finite,
     on inputs where only the exact max over every key (and no other) gives
-    finite, non-zero weights."""
-    scale = 1.0 / math.sqrt(D)
-    arrays = _shortkv_hard_qkv(kind, 200, lk, 31)
+    finite, non-zero weights, at head_dim 64 and at CLIP ViT-H's 80."""
+    scale = 1.0 / math.sqrt(d)
+    arrays = _shortkv_hard_qkv(kind, 200, lk, 31, d=d)
     s2 = np.einsum("bqd,bkd->bqk", arrays[0], arrays[1]) * scale * np.log2(
         np.e)
     if kind == "partial_max":
@@ -307,15 +316,7 @@ SHORTKV_RAGGED = [(3, lq, lk) for lq in (1, 127, 129)
                             384, 390, 460, 512)]
 
 
-@pytest.mark.parametrize("sms", [1, 7, 132])
-@pytest.mark.parametrize("bh,lq,lk", SHORTKV_UNET + SHORTKV_RAGGED)
-def test_shortkv_plan_walks_every_pair_once(bh, lq, lk, sms):
-    """The persistent blocks walk every (head, q tile) pair exactly once in
-    contiguous runs, no block is empty, and a block loads k and v at the
-    first pair of its run and wherever its run crosses into the next head,
-    nowhere else. The key tiles hold every key once: full 128-key tiles,
-    then a tail no wider than its product."""
-    plan = fa.shortkv_plan(lq, lk, bh, sms)
+def _assert_walks_every_pair_once(plan, bh, lq, lk, sms):
     tiles = plan["q_tiles"]
     assert tiles == -(-lq // 128) and plan["pairs"] == bh * tiles
     assert plan["grid"] == min(sms, bh * tiles) == len(plan["runs"])
@@ -339,6 +340,55 @@ def test_shortkv_plan_walks_every_pair_once(bh, lq, lk, sms):
     assert width == min(w for w in (16, 64, 128) if w >= tail)
     # the tail's product stays inside the resident k and v
     assert full * plan["tile_keys"] + width <= fa.SKV_MAX_KEYS
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("bh,lq,lk", SHORTKV_UNET + SHORTKV_RAGGED)
+def test_shortkv_plan_walks_every_pair_once(bh, lq, lk, sms):
+    """The persistent blocks walk every (head, q tile) pair exactly once in
+    contiguous runs, no block is empty, and a block loads k and v at the
+    first pair of its run and wherever its run crosses into the next head,
+    nowhere else. The key tiles hold every key once: full 128-key tiles,
+    then a tail no wider than its product."""
+    plan = fa.shortkv_plan(lq, lk, bh, sms)
+    _assert_walks_every_pair_once(plan, bh, lq, lk, sms)
+    assert plan["column_parts"] == (64,)
+
+
+# CLIP ViT-H's 257-token self-attention (16 heads of 80) over 2, 4 and 8
+# images: the batch test's train mode, the JAX batch test's default
+# --batch_size 4, the stage-2 trainer's --train_batch_size 8
+SHORTKV_CLIP = [(32, 257, 257), (64, 257, 257), (128, 257, 257)]
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("bh,lq,lk", SHORTKV_CLIP + SHORTKV_RAGGED)
+def test_shortkv_plan_walks_every_pair_once_at_head_dim_80(bh, lq, lk, sms):
+    """The same walk at head_dim 80, whose rows come in a 64-column and a
+    16-column part."""
+    plan = fa.shortkv_plan(lq, lk, bh, sms, head_dim=80)
+    _assert_walks_every_pair_once(plan, bh, lq, lk, sms)
+    assert plan["column_parts"] == (64, 16) and sum(plan["column_parts"]) == 80
+
+
+@pytest.mark.parametrize("bh,blocks,runs,crossing", [
+    (32, 96, (1, 1), 0), (64, 132, (1, 2), 20), (128, 132, (2, 3), 84)])
+def test_shortkv_plan_at_the_clip_shapes(bh, blocks, runs, crossing):
+    """On an H100's 132 SMs: 257 tokens are three 128-row q tiles a head
+    and two full key tiles with a 16-key tail; 96 pairs over 2 images leave
+    36 SMs idle and load each head's k and v three times; 8 images give
+    runs of 2-3 pairs and 132 + 84 loads for 128 heads."""
+    plan = fa.shortkv_plan(257, 257, bh, 132, head_dim=80)
+    assert plan["q_tiles"] == 3 and plan["pairs"] == 3 * bh
+    assert plan["grid"] == blocks
+    assert {len(r) for r in plan["runs"]} == set(runs)
+    assert sum(len(r) - 1 for r in plan["reloads"]) == crossing
+    assert (plan["full"], plan["tail"], plan["tail_width"]) == (2, 1, 16)
+
+
+def test_shortkv_plan_refuses_other_head_dims():
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.shortkv_plan(257, 257, 2, 132, head_dim=96)
 
 
 @pytest.mark.parametrize("bh,lq,lk,blocks,runs,crossing,width", [
@@ -371,8 +421,16 @@ def test_shortkv_plan_has_the_kernels_constants():
     assert fa.SKV_BLOCK_ROWS == fa.FWD_BLOCK_ROWS == 2 * 64
     for width in (16, 64, 128):
         assert f"launch_shortkv_tail<{width}>(" in src
-    smem = (2 * fa.SKV_BLOCK_ROWS + 2 * fa.SKV_MAX_KEYS + 16) * 128
-    assert smem + 1024 + 64 <= 227 * 1024
+    assert tuple(fa.SKV_COLUMN_PARTS) == fa._SHORTKV_HEAD_DIMS == (64, 80)
+    assert "static_assert(sizeof(SkvSmem<80>) + 1024 <= 232448," in src
+    for d, parts in fa.SKV_COLUMN_PARTS.items():
+        assert sum(parts) == d
+        # q of two pairs, k and v of 512 keys, the tile of ones (one k-step
+        # of 64 columns), the barriers, the 16-column parts on a 1024-byte
+        # boundary, and the 1024 bytes the base may move up
+        smem = ((2 * fa.SKV_BLOCK_ROWS + 2 * fa.SKV_MAX_KEYS) * 2 * d
+                + 16 * 128 + 64 + (1024 if d > 64 else 0) + 1024)
+        assert smem <= 227 * 1024, d
     assert fa._SHORTKV_MAX <= fa.SKV_MAX_KEYS
 
 
@@ -382,47 +440,51 @@ def _section(src, start, end):
 
 def test_bf16_forward_source_is_the_hopper_design():
     """The bf16 frozen / online kernel and the bf16 short-kv kernel at
-    head_dim 64 issue wgmma and fill shared memory by TMA under mbarriers;
-    the warp-level mma remains in the head_dim-80 short-kv kernel only;
-    nothing reads the environment."""
+    head_dim 64 and 80 run their products on wgmma and fill shared memory
+    by TMA under mbarriers; no warp-level mma is left in the forward
+    source; nothing reads the environment."""
     src = (_CSRC / "flash_attention.cu").read_text()
     assert '#include "hopper.cuh"' in src
     hopper_part = _section(src, "// bf16 frozen / online: TMA ring",
-                           "// bf16 short-kv, head_dim 64:")
-    skv_part = _section(src, "// bf16 short-kv, head_dim 64:",
-                        "// bf16 short-kv, head_dim 80: mma.sync")
-    d80_part = _section(src, "// bf16 short-kv, head_dim 80: mma.sync",
+                           "// bf16 short-kv, head_dim 64 and 80:")
+    skv_part = _section(src, "// bf16 short-kv, head_dim 64 and 80:",
                         "// f32, FMA: one thread per q row")
-    rest = src.replace(d80_part, "")
     for call in ("hp::wgmma_ss(", "hp::wgmma_rs(", "hp::tma_load_rows(",
                  "hp::mbar_wait(", "hp::reg_alloc<", "hp::store_slice(",
                  "hp::MapCache", "hp::allow_smem("):
         assert call in hopper_part, call
     for call in ("hp::wgmma_ss(", "hp::wgmma_rs(", "hp::tma_load_rows(",
                  "hp::mbar_wait(", "hp::reg_alloc<", "hp::store_slice(",
-                 "hp::allow_smem(", "maps.encode(", "gridDim.x"):
+                 "hp::allow_smem(", "maps.encode(", "gridDim.x",
+                 # head_dim 80: the 16-column parts and their products
+                 "hp::make_desc16(", "hp::kStep16MN", "hp::store_slice16(",
+                 "map_qx", "kCols16"):
         assert call in skv_part, call
-    for part in (hopper_part, skv_part):
-        for gone in ("mma.sync", "mma_bf16(", "mma_abt", "mma_ab", "ldmatrix",
-                     "load_tile_bf16", "exp2f(", "getenv"):
-            assert gone not in part, gone
-    for kept in ("mma_abt<D>(", "mma_ab<D>("):
-        assert kept in d80_part and kept not in rest, kept
-    assert "getenv" not in src
+    for gone in ("mma.sync", "mma_bf16(", "mma_abt", "mma_ab", "ldmatrix",
+                 "load_tile_bf16", "load_a_frags", "tile_scores",
+                 "flash_shortkv_bf16", "exp2f(", "getenv"):
+        assert gone not in hopper_part and gone not in skv_part, gone
+    for gone in ("mma.sync", "mma_abt", "mma_ab", "ldmatrix",
+                 "load_tile_bf16", "load_a_frags", "tile_scores",
+                 "flash_shortkv_bf16", "getenv"):
+        assert gone not in src, gone
     # one template serves frozen, online, online[exp_bf16] and the LSE
-    # forward, one the short-kv tails at head_dim 64; the head_dim-80 and
-    # the f32 kernels: four templates, lse a runtime pointer
-    assert src.count("__global__") == 4
+    # forward, one the short-kv tails at head_dim 64 and 80, one the f32
+    # kernels: three templates, lse a runtime pointer
+    assert src.count("__global__") == 3
     for entry, mode in (("pcdms_flash_frozen", "launch<kFrozen, false>"),
                         ("pcdms_flash_fwd_lse", "launch<kOnline, false>")):
         body = src[src.index(f'extern "C" int {entry}('):]
         assert mode in body[:body.index("\n}\n")], entry
-    # a bf16 head_dim-64 call reaches the new kernel, the old one only 80
+    # a bf16 call at head_dim 64 or 80 reaches the persistent kernel
     body = src[src.index('extern "C" int pcdms_flash_shortkv('):]
     body = body[:body.index("\n}\n")]
-    assert "launch_shortkv_bf16(" in body
-    assert "flash_shortkv_bf16<80>" in body and "flash_shortkv_bf16<64>" not in (
-        src)
+    for d in (64, 80):
+        assert f"launch_shortkv_bf16<{d}>(" in body, d
+    # and the helpers only the warp-level kernel used are gone from mma.cuh
+    mma = (_CSRC / "mma.cuh").read_text()
+    for gone in ("load_tile_bf16", "load_a_frags", "mma_abt", "mma_ab("):
+        assert gone not in mma, gone
 
 
 def test_shared_hopper_helpers_live_in_the_header_once():

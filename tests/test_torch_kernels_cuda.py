@@ -36,9 +36,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _qkv(dev, dtype, bh, lq, lk, seed=11):
+def _qkv(dev, dtype, bh, lq, lk, seed=11, d=D):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return [torch.randn((bh, n, D), generator=gen, device=dev).to(dtype)
+    return [torch.randn((bh, n, d), generator=gen, device=dev).to(dtype)
             for n in (lq, lk, lk)]
 
 
@@ -211,7 +211,8 @@ def _assert_shortkv_matches(q, k, v, scale):
     got = fa.shortkv_attention(q, k, v, scale)
     want = fa.shortkv_plain(q, k, v, scale)
     torch.cuda.synchronize()
-    assert fa.SHORTKV_LAUNCHES == {64: 1, 80: 0}
+    d = q.shape[-1]
+    assert fa.SHORTKV_LAUNCHES == {64: int(d == 64), 80: int(d == 80)}
     assert got.dtype == q.dtype and got.shape == q.shape
     assert torch.isfinite(got).all() and torch.isfinite(want).all()
     assert _max_rel(got, want) <= 1e-2
@@ -235,20 +236,40 @@ def test_shortkv_kernel_at_ragged_shapes(cuda, monkeypatch, bh, lq, lk, sms):
     _assert_shortkv_matches(*_qkv(cuda, torch.bfloat16, bh, lq, lk), 0.125)
 
 
-def _shortkv_hard(dev, kind, bh, lq, lk, seed=16):
+# the partial-max inputs' offset of keys from 128 on, by head_dim: with q
+# about 1 it lifts their scores by d x offset x log2(e) / sqrt(d), about 162
+# in the exp2 domain at either head_dim (64: 14.0, 80: 12.5)
+PARTIAL_MAX_OFFSET = {64: 14.0, 80: 12.5}
+
+
+def _shortkv_hard(dev, kind, bh, lq, lk, seed=16, d=D):
     """'partial_max': keys from 128 on score about 160 above keys 0-127 in
     the exp2 domain, so a max taken of tile 0 alone overflows exp2.
     'all_negative': q positive, k negative, every score below -130, so a
     zero-filled key (score 0) in the max would underflow every weight."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.rand((bh, lq, D), generator=gen, device=dev) + 0.5
-    v = torch.randn((bh, lk, D), generator=gen, device=dev)
+    q = torch.rand((bh, lq, d), generator=gen, device=dev) + 0.5
+    v = torch.randn((bh, lk, d), generator=gen, device=dev)
     if kind == "partial_max":
-        k = 0.5 * torch.randn((bh, lk, D), generator=gen, device=dev)
-        k[:, 128:] += 14.0      # 64 x 14 x log2(e) / 8 = 162
+        k = 0.5 * torch.randn((bh, lk, d), generator=gen, device=dev)
+        k[:, 128:] += PARTIAL_MAX_OFFSET[d]
     else:
-        k = -(torch.rand((bh, lk, D), generator=gen, device=dev) * 2 + 14)
+        k = -(torch.rand((bh, lk, d), generator=gen, device=dev) * 2 + 14)
     return [x.to(torch.bfloat16) for x in (q, k, v)]
+
+
+def _assert_hard(q, k, v, kind, scale):
+    """The inputs are as hard as _shortkv_hard says, then the kernel
+    matches its plain version on them."""
+    s2 = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
+        scale * math.log2(math.e))
+    if kind == "partial_max":
+        gap = s2[..., 128:].amax(-1) - s2[..., :128].amax(-1)
+        assert gap.min().item() > 128
+    else:
+        assert s2.max().item() < -130
+    del s2
+    _assert_shortkv_matches(q, k, v, scale)
 
 
 @pytest.mark.cuda
@@ -261,15 +282,82 @@ def test_shortkv_kernel_takes_the_exact_max(cuda, kind, bh, lq, lk):
     """The row max is taken of every key below lk and of no key past it:
     inputs on which a partial max overflows and a max that counts the
     zero-filled keys underflows, held to the plain version's output."""
-    q, k, v = _shortkv_hard(cuda, kind, bh, lq, lk)
-    s2 = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
-        0.125 * math.log2(math.e))
-    if kind == "partial_max":
-        gap = s2[..., 128:].amax(-1) - s2[..., :128].amax(-1)
-        assert gap.min().item() > 128
-    else:
-        assert s2.max().item() < -130
-    _assert_shortkv_matches(q, k, v, 0.125)
+    _assert_hard(*_shortkv_hard(cuda, kind, bh, lq, lk), kind, 0.125)
+
+
+# CLIP ViT-H's 257-token self-attention, 16 heads of 80, over 2, 4 and 8
+# images (the batch test's train mode, the JAX batch test's default
+# --batch_size 4, the stage-2 trainer's --train_batch_size 8)
+SHORTKV_CLIP = [(32, 257, 257), (64, 257, 257), (128, 257, 257)]
+SCALE_80 = 1.0 / math.sqrt(80)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,lq,lk", SHORTKV_CLIP)
+def test_shortkv_kernel_at_the_clip_shapes(cuda, bh, lq, lk):
+    """The persistent bf16 short-kv kernel at head_dim 80 on the card's own
+    SMs at the shapes CLIP ViT-H gives it."""
+    _assert_shortkv_matches(*_qkv(cuda, torch.bfloat16, bh, lq, lk, d=80),
+                            SCALE_80)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("bh,lq,lk", SHORTKV_RAGGED)
+def test_shortkv_kernel_at_ragged_shapes_head_dim_80(cuda, monkeypatch, bh,
+                                                     lq, lk, sms):
+    """Ragged q and kv lengths at head_dim 80 (every tail width behind 0-3
+    full tiles), on 1 and 7 SMs too, where runs cross heads and reload k
+    and v with their 16-column parts."""
+    monkeypatch.setattr(fa, "_sm_count", lambda index: sms)
+    _assert_shortkv_matches(*_qkv(cuda, torch.bfloat16, bh, lq, lk, d=80),
+                            SCALE_80)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,bh,lq,lk", [
+    ("partial_max", 3, 300, 258), ("partial_max", 3, 129, 384),
+    ("partial_max", 3, 129, 512), ("partial_max", 32, 257, 257),
+    ("partial_max", 128, 257, 257), ("all_negative", 3, 300, 258),
+    ("all_negative", 3, 129, 128), ("all_negative", 128, 257, 257)])
+def test_shortkv_kernel_takes_the_exact_max_at_head_dim_80(cuda, kind, bh,
+                                                           lq, lk):
+    """The exact row max at head_dim 80, where the fifth k-step (the last
+    16 columns) is part of every score."""
+    _assert_hard(*_shortkv_hard(cuda, kind, bh, lq, lk, d=80), kind,
+                 SCALE_80)
+
+
+@pytest.mark.cuda
+def test_shortkv_head_dims_on_the_same_storage(cuda):
+    """Calls at head_dim 64 and 80 alternate on the same storage (the same
+    base, heads and lengths), over more tensor sets than the tensor-map
+    cache holds: a cached map of 64-wide rows is never taken for an 80-wide
+    tensor, nor the other way round."""
+    sets = []
+    for i in range(5):
+        gen = torch.Generator(device=cuda).manual_seed(40 + i)
+        lq, lk = 130 + 9 * i, 200 + 11 * i
+        flat = [torch.randn(3 * n * 80, generator=gen, device=cuda)
+                .to(torch.bfloat16) for n in (lq, lk, lk)]
+        sets.append({d: [t[:3 * n * d].view(3, n, d)
+                         for t, n in zip(flat, (lq, lk, lk))]
+                     for d in (64, 80)})
+    first = {}
+    for _ in range(2):
+        for i, x in enumerate(sets):
+            for d in (64, 80):
+                scale = 1.0 / math.sqrt(d)
+                fa.reset_launches()
+                got = fa.shortkv_attention(*x[d], scale)
+                torch.cuda.synchronize()
+                assert fa.SHORTKV_LAUNCHES[d] == 1
+                if (i, d) in first:
+                    assert torch.equal(got, first[i, d]), (i, d)
+                else:
+                    first[i, d] = got
+                    want = fa.shortkv_plain(*x[d], scale)
+                    assert _max_rel(got, want) <= 1e-2, (i, d)
 
 
 @pytest.mark.cuda
@@ -296,6 +384,18 @@ def test_shortkv_refuses_more_keys_than_it_keeps(cuda):
         fa.shortkv_attention(*_qkv(cuda, torch.bfloat16, 1, 64, 513), 0.125)
     assert fa.LAUNCHES["flash_shortkv"] == 0
     _assert_shortkv_matches(*_qkv(cuda, torch.bfloat16, 1, 64, 512), 0.125)
+
+
+@pytest.mark.cuda
+def test_shortkv_refuses_more_keys_than_it_keeps_at_head_dim_80(cuda):
+    """The same at head_dim 80, whose k and v of 512 keys take 160 KB."""
+    fa.reset_launches()
+    with pytest.raises(ValueError, match="at most 512 keys"):
+        fa.shortkv_attention(
+            *_qkv(cuda, torch.bfloat16, 1, 64, 513, d=80), SCALE_80)
+    assert fa.LAUNCHES["flash_shortkv"] == 0
+    _assert_shortkv_matches(*_qkv(cuda, torch.bfloat16, 1, 64, 512, d=80),
+                            SCALE_80)
 
 
 @pytest.mark.cuda
