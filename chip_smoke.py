@@ -6,8 +6,8 @@ Phases, each reported on its own lines:
   1. build the CUDA kernels from ``pcdms_tpu_torch/ops/csrc`` with nvcc (one
      process per source, started together: the flash-attention forward and
      backward kernels and the fused GroupNorm + SiLU + conv3x3 kernel), with
-     each kernel's registers, spills and ptxas warnings (a short-kv
-     instantiation that spills or has its wgmma serialised fails);
+     each kernel's registers, spills and ptxas warnings (a short-kv or bf16
+     fused-conv kernel that spills or has its wgmma serialised fails);
   2. hold each forward attention kernel against its plain PyTorch version on
      the card at the main path's shapes (bf16, with f32 spot checks; the
      short-kv kernel also at CLIP ViT-H's head_dim 80, at ragged shapes
@@ -24,19 +24,24 @@ Phases, each reported on its own lines:
      back-to-back calls, which at these sizes read the host; CLIP ViT-H's
      full-width forward (batch 2, 224 px, random weights) under
      PCDMS_SHORTKV=pallas (32 short-kv launches at head_dim 80) against
-     plain attention (``phase_clip``); then the fused conv kernel against
-     its plain version at the 14 conv
-     shapes of the full-width UNet (bf16, in the mode the UNet uses there),
-     mode 0 and apply_act=False at level 0, f32 and a ragged shape, each UNet
-     shape timed beside the plain version, the port's unfused route
-     (GroupNorm -> SiLU -> cuDNN conv -> add), cuDNN's conv alone and the
-     bound, with the weight re-lay timed on its own;
+     plain attention (``phase_clip``); then the fused conv kernel (in bf16
+     an 8 x 16 pixel tile activated once per 64-channel chunk, weights by
+     TMA, wgmma, split-K at the small levels) against its plain version at
+     the 14 conv shapes of the full-width UNet (bf16, in the mode the UNet
+     uses there), mode 0 and apply_act=False at level 0, f32, and ragged,
+     split-K, smaller-than-a-tile and border shapes, each UNet shape timed
+     by device time (CUDA-graph replay) beside the port's unfused route
+     (GroupNorm -> SiLU -> cuDNN conv -> add), cuDNN's conv alone, the
+     weight re-lay and the bound, the wrapper by ten back-to-back calls,
+     and all of them summed over the 44 convs of a forward
+     (``phase_fused_conv``);
   3. one full-width stage-2 UNet forward (512x1024 canvas, one pair,
      CFG-doubled to 2, bf16, random weights) with the kernels and with plain
      attention, compared by the relative L2 error of eps; the same under
      PCDMS_SHORTKV=pallas (17 short-kv launches); then the same weights with
      ``fused_conv=True`` (44 fused-conv launches) against the unfused
-     forward;
+     forward, at batch 2 and at UNet batch 16 (the batch test's, where the
+     device is the limit), both forwards timed (``phase_unet_batch16``);
   4. the sampler path: ``stage2_generate`` at full width (DDIM 4 steps and
      UniPC 3 steps at default routing, DDIM 2 steps under
      PCDMS_FROZEN_MAX=0 PCDMS_SHORTKV=pallas, and DDIM 4 steps with the
@@ -262,10 +267,15 @@ def _kernel_name(mangled: str) -> str:
     return name.removeprefix("void ").strip() or mangled
 
 
+# kernels whose build fails on a spill or a ptxas C75xx warning (wgmma
+# serialised)
+STRICT_KERNELS = ("flash_shortkv_hopper", "fused_conv_hopper")
+
+
 def phase_build():
     """Build the kernels; print, per kernel, the registers and spills that
-    ptxas reports and every ptxas warning. Fails if a short-kv
-    instantiation spills or ptxas serialises its wgmma (C75xx)."""
+    ptxas reports and every ptxas warning. Fails if a short-kv or bf16
+    fused-conv kernel spills or ptxas serialises its wgmma (C75xx)."""
     from pcdms_tpu_torch.ops import _build
     bad = []
     for stem, seconds in _build.build().items():
@@ -278,15 +288,15 @@ def phase_build():
             elif "spill" in line or "Used" in line:
                 print(f"[build]   {entry}: {line.strip()}")
                 spills = re.search(r"(\d+) bytes spill stores", line)
-                if (entry and "flash_shortkv_hopper" in entry and spills
-                        and spills.group(1) != "0"):
+                if (entry and any(k in entry for k in STRICT_KERNELS)
+                        and spills and spills.group(1) != "0"):
                     bad.append(f"{entry} spills: {line.strip()}")
             elif "warning" in line or "(C75" in line:
                 print(f"[build]   {line.strip()}")
-                if "C75" in line and "flash_shortkv_hopper" in line:
+                if "C75" in line and any(k in line for k in STRICT_KERNELS):
                     bad.append(line.strip())
     if bad:
-        fail("short-kv kernel build: " + "; ".join(bad))
+        fail("short-kv / fused-conv kernel build: " + "; ".join(bad))
 
 
 def phase_shortkv(fa, shapes):
@@ -505,15 +515,23 @@ def phase_clip(fa, dev):
 def phase_fused_conv(fc):
     """The fused conv kernel vs its plain version at the 14 conv shapes of
     the full-width UNet (bf16, in the mode the UNet uses there), mode 0 and
-    apply_act=False at level 0, one f32 case and a ragged shape; each UNet
-    shape timed against the plain version, the port's unfused route
-    (GroupNorm -> SiLU -> cuDNN conv -> add) and cuDNN's conv alone.
-    Returns the level-0 record for the JSON line."""
+    apply_act=False at level 0, one f32 case, and shapes that are ragged,
+    split-K, smaller than the kernel's 8 x 16 tile, cut by the image border
+    or with Cin not a multiple of 64. Each UNet shape is timed by device
+    time (``graph_ms``): the kernel on prepared operands, the port's unfused
+    route (GroupNorm -> SiLU -> cuDNN conv -> add) and cuDNN's conv alone,
+    beside the wrapper (GroupNorm statistics, the weight re-lay where it is
+    not kept, the launch) by ten back-to-back calls (``cuda_ms``, which read
+    the host's enqueue) and the plain version; then their sums over the 44
+    convs of a forward. Takes any tree's ``fused_conv`` module, so that the
+    old and the new kernel are timed by one script in turns. Returns the
+    level-0 record for the JSON line, with every shape under
+    ``unet_shapes`` and the sums under ``sums_44``."""
     from pcdms_tpu_torch.nn.layers import GroupNorm
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     bf16, f32 = torch.bfloat16, torch.float32
-    batch, record, totals = 2, None, {}
+    batch, record, totals, shapes = 2, None, {}, []
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -552,21 +570,26 @@ def phase_fused_conv(fc):
             fail(f"the fused conv disagrees with its plain version: {line}")
         return x, gn, a, c, weight, bias, temb, res, err
 
-    for h, w, cin, cout, count in CONV_SHAPES:
-        mode = "residual" if cin == cout else "temb"
-        x, (scale, shift, groups), a, c, weight, bias, temb, res, err = check(
-            "unet", h, w, cin, cout, mode, bf16)
+    def timed(x, gn, a, c, weight, bias, temb, res):
+        """Device times (graph replay) of the kernel on prepared operands,
+        the GroupNorm statistics, the weight re-lay, the unfused route and
+        cuDNN's conv alone; the wrapper and the plain version by the host's
+        clock; the bound."""
+        (b, cin, h, w), cout = x.shape, weight.shape[0]
+        scale, shift, groups = gn
         extra = temb if temb is not None else res
         mode_id = 1 if temb is not None else 2
         wk = fc.relayout_weight(weight, bf16)
         a32, c32, b32 = a.contiguous(), c.contiguous(), bias.float()
-        ms = cuda_ms(lambda: fc.launch_fused_conv(x, a32, c32, wk, b32, extra,
-                                                  mode_id, True), 10)
-        wrapper_ms = cuda_ms(lambda: fc.gn_silu_conv3x3(
+        t = dict(ms=graph_ms(lambda: fc.launch_fused_conv(
+            x, a32, c32, wk, b32, extra, mode_id, True)))
+        t["wrapper_ms"] = cuda_ms(lambda: fc.gn_silu_conv3x3(
             x, scale, shift, weight, bias, num_groups=groups, temb=temb,
             residual=res), 10)
-        relayout_ms = cuda_ms(lambda: fc.relayout_weight(weight, bf16), 10)
-        plain_ms = cuda_ms(lambda: fc.fused_gn_silu_conv_plain(
+        t["relayout_ms"] = graph_ms(lambda: fc.relayout_weight(weight, bf16))
+        t["stats_ms"] = graph_ms(lambda: fc.gn_affine_coeffs(
+            x, scale, shift, groups, 1e-5))
+        t["plain_ms"] = cuda_ms(lambda: fc.fused_gn_silu_conv_plain(
             x, a, c, weight, bias, temb, res), 3, 1)
         norm = GroupNorm(groups, cin).to(dev)
         with torch.no_grad():
@@ -580,38 +603,98 @@ def phase_fused_conv(fc):
 
         with torch.no_grad():
             xa = torch.nn.functional.silu(norm(x))
-            unfused_ms = cuda_ms(unfused, 10)
-            lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
-                xa, weight, bias, padding=1), 10)
-        flops = 2 * batch * h * w * cin * cout * 9
-        nbytes = 2 * (batch * h * w * (cin + cout) + 9 * cin * cout) + (
-            2 * batch * h * w * cout if res is not None else 2 * batch * cout)
-        b_ms, b_by = bound(flops, nbytes)
-        for key, v in (("kernel", ms), ("wrapper", wrapper_ms),
-                       ("unfused", unfused_ms), ("cudnn", lib_ms),
-                       ("bound", b_ms)):
-            totals[key] = totals.get(key, 0.0) + count * v
-        print(f"[conv]   {h}x{w} {cin}->{cout} x{count}: kernel_ms={ms:.4f} "
-              f"wrapper_ms={wrapper_ms:.4f} plain_ms={plain_ms:.4f} "
-              f"unfused_route_ms={unfused_ms:.4f} library_ms={lib_ms:.4f} "
-              f"(cuDNN conv alone) bound_ms={b_ms:.4f} ({b_by})", flush=True)
-        print(f"[conv]   {h}x{w} {cin}->{cout}: weight re-lay (Cout, Cin, 3, "
-              f"3) -> (Cout, 3, 3, Cin) bf16, inside wrapper_ms: "
-              f"{relayout_ms:.4f} ms", flush=True)
+            t["unfused_ms"] = graph_ms(unfused)
+            t["library_ms"] = graph_ms(lambda: torch.nn.functional.conv2d(
+                xa, weight, bias, padding=1))
+        flops = 2 * b * h * w * cin * cout * 9
+        nbytes = 2 * (b * h * w * (cin + cout) + 9 * cin * cout) + (
+            2 * b * h * w * cout if res is not None else 2 * b * cout)
+        t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
+        plan = getattr(fc, "conv_plan", None)
+        t["split"] = plan(b, cin, cout, h, w)["split"] if plan else None
+        print(f"[conv]   B={b} {h}x{w} {cin}->{cout}: device ms (CUDA graph): "
+              f"kernel {t['ms']:.4f} unfused_route {t['unfused_ms']:.4f} "
+              f"library {t['library_ms']:.4f} (cuDNN conv alone) "
+              f"weight_relay {t['relayout_ms']:.4f} gn_stats "
+              f"{t['stats_ms']:.4f}; host-bound ms (10 calls): wrapper "
+              f"{t['wrapper_ms']:.4f}; plain_ms={t['plain_ms']:.4f} "
+              f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) = "
+              f"{t['bound_ms'] / t['ms']:.1%} of the kernel's; "
+              f"split={t['split']}", flush=True)
+        return t
+
+    for h, w, cin, cout, count in CONV_SHAPES:
+        mode = "residual" if cin == cout else "temb"
+        *operands, err = check("unet", h, w, cin, cout, mode, bf16)
+        t = timed(*operands)
+        del operands
+        for key in ("ms", "wrapper_ms", "unfused_ms", "library_ms",
+                    "stats_ms", "bound_ms"):
+            totals[key] = totals.get(key, 0.0) + count * t[key]
+        shapes.append(dict(t, shape=[batch, cin, cout, h, w], count=count,
+                           max_abs_err=err))
         if record is None:
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        del x, a, c, weight, bias, temb, res, wk, xa, norm
-    print("[conv] the 44 convs of one UNet forward, summed (ms): "
-          + " ".join(f"{k}={v:.3f}" for k, v in totals.items()), flush=True)
+            record = dict(max_abs_err=err, **{k: t[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "unfused_ms", "wrapper_ms")})
+    print("[conv] the 44 convs of one UNet forward, summed (ms; kernel, "
+          "unfused route, cuDNN, GroupNorm statistics by device time, "
+          "wrapper host-bound): "
+          + " ".join(f"{k}={v:.4f}" for k, v in totals.items())
+          + f"; bound / kernel = {totals['bound_ms'] / totals['ms']:.1%}",
+          flush=True)
+    # level 0 at the batch test's UNet batch 16, where the device is the
+    # limit
+    *operands, _ = check("batch16", 64, 128, 320, 320, "residual", bf16, b=16)
+    batch16 = timed(*operands)
+    del operands
     check("level0", 64, 128, 320, 320, "none", bf16)
     check("level0", 64, 128, 320, 320, "none", bf16, act=False)
     check("level0", 64, 128, 320, 320, "temb", bf16, act=False)
     check("spot", 16, 32, 640, 1280, "temb", f32)
     check("ragged", 7, 9, 40, 24, "residual", bf16, b=3)
     check("ragged", 7, 9, 40, 24, "temb", f32, b=3)
+    # Cin 200 in four chunks split over four blocks, W = 20 (stores one
+    # pixel at a time); smaller than a tile; W = 40 cuts the third column of
+    # tiles at the border
+    check("split", 5, 20, 200, 320, "residual", bf16, b=3)
+    check("small", 3, 5, 64, 160, "temb", bf16, b=1)
+    check("border", 20, 40, 200, 200, "temb", bf16, b=1)
     torch.cuda.empty_cache()
-    return record
+    return dict(record, unet_shapes=shapes, sums_44=totals,
+                level0_batch16=batch16)
+
+
+def conv_kernel_ms(fc, shapes=CONV_SHAPES):
+    """Device time (``graph_ms``) of ``fc``'s bf16 kernel at each (H, W,
+    Cin, Cout, ...) of ``shapes``, batch 2, with the residual added, and its
+    max abs error over max|plain|; no check. For diagnostic builds of the
+    kernel (parts removed, wrong by design; each made in a copy of the tree
+    and run from its root), so that what each part costs is read by the
+    same clock as ``phase_fused_conv``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    out = []
+    for h, w, cin, cout, *_ in shapes:
+        x = (torch.randn((2, cin, h, w), generator=gen, device=dev) * 2
+             ).to(torch.bfloat16)
+        a = torch.randn((2, cin), generator=gen, device=dev).abs() + 0.5
+        c = torch.randn((2, cin), generator=gen, device=dev) * 0.3
+        weight = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
+                  / math.sqrt(9 * cin)).to(torch.bfloat16)
+        bias = torch.randn(cout, generator=gen, device=dev)
+        res = torch.randn((2, cout, h, w), generator=gen, device=dev).to(
+            torch.bfloat16)
+        wk = fc.relayout_weight(weight, torch.bfloat16)
+        got = fc.launch_fused_conv(x, a, c, wk, bias, res, 2, True)
+        want = fc.fused_gn_silu_conv_plain(x, a, c, weight, bias, None, res)
+        ms = graph_ms(lambda: fc.launch_fused_conv(x, a, c, wk, bias, res, 2,
+                                                   True))
+        out.append(dict(shape=[h, w, cin, cout], ms=ms,
+                        err_rel=_max_rel(got, want)))
+        print(f"[conv-diag] {h}x{w} {cin}->{cout}: kernel {ms:.4f} ms, "
+              f"err/max|plain| {out[-1]['err_rel']:.2e}", flush=True)
+    return out
 
 
 def build_models(dev, with_class_embed=True):
@@ -731,6 +814,78 @@ def phase_unet(fa, models, dev):
     if f_launches != {"flash_frozen": 15, "fused_gn_silu_conv": 44}:
         fail(f"expected 44 fused-conv and 15 frozen launches per fused UNet "
              f"forward, got {f_launches}")
+    phase_unet_batch16(fa, models, dev)
+
+
+def phase_unet_batch16(fa, models, dev):
+    """The same weights at UNet batch 16 (the batch test's best-of-4,
+    CFG-doubled, at 64x128 latents, where the device and not the host is
+    the limit): the forward with ``fused_conv=True`` against the unfused
+    one, eps within BAR_FUSED_UNET_REL_L2, 44 fused-conv launches, each
+    forward timed by CUDA events around 3 calls (unfused, fused, fused,
+    unfused). Returns {"unfused_ms": [..], "fused_ms": [..]}."""
+    unet = models["unet"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    b = 16
+    sample, pose = rand(b, 64, 128, 9), rand(b, 64, 128, 320)
+    ctx, labels = rand(b, 258, 1024), rand(b, 1024)
+    ctx[: b // 2] = 0
+    labels[: b // 2] = 0
+    ts = torch.full((b,), 500, device=dev)
+
+    def forward():
+        return unet(sample, ts, ctx, labels, pose, zero_ctx_prefix=b // 2)
+
+    def fused(on):
+        unet.cfg = dataclasses.replace(unet.cfg, fused_conv=on)
+
+    times = {"unfused_ms": [], "fused_ms": []}
+    with torch.inference_mode():
+        try:
+            eps_u = forward()
+            fused(True)
+            fa.reset_launches()
+            eps_f = forward()
+            torch.cuda.synchronize()
+            launches = {n: c for n, c in fa.LAUNCHES.items() if c}
+            for on in (False, True, True, False):
+                fused(on)
+                times["fused_ms" if on else "unfused_ms"].append(
+                    cuda_ms(forward, 3, 1))
+            by_name = {}
+            for on in (False, True):
+                fused(on)
+                key = "fused_kernel_ms" if on else "unfused_kernel_ms"
+                times[key], by_name[on] = profile_kernels(
+                    forward, f"UNet batch 16 forward, fused_conv={on}")
+        finally:
+            fused(False)
+    # where the two forwards' device time differs, by kernel
+    names = set(by_name[False]) | set(by_name[True])
+    diff = {n: by_name[True].get(n, 0.0) - by_name[False].get(n, 0.0)
+            for n in names}
+    for name, ms in sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:10]:
+        print(f"[profile]   fused - unfused {ms:+8.3f} ms  {name[:150]}",
+              flush=True)
+    rel = _rel_l2(eps_f, eps_u)
+    print(f"[unet] batch 16 (64x128 latents, bf16): fused_conv=True vs False "
+          f"eps rel_l2 = {rel:.3e} (bar {BAR_FUSED_UNET_REL_L2:g}); launches "
+          f"{launches}; forward ms (CUDA events, 3 calls; unfused, fused, "
+          f"fused, unfused): {times['unfused_ms'][0]:.2f} "
+          f"{times['fused_ms'][0]:.2f} {times['fused_ms'][1]:.2f} "
+          f"{times['unfused_ms'][1]:.2f}", flush=True)
+    if not torch.isfinite(eps_f).all() or not rel <= BAR_FUSED_UNET_REL_L2:
+        fail("UNet batch 16: the fused convs disagree with the unfused")
+    if launches != {"flash_frozen": 15, "fused_gn_silu_conv": 44}:
+        fail(f"expected 44 fused-conv and 15 frozen launches per fused UNet "
+             f"forward at batch 16, got {launches}")
+    del eps_u, eps_f
+    torch.cuda.empty_cache()
+    return times
 
 
 def phase_pipeline(fa, models, dev):
@@ -1108,6 +1263,48 @@ def phase_train(fa, dev):
     return {n: c for n, c in launches.items() if c}
 
 
+def _kernel_times(events):
+    """Device kernels of a chrome trace: {name: us}, the busy time (ms) and
+    the window (ms) from the first kernel's start to the last one's end,
+    and their count."""
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                     if e.get("cat") == "kernel" and "dur" in e)
+    if not kernels:
+        fail("the profiler trace holds no device kernels")
+    by_name, busy, end = {}, 0.0, kernels[0][0]
+    for t0, t1, name in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    return by_name, busy / 1e3, (end - kernels[0][0]) / 1e3, len(kernels)
+
+
+def profile_kernels(fn, label, top=8):
+    """One call of ``fn`` under torch.profiler: its device time by kernel
+    (the ``top`` longest printed), summed, and the device's busy share of
+    the call's window. Returns the sum (ms) and {kernel name: ms}."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    by_name, busy, window, n_kernels = _kernel_times(events)
+    total = sum(by_name.values()) / 1e3
+    print(f"[profile] {label}: {n_kernels} kernels, kernel time {total:.2f} "
+          f"ms, window {window:.2f} ms, device busy {busy / window:.1%}",
+          flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"[profile]   {us / 1e3:8.3f} ms {us / 1e3 / total:6.1%}  "
+              f"{name[:110]}", flush=True)
+    return total, {name: us / 1e3 for name, us in by_name.items()}
+
+
 def profile_window(run_training, loss_fn, trainable, cli, args, aux, tcfg,
                    dev):
     """``run_training``'s ``profile_dir`` trace of steps 3-6 (7 steps):
@@ -1121,22 +1318,13 @@ def profile_window(run_training, loss_fn, trainable, cli, args, aux, tcfg,
         torch.cuda.synchronize()
         with open(os.path.join(tmp, "trace.json")) as f:
             events = json.load(f)["traceEvents"]
-    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                     if e.get("cat") == "kernel" and "dur" in e)
-    if not kernels:
-        fail("the profiler trace holds no device kernels")
-    by_name, busy, end = {}, 0.0, kernels[0][0]
-    for t0, t1, name in kernels:
-        by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
-        busy += max(0.0, t1 - max(t0, end))
-        end = max(end, t1)
-    window = (end - kernels[0][0]) / 1e3
+    by_name, busy, window, n_kernels = _kernel_times(events)
     total = sum(by_name.values()) / 1e3
     flash = sum(v for k, v in by_name.items() if "flash_" in k) / 1e3
     print(f"[profile] steps 3-6 of run_training (torch.profiler, "
-          f"profile_dir): {len(kernels)} kernels, window {window:.1f} ms "
-          f"({window / 4:.1f} ms/step), device busy {busy / 1e3:.1f} ms = "
-          f"{busy / 1e3 / window:.1%}, kernel time {total:.1f} ms, of which "
+          f"profile_dir): {n_kernels} kernels, window {window:.1f} ms "
+          f"({window / 4:.1f} ms/step), device busy {busy:.1f} ms = "
+          f"{busy / window:.1%}, kernel time {total:.1f} ms, of which "
           f"the flash kernels {flash:.1f} ms ({flash / total:.1%})",
           flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:

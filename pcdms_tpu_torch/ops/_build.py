@@ -41,7 +41,7 @@ _ENTRIES = {
         "pcdms_flash_dkv": [_P] * 8 + [_I, _I, _I, _F, _F, _I, _P],
     },
     "fused_conv": {
-        "pcdms_fused_gn_silu_conv": [_P] * 7 + [_I] * 8 + [_P],
+        "pcdms_fused_gn_silu_conv": [_P] * 8 + [_I] * 9 + [_P],
     },
 }
 

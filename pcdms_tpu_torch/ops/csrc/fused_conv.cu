@@ -20,43 +20,70 @@
 // smallest at 8x16 that is operations (989 TF/s bf16): the level-0
 // 320->320 conv at batch 2 (64x128 pixels) is 30.2 GFLOP, 0.0305 ms, against
 // 33 MB, 0.0099 ms at 3.35 TB/s; so the tensor cores, fed from shared
-// memory, set the pace.
+// memory, set the pace, and every x element costs an affine, an exp and a
+// divide before it reaches them.
 //
-// What the design does about it (a simple, correct first version):
-//   * an implicit GEMM: M = output pixels of one batch item (a tile never
-//     straddles two items: blockIdx.z is the item), N = Cout, K = 9.Cin
-//     walked tap by tap, 32 input channels at a time;
-//   * the prologue applies a, c and SiLU to each x element as it is staged
-//     in shared memory (as [k][m], pixels contiguous, so the global loads of
-//     one channel coalesce along the NCHW row) and writes 0 for a tap that
-//     falls outside the image; A fragments come from ldmatrix.trans;
-//   * the weight is re-laid by the wrapper to (Cout, 3, 3, Cin), K-major, so
-//     one tap's 32 channels of one output channel are 64 contiguous bytes;
-//   * bf16 products on mma.sync m16n8k16 with f32 accumulators; f32 inputs
-//     (a spot-check route) take an FMA kernel with the same prologue;
-//   * the next K step's operands are fetched into registers while the
-//     current step's products run (one stage of software pipelining), and
-//     the tile shrinks (128x128, 64x128, 64x64) until the grid fills two
-//     waves of the 132 SMs, since the 16x32 and 8x16 levels have few pixels;
-//   * no VMEM-style fit rule: x and the weight stream through shared memory
-//     tile by tile, so every shape runs; the wrapper raises only where a
-//     shape is outside the domain (Cin a multiple of 8).
-//   * Not yet done (later work): wgmma, TMA, a multi-stage pipeline, split-K
-//     for the small levels, activating each x element once instead of once
-//     per tap, a shared-memory staged (coalesced) epilogue.
+// What the design does about it (bf16; warp-specialised as the attention
+// kernels: two consumer warpgroups, one producer thread issuing TMA):
+//   * An implicit GEMM, M = output pixels, N = Cout, K = 9 Cin. A block
+//     owns an 8 x 16 tile of output pixels of one image (128 rows: 64 a
+//     consumer warpgroup, one image row of the tile a warp) and 160 output
+//     channels (wgmma's n160; the UNet's 320, 640 and 1280 are multiples),
+//     and walks Cin in chunks of 64 channels, the 9 taps of a chunk in turn.
+//   * Each x element is activated once per (block, chunk), not once per
+//     tap: the consumers load the chunk's haloed window, 10 x 18 pixels x 64
+//     channels, with ordinary loads along W (the threads must pass each
+//     element through registers to activate it; TMA could not map NCHW x
+//     where W * 2 bytes is not a multiple of 16 anyway), apply a, c and SiLU
+//     in f32, round to bf16, write 0 where the window leaves the image
+//     (after the activation: SiLU(c) is not 0) or passes Cin, and store
+//     [pixel][64 channels] rows of 128 bytes, 128-byte XOR-swizzled (chunk
+//     q of row r at q ^ (r & 7)). 180 window pixels for 128 outputs: 1.4
+//     activations of an element per block, where the first design made 9.
+//     The window is double-buffered: chunk k + 1 is activated while chunk
+//     k's products run, one slot of (pixel, 8 channels) items a tap, each
+//     slot's loads issued two taps ahead.
+//   * Products on wgmma m64n160k16 with A from registers: for tap (dy, dx)
+//     the A row of output pixel (i, j) is window pixel (i + dy, j + dx), a
+//     start that no shared-memory descriptor can express, so each lane
+//     gives ldmatrix.x4 its own row's address (conflict-free: 8 consecutive
+//     window pixels cover the 8 swizzle positions).
+//   * Weights by TMA: the wrapper's (Cout, 3, 3, Cin) weight is a
+//     three-dimensional map (Cin, 9, Cout) with box (64, 1, 160), so a
+//     chunk past Cin and a block past Cout arrive as zeros, tap by tap; one
+//     producer thread keeps a ring of six (chunk, tap) tiles full under full
+//     / empty mbarriers, read K-major (trans-b = 0).
+//   * Split-K where the grid is small: with fewer (tile, N block, image)
+//     blocks than half the SMs, the wrapper splits the chunks over `split`
+//     blocks, which write f32 partial sums to a workspace; a second kernel
+//     sums them in a fixed order (deterministic), adds bias and temb or the
+//     residual, and rounds once.
+//   * The epilogue stages the f32 tile through shared memory as
+//     [channel][pixel] (the window and ring, idle by then) and writes y, and
+//     reads the residual, 8 pixels (16 bytes) at a time along W where W is a
+//     multiple of 8.
+//   * What is left (PERF.md): every block reads the whole weight of its
+//     160 channels from L2 (236 MB at level 0; with products and
+//     activation removed the kernel still takes 0.033 ms, about 7 TB/s),
+//     and the activation hides under the products only in part. Not done:
+//     2-CTA clusters sharing each weight tile by multicast, a product in
+//     flight across taps (each warpgroup waits for its tap's products; the
+//     other warpgroup's fill the gap), a persistent grid.
+// f32 (a spot-check route, not the main path): an FMA kernel with the same
+// prologue per tap, so f32 keeps full precision.
 //
 // The plain-C entry returns cudaGetLastError(); it never synchronises.
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace pcdms;
+namespace hp = pcdms::hopper;
+using hp::kBlockThreads;
+using hp::kConsumers;
+using hp::kWg;
 
-constexpr int kBK = 32;              // input channels per K step
-constexpr int kThreads = 256;        // 8 warps: 4 along M x 2 along N
-constexpr int kBStride = kBK + 8;    // Bs[n][k] row, 80 B: conflict-free
-                                     // 32-bit fragment loads
+constexpr int kThreads = 256;        // the f32 kernel's block
 
 // SiLU in f32 with the fast exp and divide: their error (a few ulp of f32)
 // is far below the bf16 rounding that follows, and within the f32 route's
@@ -65,162 +92,362 @@ __device__ __forceinline__ float act_value(float v, int act) {
   return act ? __fdividef(v, 1.f + __expf(-v)) : v;
 }
 
-// A block covers BM = 64 * MT pixels (MT m16 tiles per warp along M) and
-// BN = 16 * NT output channels (NT n8 tiles per warp along N). The K loop
-// walks (tap, 32-channel chunk) steps; the next step's x, a, c and weight
-// values are fetched into registers while the tensor cores work on the
-// current step in shared memory, so the global loads' latency overlaps
-// the products.
-template <int MT, int NT>
-__global__ void __launch_bounds__(kThreads)
-    fused_conv_bf16(const __nv_bfloat16* __restrict__ x,
-                    const float* __restrict__ a, const float* __restrict__ c,
-                    const __nv_bfloat16* __restrict__ w,
-                    const float* __restrict__ bias,
-                    const __nv_bfloat16* __restrict__ extra,
-                    __nv_bfloat16* __restrict__ y, int cin, int cout, int h,
-                    int wd, int mode, int act) {
-  constexpr int BM = 64 * MT, BN = 16 * NT;
-  constexpr int AStride = BM + 8;    // As[k][m] row; 16-byte aligned and
-                                     // conflict-free for ldmatrix
-  constexpr int kRowsPerPass = kThreads / BM;      // A channel rows a pass
-  constexpr int kAPer = kBK / kRowsPerPass;        // A values per thread
-  constexpr int kBPer = BN * (kBK / 8) / kThreads;  // 16-byte B loads
-  __shared__ __align__(16) __nv_bfloat16 As[kBK * AStride];
-  __shared__ __align__(16) __nv_bfloat16 Bs[BN * kBStride];
+// ---------------------------------------------------------------------------
+// bf16: activated window + TMA weight ring -> wgmma, warp-specialised
+// ---------------------------------------------------------------------------
 
-  const int b = blockIdx.z;
+constexpr int kTileH = 8, kTileW = 16;             // output pixels a block
+constexpr int kPixels = kTileH * kTileW;
+constexpr int kWinW = kTileW + 2;                  // the haloed window
+constexpr int kWinRows = (kTileH + 2) * kWinW;     // 180 pixels
+constexpr int kChunk = 64;                         // input channels a chunk
+constexpr int kBlockN = 160;                       // output channels a block
+constexpr int kTaps = 9;
+constexpr int kStages = 6;                         // weight ring
+constexpr int kConsumerThreads = kConsumers * kWg;
+constexpr int kItems = kWinRows * (kChunk / 8);    // (pixel, 8 channels)
+constexpr int kSlots = (kItems + kConsumerThreads - 1) / kConsumerThreads;
+constexpr int kStageLd = kPixels + 4;              // f32 staging row: the
+                                                   // accumulator's writes
+                                                   // are conflict-free
+constexpr int kWTileBytes = kBlockN * hp::kRowBytes;
+// the consumers' gain over the launch's 168 registers must not exceed what
+// the producer gives back, or setmaxnreg.inc waits for ever
+constexpr int kConvProducerRegs = 24, kConvConsumerRegs = 240;
+constexpr int kConvLaunchRegs = 65536 / kBlockThreads / 8 * 8;
+static_assert((kConvLaunchRegs - kConvProducerRegs) * kWg >=
+                  (kConvConsumerRegs - kConvLaunchRegs) * kConsumerThreads,
+              "setmaxnreg: the consumers take more than the producer frees");
+static_assert(kPixels == hp::kBlockRows && kTileW == 16,
+              "a warp's 16 rows are one image row of the tile");
+static_assert(kSlots + 2 <= kTaps,
+              "slot s is activated at tap s; slots 0 and 1 of the chunk "
+              "after next are loaded at the last two taps");
+
+struct ConvLoop {
+  uint8_t x[2][kWinRows * hp::kRowBytes];   // activated windows
+  uint8_t w[kStages][kWTileBytes];          // weight ring
+};
+struct ConvSmem {
+  union {
+    ConvLoop loop;
+    float out[kBlockN * kStageLd];          // the epilogue's staging
+  };
+  uint64_t full[kStages], empty[kStages];
+};
+static_assert(2 * kWinRows * hp::kRowBytes % 1024 == 0 &&
+                  kWTileBytes % 1024 == 0,
+              "every ring stage is 1024-byte aligned (128-byte swizzle)");
+static_assert(sizeof(ConvSmem) + 1024 <= 232448,
+              "shared memory of one block on an H100");
+
+// Block (tile, N block, image * split + z). The consumers activate the
+// window of chunk k + 1 while chunk k's products run; the producer thread
+// brings the weight tiles of the block's chunks, tap by tap.
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    fused_conv_hopper(const __grid_constant__ CUtensorMap map_w,
+                      const __nv_bfloat16* __restrict__ x,
+                      const float* __restrict__ a,
+                      const float* __restrict__ c,
+                      const float* __restrict__ bias,
+                      const __nv_bfloat16* __restrict__ extra,
+                      __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
+                      int cin, int cout, int h, int wd, int tiles_w,
+                      int split, int mode, int act, int vec) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  ConvSmem& sm = hp::shared_storage<ConvSmem>(smem_raw);
+
+  const int tid = threadIdx.x, wg = tid / kWg;
+  const int h0 = blockIdx.x / tiles_w * kTileH;
+  const int w0 = blockIdx.x % tiles_w * kTileW;
+  const int n0 = blockIdx.y * kBlockN;
+  const int b = blockIdx.z / split, z = blockIdx.z % split;
   const int hw = h * wd;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;
-  x += (size_t)b * cin * hw;
-  a += (size_t)b * cin;
-  c += (size_t)b * cin;
+  const int chunks = (cin + kChunk - 1) / kChunk;
+  const int k_begin = z * chunks / split, k_end = (z + 1) * chunks / split;
 
-  // this thread's pixel for the A tile, and its first channel row
-  const int lm = tid % BM, lk0 = tid / BM;
-  const int p = m0 + lm;
-  const bool pvalid = p < hw;
-  const int ph = pvalid ? p / wd : 0, pw = pvalid ? p % wd : 0;
-  const int nc = (cin + kBK - 1) / kBK, steps = 9 * nc;
-
-  // the register stage: raw x with its a, c (all 0 where the tap falls
-  // outside the image or past cin, so the activation gives 0), and weights
-  __nv_bfloat16 xr[kAPer];
-  float ar[kAPer], cr[kAPer];
-  uint4 br[kBPer];
-
-  auto fetch = [&](int step) {
-    const int tap = step / nc, c0 = (step - tap * nc) * kBK;
-    const int hs = ph + tap / 3 - 1, ws = pw + tap % 3 - 1;
-    const bool inside = pvalid && hs >= 0 && hs < h && ws >= 0 && ws < wd;
-    const __nv_bfloat16* xp = x + (inside ? hs * wd + ws : 0);
+  if (tid == 0) {
 #pragma unroll
-    for (int j = 0; j < kAPer; ++j) {
-      const int ch = c0 + lk0 + j * kRowsPerPass;
-      const bool ok = inside && ch < cin;
-      xr[j] = ok ? xp[(size_t)ch * hw] : __float2bfloat16(0.f);
-      ar[j] = ok ? a[ch] : 0.f;
-      cr[j] = ok ? c[ch] : 0.f;
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&sm.full[s], 1);
+      hp::mbar_init(&sm.empty[s], kConsumers * 4);   // a consumer warp each
     }
-    const __nv_bfloat16* wp = w + (size_t)tap * cin;
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer: one thread keeps the weight ring full ----
+    hp::reg_dealloc<kConvProducerRegs>();
+    if (tid == kConsumers * kWg) {
+      hp::Ring ring;
+      for (int k = k_begin; k < k_end; ++k)
+        for (int tap = 0; tap < kTaps; ++tap) {
+          hp::mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1);
+          hp::mbar_arrive_expect_tx(&sm.full[ring.stage], kWTileBytes);
+          hp::tma_load_3d(sm.loop.w[ring.stage], &map_w,
+                          &sm.full[ring.stage], k * kChunk, tap, n0);
+          ring.advance<kStages>();
+        }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 output pixels a warpgroup, 160 channels ----
+  hp::reg_alloc<kConvConsumerRegs>();
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const __nv_bfloat16* xb = x + (size_t)b * cin * hw;
+  const float* ab = a + (size_t)b * cin;
+  const float* cb = c + (size_t)b * cin;
+
+  // this thread's slots of the window: item i = tid + 256 s is window pixel
+  // i % kWinRows (consecutive lanes on consecutive pixels: coalesced loads
+  // along W, conflict-free 16-byte stores) and channels [8 (i / kWinRows),
+  // + 8) of a chunk. src: the pixel's offset in the image, -1 outside it
+  // (stored as 0), -2 for no item; dst: its byte offset in a window buffer
+  int src[kSlots], oct[kSlots];
+  uint32_t dst[kSlots];
 #pragma unroll
-    for (int v = 0; v < kBPer; ++v) {
-      const int i = tid + v * kThreads;
-      const int co = n0 + i / (kBK / 8), ch = c0 + (i % (kBK / 8)) * 8;
-      br[v] = (co < cout && ch < cin)
-                  ? *reinterpret_cast<const uint4*>(wp + (size_t)co * 9 * cin +
-                                                    ch)
-                  : make_uint4(0u, 0u, 0u, 0u);
+  for (int s = 0; s < kSlots; ++s) {
+    const int i = tid + s * kConsumerThreads;
+    const int r = i % kWinRows, o = i / kWinRows;
+    const int gh = h0 - 1 + r / kWinW, gw = w0 - 1 + r % kWinW;
+    const bool inside = gh >= 0 && gh < h && gw >= 0 && gw < wd;
+    src[s] = i >= kItems ? -2 : inside ? gh * wd + gw : -1;
+    oct[s] = o * 8;
+    dst[s] = r * hp::kRowBytes + ((o ^ (r & 7)) << 4);
+  }
+  // raw x of the slot being prefetched, two buffers: slot s uses s & 1
+  __nv_bfloat16 raw[2][8];
+  auto load = [&](__nv_bfloat16(&v)[8], int s, int k) {
+    const int ch = k * kChunk + oct[s];
+    if (src[s] >= 0 && ch < cin) {
+      const __nv_bfloat16* p = xb + (size_t)ch * hw + src[s];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = p[(size_t)e * hw];
     }
   };
-
-  float acc[MT][NT][4];
+  // activated, rounded to bf16, 0 outside the image or past cin
+  auto store = [&](const __nv_bfloat16(&v)[8], int s, int k, uint8_t* win) {
+    if (src[s] == -2) return;
+    const int ch = k * kChunk + oct[s];
+    uint4 out = make_uint4(0u, 0u, 0u, 0u);
+    if (src[s] >= 0 && ch < cin) {
+      const float4 a0 = *reinterpret_cast<const float4*>(ab + ch);
+      const float4 a1 = *reinterpret_cast<const float4*>(ab + ch + 4);
+      const float4 c0 = *reinterpret_cast<const float4*>(cb + ch);
+      const float4 c1 = *reinterpret_cast<const float4*>(cb + ch + 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+      float f[8];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  fetch(0);
-  for (int step = 0; step < steps; ++step) {
-    __syncthreads();   // the previous step's products are done with smem
-    // A: activated, rounded to bf16 (0 outside the image); B: as loaded
-#pragma unroll
-    for (int j = 0; j < kAPer; ++j)
-      As[(lk0 + j * kRowsPerPass) * AStride + lm] = __float2bfloat16(
-          act_value(__bfloat162float(xr[j]) * ar[j] + cr[j], act));
-#pragma unroll
-    for (int v = 0; v < kBPer; ++v) {
-      const int i = tid + v * kThreads;
-      *reinterpret_cast<uint4*>(Bs + (i / (kBK / 8)) * kBStride +
-                                (i % (kBK / 8)) * 8) = br[v];
+      for (int e = 0; e < 8; ++e)
+        f[e] = act_value(__bfloat162float(v[e]) * av[e] + cv[e], act);
+      out = make_uint4(hp::pack2_bf16(f[0], f[1]), hp::pack2_bf16(f[2], f[3]),
+                       hp::pack2_bf16(f[4], f[5]), hp::pack2_bf16(f[6], f[7]));
     }
-    __syncthreads();
-    if (step + 1 < steps) fetch(step + 1);
+    *reinterpret_cast<uint4*>(win + dst[s]) = out;
+  };
+
+  // the block's first chunk into window 0, the same slot pipeline as below
+  load(raw[0], 0, k_begin);
+  load(raw[1], 1, k_begin);
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[MT][4];
-      const int j = lane >> 3, r = lane & 7;
+  for (int s = 0; s < kSlots; ++s) {
+    store(raw[s & 1], s, k_begin, sm.loop.x[0]);
+    if (s + 2 < kSlots) load(raw[s & 1], min(s + 2, kSlots - 1), k_begin);
+  }
+  if (k_begin + 1 < k_end) {
+    load(raw[0], 0, k_begin + 1);
+    load(raw[1], 1, k_begin + 1);
+  }
+  hp::named_barrier(1, kConsumerThreads);
+
+  float acc[kBlockN / 2];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldmatrix_x4_trans(af[mt], As + (kk + (j >> 1) * 8 + r) * AStride +
-                                      wm * 16 * MT + mt * 16 + (j & 1) * 8);
+  for (int i = 0; i < kBlockN / 2; ++i) acc[i] = 0.f;
+  // the lane's A row at tap (0, 0): its warp's tile row, its column; lanes
+  // 16-31 read the same rows at channel + 8
+  const int row0 = (wg * 4 + warp) * kWinW + (lane & 15);
+  const int half = lane >> 4;
+  const uint32_t win_u32[2] = {hp::smem_u32(sm.loop.x[0]),
+                               hp::smem_u32(sm.loop.x[1])};
+  hp::Ring ring;
+  for (int k = k_begin; k < k_end; ++k) {
+    const int buf = (k - k_begin) & 1;
+    const uint32_t win = buf ? win_u32[1] : win_u32[0];
+    uint8_t* next = sm.loop.x[buf ^ 1];
+    const bool has_next = k + 1 < k_end, has_next2 = k + 2 < k_end;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* bp =
-            Bs + (wn * 8 * NT + nt * 8 + g) * kBStride + kk + t4 * 2;
-        const uint32_t b0 = ld32(bp), b1 = ld32(bp + 8);
+    for (int tap = 0; tap < kTaps; ++tap) {
+      const int r = row0 + (tap / 3) * kWinW + tap % 3;
+      uint32_t frag[4][4];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], af[mt], b0, b1);
+      for (int kk = 0; kk < 4; ++kk)
+        hp::ldmatrix_x4(frag[kk], win + r * hp::kRowBytes +
+                                      (((2 * kk + half) ^ (r & 7)) << 4));
+      hp::mbar_wait(&sm.full[ring.stage], ring.phase);
+      const uint64_t w_desc = hp::make_desc(sm.loop.w[ring.stage]);
+      hp::fence_acc(acc);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hp::wgmma_rs_k160(acc, frag[kk], w_desc + kk * hp::kStepK);
+      hp::wgmma_commit();
+      // while the products run: slot `tap` of the next chunk, and the
+      // loads two slots on
+      if (has_next && tap < kSlots) {
+        store(raw[tap & 1], min(tap, kSlots - 1), k + 1, next);
+        if (tap + 2 < kSlots)
+          load(raw[tap & 1], min(tap + 2, kSlots - 1), k + 1);
       }
+      if (has_next2 && tap >= kTaps - 2)
+        load(raw[tap == kTaps - 1], tap == kTaps - 1, k + 2);
+      hp::wgmma_wait<0>();
+      hp::fence_acc(acc);
+      hp::fence_frag(frag);
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(&sm.empty[ring.stage]);
+      ring.advance<kStages>();
     }
+    // the next window is written, this one read, by both warpgroups
+    hp::named_barrier(1, kConsumerThreads);
   }
 
-  // epilogue: + bias (+ temb | + residual) in f32, one rounding, NCHW
-  y += (size_t)b * cout * hw;
-  if (mode == 2) extra += (size_t)b * cout * hw;
+  // ---- epilogue: every product and copy is done; the staging reuses the
+  // windows and the ring ----
+  const int g = lane >> 2, t4 = lane & 3;
+  const int m = wg * 64 + warp * 16 + g;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+  for (int nt = 0; nt < kBlockN / 8; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int e = 0; e < 4; ++e)
+      sm.out[(8 * nt + 2 * t4 + (e & 1)) * kStageLd + m + 8 * (e >> 1)] =
+          acc[4 * nt + e];
+  hp::named_barrier(1, kConsumerThreads);
+  const int batch = gridDim.z / split;
+  for (int it = tid; it < kBlockN * kPixels / 8; it += kConsumerThreads) {
+    const int n = it / (kPixels / 8), q = it % (kPixels / 8);
+    const int co = n0 + n, gh = h0 + q / 2, gw = w0 + (q & 1) * 8;
+    if (co >= cout || gh >= h || gw >= wd) continue;
+    const float4 s0 = *reinterpret_cast<const float4*>(
+        sm.out + n * kStageLd + q * 8);
+    const float4 s1 = *reinterpret_cast<const float4*>(
+        sm.out + n * kStageLd + q * 8 + 4);
+    float v[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    const size_t o = ((size_t)b * cout + co) * hw + (size_t)gh * wd + gw;
+    const int cnt = min(8, wd - gw);
+    if (ws != nullptr) {
+      // split-K: this block's f32 partial sums, [z][b][co][pixel]
+      float* p = ws + (size_t)z * batch * cout * hw + o;
+      if (vec) {
+        *reinterpret_cast<float4*>(p) = s0;
+        *reinterpret_cast<float4*>(p + 4) = s1;
+      } else {
+        for (int j = 0; j < cnt; ++j) p[j] = v[j];
+      }
+      continue;
+    }
+    const float bn = bias[co];
+    const float tn = mode == 1 ? __bfloat162float(extra[(size_t)b * cout + co])
+                               : 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm * 16 * MT + mt * 16 + g + (e >> 1) * 8;
-        const int n = n0 + wn * 8 * NT + nt * 8 + 2 * t4 + (e & 1);
-        if (m >= hw || n >= cout) continue;
-        float v = acc[mt][nt][e] + bias[n];
-        if (mode == 1)
-          v += __bfloat162float(extra[(size_t)b * cout + n]);
-        else if (mode == 2)
-          v += __bfloat162float(extra[(size_t)n * hw + m]);
-        y[(size_t)n * hw + m] = __float2bfloat16(v);
+    for (int j = 0; j < 8; ++j) {
+      v[j] += bn;
+      if (mode == 1) v[j] += tn;
+    }
+    if (vec) {
+      if (mode == 2) {
+        const uint4 rv = *reinterpret_cast<const uint4*>(extra + o);
+        const __nv_bfloat16* rb = reinterpret_cast<const __nv_bfloat16*>(&rv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] += __bfloat162float(rb[j]);
+      }
+      *reinterpret_cast<uint4*>(y + o) =
+          make_uint4(hp::pack2_bf16(v[0], v[1]), hp::pack2_bf16(v[2], v[3]),
+                     hp::pack2_bf16(v[4], v[5]), hp::pack2_bf16(v[6], v[7]));
+    } else {
+      for (int j = 0; j < cnt; ++j) {
+        float u = v[j];
+        if (mode == 2) u += __bfloat162float(extra[o + j]);
+        y[o + j] = __float2bfloat16(u);
       }
     }
   }
 }
 
-template <int MT, int NT>
-long n_blocks(int batch, int hw, int cout) {
-  return (long)((hw + 64 * MT - 1) / (64 * MT)) *
-         ((cout + 16 * NT - 1) / (16 * NT)) * batch;
+// split-K: y = the partial sums of the `split` blocks added in order 0, 1,
+// ..., then + bias (+ temb | + residual) in f32, one rounding
+__global__ void fused_conv_reduce(const float* __restrict__ ws,
+                                  const float* __restrict__ bias,
+                                  const __nv_bfloat16* __restrict__ extra,
+                                  __nv_bfloat16* __restrict__ y, int split,
+                                  int cout, int hw, long total, int mode) {
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long)gridDim.x * blockDim.x) {
+    float v = ws[i];
+    for (int s = 1; s < split; ++s) v += ws[s * total + i];
+    const long bc = i / hw;   // b * cout + channel
+    v += bias[bc % cout];
+    if (mode == 1)
+      v += __bfloat162float(extra[bc]);
+    else if (mode == 2)
+      v += __bfloat162float(extra[i]);
+    y[i] = __float2bfloat16(v);
+  }
 }
 
-template <int MT, int NT>
-void launch_bf16(const void* x, const float* a, const float* c,
-                 const void* weight, const float* bias, const void* extra,
-                 void* y, int batch, int cin, int cout, int h, int w,
-                 int mode, int act, cudaStream_t st) {
+// the last few weight maps, per host thread
+hp::MapCache& conv_map_cache() {
+  static thread_local hp::MapCache cache;
+  return cache;
+}
+
+cudaError_t launch_bf16(const void* x, const float* a, const float* c,
+                        const void* weight, const float* bias,
+                        const void* extra, void* y, float* ws, int batch,
+                        int cin, int cout, int h, int w, int mode, int act,
+                        int split, cudaStream_t st) {
   using T = __nv_bfloat16;
-  const dim3 grid((h * w + 64 * MT - 1) / (64 * MT),
-                  (cout + 16 * NT - 1) / (16 * NT), batch);
-  fused_conv_bf16<MT, NT><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), a, c, static_cast<const T*>(weight), bias,
-      static_cast<const T*>(extra), static_cast<T*>(y), cin, cout, h, w,
-      mode, act);
+  const int chunks = (cin + kChunk - 1) / kChunk;
+  if (split < 1 || split > chunks || (split > 1) != (ws != nullptr))
+    return cudaErrorInvalidValue;
+  CUtensorMap map;
+  if (!conv_map_cache().get(&map, weight, {cin, kTaps, cout},
+                            {kChunk, 1, kBlockN}))
+    return cudaErrorInvalidValue;
+  constexpr int smem = sizeof(ConvSmem) + 1024;
+  static bool allowed[64] = {};
+  cudaError_t err = hp::allow_smem(fused_conv_hopper, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const int tiles_w = (w + kTileW - 1) / kTileW;
+  const long tiles = (long)((h + kTileH - 1) / kTileH) * tiles_w;
+  const long n_blocks = (cout + kBlockN - 1) / kBlockN;
+  const long gz = (long)batch * split;
+  if (tiles > 0x7fffffffL || n_blocks > 65535 || gz > 65535)
+    return cudaErrorInvalidValue;
+  const int vec = w % 8 == 0 && ((reinterpret_cast<uintptr_t>(y) |
+                                  reinterpret_cast<uintptr_t>(extra) |
+                                  reinterpret_cast<uintptr_t>(ws)) & 15) == 0;
+  fused_conv_hopper<<<dim3(tiles, n_blocks, gz), kBlockThreads, smem, st>>>(
+      map, static_cast<const T*>(x), a, c, bias, static_cast<const T*>(extra),
+      static_cast<T*>(y), ws, cin, cout, h, w, tiles_w, split, mode, act,
+      vec);
+  if (split == 1) return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long total = (long)batch * cout * h * w;
+  const long want = (total + 255) / 256;
+  const int blocks = (int)(want < 132L * 16 ? want : 132L * 16);
+  fused_conv_reduce<<<blocks, 256, 0, st>>>(
+      ws, bias, static_cast<const T*>(extra), static_cast<T*>(y), split, cout,
+      h * w, total, mode);
+  return cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// f32, FMA
+// ---------------------------------------------------------------------------
 
 // f32: 64 pixels x 64 output channels per block, 16 channels per K step,
 // each thread a 4 x 4 patch with FMA, so f32 keeps full precision
@@ -305,43 +532,39 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // x: (batch, cin, h, w) contiguous, bf16 (is_bf16 = 1) or f32; a, c:
-// (batch, cin) f32; weight: (cout, 3, 3, cin) in x's dtype; bias: (cout,)
-// f32; extra: temb (batch, cout) for mode 1, residual (batch, cout, h, w)
-// for mode 2 (both in x's dtype), unused for mode 0; y: (batch, cout, h, w).
-// cin must be a multiple of 8 (16-byte weight loads).
+// (batch, cin) f32, 16-byte aligned; weight: (cout, 3, 3, cin) in x's dtype;
+// bias: (cout,) f32; extra: temb (batch, cout) for mode 1, residual (batch,
+// cout, h, w) for mode 2 (both in x's dtype), unused for mode 0; y: (batch,
+// cout, h, w); workspace: (split, batch, cout, h, w) f32 for a bf16 call
+// with split > 1, else null (split 1; the f32 kernel takes split 1 only).
+// cin must be a multiple of 8 (16-byte weight rows).
 extern "C" int pcdms_fused_gn_silu_conv(const void* x, const void* a,
                                         const void* c, const void* weight,
                                         const void* bias, const void* extra,
-                                        void* y, int batch, int cin, int cout,
-                                        int h, int w, int mode, int act,
-                                        int is_bf16, void* stream) {
-  if (cin % 8 != 0 || mode < 0 || mode > 2)
+                                        void* y, void* workspace, int batch,
+                                        int cin, int cout, int h, int w,
+                                        int mode, int act, int is_bf16,
+                                        int split, void* stream) {
+  if (cin % 8 != 0 || mode < 0 || mode > 2 || batch < 1 || cin < 1 ||
+      cout < 1 || h < 1 || w < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int hw = h * w;
   const float* af = static_cast<const float*>(a);
   const float* cf = static_cast<const float*>(c);
   const float* bf = static_cast<const float*>(bias);
-  if (is_bf16) {
-    // the largest tile that still gives two waves of blocks on 132 SMs:
-    // 128 x 128 at 64x128 pixels, 64 x 128 at 32x64, 64 x 64 below
-    constexpr long kTwoWaves = 2 * 132;
-    if (n_blocks<2, 8>(batch, hw, cout) >= kTwoWaves)
-      launch_bf16<2, 8>(x, af, cf, weight, bf, extra, y, batch, cin, cout, h,
-                        w, mode, act, st);
-    else if (n_blocks<1, 8>(batch, hw, cout) >= kTwoWaves)
-      launch_bf16<1, 8>(x, af, cf, weight, bf, extra, y, batch, cin, cout, h,
-                        w, mode, act, st);
-    else
-      launch_bf16<1, 4>(x, af, cf, weight, bf, extra, y, batch, cin, cout, h,
-                        w, mode, act, st);
-  } else {
-    const dim3 grid((hw + kFBM - 1) / kFBM, (cout + kFBN - 1) / kFBN, batch);
-    fused_conv_f32<<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), af, cf,
-        static_cast<const float*>(weight), bf,
-        static_cast<const float*>(extra), static_cast<float*>(y), cin, cout,
-        h, w, mode, act);
-  }
+  if (is_bf16)
+    return static_cast<int>(launch_bf16(x, af, cf, weight, bf, extra, y,
+                                        static_cast<float*>(workspace), batch,
+                                        cin, cout, h, w, mode, act, split,
+                                        st));
+  if (split != 1 || workspace != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((hw + kFBM - 1) / kFBM, (cout + kFBN - 1) / kFBN, batch);
+  fused_conv_f32<<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(x), af, cf,
+      static_cast<const float*>(weight), bf,
+      static_cast<const float*>(extra), static_cast<float*>(y), cin, cout,
+      h, w, mode, act);
   return static_cast<int>(cudaGetLastError());
 }

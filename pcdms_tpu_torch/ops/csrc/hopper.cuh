@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks for the attention kernels (forward and
-// backward): the tensor map a TMA copy needs, mbarriers, TMA loads, wgmma
-// descriptors and the wgmma products (bf16 in, f32 accumulate), as thin PTX
-// wrappers; and what the warp-specialised kernels share: the block's shape,
-// the ring position, the swizzled epilogue and, on the host, the cache of
-// tensor maps and the shared-memory opt-in.
+// backward) and the fused GroupNorm + SiLU + conv3x3 kernel: the tensor map
+// a TMA copy needs, mbarriers, TMA loads, ldmatrix, wgmma descriptors and
+// the wgmma products (bf16 in, f32 accumulate), as thin PTX wrappers; and
+// what the warp-specialised kernels share: the block's shape, the ring
+// position, the swizzled epilogue and, on the host, the cache of tensor
+// maps and the shared-memory opt-in.
 //
 // Layout conventions
 //
@@ -20,7 +21,11 @@
 //   of one head, and rows past L are filled with zeros by the hardware (a
 //   two-dimensional map over BH * L rows would bring the next head's rows
 //   instead). A copy always counts the whole box, 8192 bytes, on its
-//   mbarrier, however many rows were out of range.
+//   mbarrier, however many rows were out of range. The conv weight, re-laid
+//   to (Cout, 3, 3, Cin), is mapped as (Cin, 9, Cout), box (64, 1, 160):
+//   one copy brings one tap's 64 input channels of 160 output channels, as
+//   160 rows of 128 bytes, zeros past Cin (never the next tap's channels)
+//   and past Cout.
 // * Rows of 80 (160 bytes: more than a 128-byte-swizzled box may span).
 //   A (BH, L, 80) tensor has two maps over the same (80, L, BH)
 //   dimensions: box (64, 64, 1) with the 128-byte swizzle brings the first
@@ -46,6 +51,11 @@
 //   1024; the leading byte offset (the next 64 columns) is never reached at
 //   N = 64. The k-step of 16 rows advances the start address by 2048 bytes
 //   (descriptor + 128).
+// * A operand from shared memory through registers (the conv: each lane's
+//   row of A starts at its own window pixel, which no descriptor can
+//   express): ldmatrix_x4 with lanes 0-15 on the 16 rows of a warp at
+//   column c and lanes 16-31 on the same rows at column c + 8 gives the
+//   four registers of a k-step, as below.
 // * Register fragments. The f32 accumulator of m64nNk16 holds, in thread
 //   (warp w, lane) of the warpgroup, d[4 * nt + e] = row 16 w + lane / 4
 //   (+ 8 if e >= 2), column 8 nt + 2 (lane % 4) + (e & 1): per warp the
@@ -117,25 +127,27 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// the map of a contiguous (bh, len, width) bf16 tensor, width 64 or 80,
-// box box_cols x 64 x 1: box_cols 64 with the 128-byte swizzle or 16 with
-// the 32-byte swizzle (the last 16 columns of an 80-wide row); zeros past
-// len; false if the encoding is refused
-inline bool make_tensor_map(CUtensorMap* map, const void* base, int bh,
-                            int len, int width, int box_cols) {
+// the map of a contiguous bf16 tensor of three dimensions `dims`, innermost
+// first, box `box`: box[0] columns of 64 with the 128-byte swizzle or of 16
+// with the 32-byte swizzle, box[1] and box[2] up to 256 each; zeros outside
+// the tensor; false if the encoding is refused. A (bh, len, width) tensor
+// of the attention kernels is dims {width, len, bh}, box {64 or 16, 64, 1};
+// the conv weight (Cout, 3, 3, Cin) is dims {Cin, 9, Cout}, box {64, 1, N}
+inline bool make_tensor_map(CUtensorMap* map, const void* base,
+                            const int (&dims)[3], const int (&box)[3]) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
-  const cuuint64_t row_bytes = (cuuint64_t)width * 2;
-  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)len,
-                              (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {row_bytes, (cuuint64_t)len * row_bytes};
-  const cuuint32_t box[3] = {(cuuint32_t)box_cols, kBoxRows, 1};
+  const cuuint64_t gdims[3] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1],
+                               (cuuint64_t)dims[2]};
+  const cuuint64_t strides[2] = {gdims[0] * 2, gdims[0] * gdims[1] * 2};
+  const cuuint32_t gbox[3] = {(cuuint32_t)box[0], (cuuint32_t)box[1],
+                              (cuuint32_t)box[2]};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, elem,
+                const_cast<void*>(base), gdims, strides, gbox, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                               : CU_TENSOR_MAP_SWIZZLE_32B,
+                box[0] == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -146,35 +158,43 @@ inline bool make_tensor_map(CUtensorMap* map, const void* base, int bh,
 // defines them (a map holds the address, the shape, the box and the
 // swizzle, never the data): a map of 64-wide rows is never returned for an
 // 80-wide tensor on the same storage, nor a 16-column box for a 64-column
-// one.
+// one, nor a conv weight's map for another Cin or Cout.
 struct MapCache {
   static constexpr int kSlots = 8;
   struct Slot {
     const void* base = nullptr;
-    int bh = 0, len = 0, width = 0, box_cols = 0;
+    int dims[3] = {0, 0, 0}, box[3] = {0, 0, 0};
     CUtensorMap map;
   } slots[kSlots];
   int next = 0;
 
   // copies the map out: a later miss may overwrite the slot
-  bool get(CUtensorMap* out, const void* base, int bh, int len,
-           int width = 64, int box_cols = 64) {
+  bool get(CUtensorMap* out, const void* base, const int (&dims)[3],
+           const int (&box)[3]) {
     for (const Slot& s : slots)
-      if (s.base == base && s.bh == bh && s.len == len &&
-          s.width == width && s.box_cols == box_cols) {
+      if (s.base == base && s.dims[0] == dims[0] && s.dims[1] == dims[1] &&
+          s.dims[2] == dims[2] && s.box[0] == box[0] &&
+          s.box[1] == box[1] && s.box[2] == box[2]) {
         *out = s.map;
         return true;
       }
-    if (!make_tensor_map(out, base, bh, len, width, box_cols)) return false;
+    if (!make_tensor_map(out, base, dims, box)) return false;
     Slot& s = slots[next];
     next = (next + 1) % kSlots;
     s.base = base;
-    s.bh = bh;
-    s.len = len;
-    s.width = width;
-    s.box_cols = box_cols;
+    for (int i = 0; i < 3; ++i) {
+      s.dims[i] = dims[i];
+      s.box[i] = box[i];
+    }
     s.map = *out;
     return true;
+  }
+
+  // a (bh, len, width) tensor of the attention kernels, 64-row boxes of
+  // box_cols columns
+  bool get(CUtensorMap* out, const void* base, int bh, int len,
+           int width = 64, int box_cols = 64) {
+    return get(out, base, {width, len, bh}, {box_cols, kBoxRows, 1});
   }
 };
 
@@ -287,6 +307,20 @@ __device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
                : "memory");
 }
 
+// the box of a three-dimensional map at coordinates (c0, c1, c2), innermost
+// first -> swizzled bytes at dst, counted on `bar`; what lies outside the
+// tensor arrives as zeros, and the whole box is counted
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // rows [row, row + 64) of head `bh` -> one box of swizzled bytes at dst
 // (8192, or 2048 for a 16-column box), counted on `bar`, from column `col`
 // on; rows past the tensor's length arrive as zeros
@@ -294,11 +328,19 @@ __device__ __forceinline__ void tma_load_rows(void* dst,
                                               const CUtensorMap* map,
                                               uint64_t* bar, int row,
                                               int bh, int col = 0) {
+  tma_load_3d(dst, map, bar, col, row, bh);
+}
+
+// four 8 x 8 bf16 matrices from shared memory, not transposed: lane l gives
+// the address of row l % 8 of matrix l / 8 (16 bytes), and register j of
+// lane l receives row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of matrix
+// j. With lanes 0-15 on rows 0-15 of a 16 x 16 tile at column 0 and lanes
+// 16-31 on the same rows at column 8, that is the A fragment of a k-step
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
-      "r"(row), "r"(bh)
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
       : "memory");
 }
 
@@ -377,6 +419,14 @@ __device__ __forceinline__ void wgmma_wait() {
   "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "     \
   "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "     \
   "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+#define PCDMS_R80                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, " \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}"
 
 // d (64 x 64) = or += A (64 x 16, shared, K-major) . B^T (64 x 16, shared,
 // K-major); `accumulate` false overwrites d
@@ -467,6 +517,24 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 160) += A (64 x 16, registers) . B^T (160 rows x 16 columns of a
+// shared tile, K-major: trans-b = 0), the conv's weight tile of 160 output
+// channels read along its input channels
+__device__ __forceinline__ void wgmma_rs_k160(float (&d)[80],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 " PCDMS_R80
+      ", {%80, %81, %82, %83}, %84, p, 1, 1, 0;\n"
+      "}\n"
+      : PCDMS_ACC32(d, 0), PCDMS_ACC32(d, 32), PCDMS_ACC8(d, 64),
+        PCDMS_ACC8(d, 72)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

@@ -1,11 +1,8 @@
-// Helpers shared by the f32 flash-attention kernels (forward and backward)
-// and the fused GroupNorm + SiLU + conv3x3 kernel (mma_bf16, ldmatrix).
-//
-// The warp-level tensor-core product is mma.sync m16n8k16 (bf16 in, f32
-// accumulate); a warp's accumulator tile c[e] holds row g (e < 2) or g + 8
-// (e >= 2) and column 2 * t4 + (e & 1) of an 8-column tile, with g = lane /
-// 4 and t4 = lane % 4. The bf16 attention kernels use the wgmma wrappers of
-// hopper.cuh instead; of this file they take the scalar helpers.
+// Helpers shared by the flash-attention kernels (forward and backward): the
+// head width and tile of the f32 kernels, their tile loader, and the scalar
+// helpers the bf16 kernels take beside hopper.cuh (bf16 rounding, the max
+// across the 4 lanes of a quad, which hold one accumulator row between
+// them). No kernel of the port runs warp-level mma.sync any more.
 
 #pragma once
 
@@ -22,29 +19,6 @@ constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a . b, m16n8k16, bf16 inputs, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const __nv_bfloat16* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
 }
 
 // the 4 lanes of a quad hold one accumulator row between them

@@ -18,6 +18,7 @@ conv: bf16 max abs error 1e-2 of the largest magnitude and relative L2
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -626,14 +627,35 @@ def _conv_inputs(dev, dtype, b, h, w, cin, cout, mode, seed=15):
     return x, a, c, weight, bias, temb, res
 
 
+def _assert_conv_matches(got, want, dtype):
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    if dtype == torch.bfloat16:
+        assert _max_rel(got, want) <= 1e-2 and _rel_l2(got, want) <= 5e-3
+    else:
+        assert _max_rel(got, want) <= 2e-5
+
+
+# (B, H, W, Cin, Cout) beyond the first three (ragged pixels and channels,
+# Cout > 128): split-K over 8 and over 2 blocks, Cin 200 (four chunks, the
+# last of 8 channels) split over 4 with W = 40 (the third column of 16-wide
+# tiles cut at the border) and with W = 20 (not a multiple of 8: pixel by
+# pixel stores), a 3 x 5 image inside one tile
+CONV_EDGES = [(1, 8, 16, 1280, 1280), (2, 16, 32, 640, 1280),
+              (1, 20, 40, 200, 200), (3, 5, 20, 200, 320),
+              (1, 3, 5, 64, 160)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["none", "temb", "residual", "no_act"])
 @pytest.mark.parametrize("shape", [(2, 8, 16, 64, 128), (3, 7, 9, 40, 24),
-                                   (1, 16, 32, 320, 200)], ids=str)
+                                   (1, 16, 32, 320, 200)] + CONV_EDGES,
+                         ids=str)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_fused_conv_matches_plain(cuda, dtype, shape, mode):
     """The fused conv kernel in every mode, at a ragged shape (pixels and
-    output channels that fill no tile) and at one with Cout > 128."""
+    output channels that fill no tile), at one with Cout > 128, and at the
+    split-K, Cin-not-a-multiple-of-64, border and small shapes."""
     torch.backends.cudnn.allow_tf32 = False
     x, a, c, weight, bias, temb, res = _conv_inputs(cuda, dtype, *shape,
                                                     mode)
@@ -644,12 +666,125 @@ def test_fused_conv_matches_plain(cuda, dtype, shape, mode):
     torch.cuda.synchronize()
     assert {n: k for n, k in fa.LAUNCHES.items() if k} == {
         "fused_gn_silu_conv": 1}
-    assert got.dtype == dtype and got.shape == want.shape
-    assert torch.isfinite(got).all()
-    if dtype == torch.bfloat16:
-        assert _max_rel(got, want) <= 1e-2 and _rel_l2(got, want) <= 5e-3
-    else:
-        assert _max_rel(got, want) <= 2e-5
+    _assert_conv_matches(got, want, dtype)
+
+
+# the 14 resnet convs of the full-width stage-2 UNet (64x128 latents), in
+# the mode the UNet uses there (Cin == Cout: conv2 with the shortcut)
+UNET_CONVS = [(64, 128, 320, 320), (64, 128, 640, 320), (64, 128, 960, 320),
+              (32, 64, 320, 640), (32, 64, 640, 640), (32, 64, 960, 640),
+              (32, 64, 1280, 640), (32, 64, 1920, 640),
+              (16, 32, 640, 1280), (16, 32, 1280, 1280),
+              (16, 32, 1920, 1280), (16, 32, 2560, 1280),
+              (8, 16, 1280, 1280), (8, 16, 2560, 1280)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", UNET_CONVS, ids=str)
+def test_fused_conv_at_the_unet_shapes(cuda, shape):
+    """bf16 at batch 2, as one UNet forward calls it (16x32 and 8x16 take
+    split-K)."""
+    h, w, cin, cout = shape
+    mode = "residual" if cin == cout else "temb"
+    x, a, c, weight, bias, temb, res = _conv_inputs(
+        cuda, torch.bfloat16, 2, h, w, cin, cout, mode, seed=16)
+    got = fc.fused_gn_silu_conv(x, a, c, weight, bias, temb, res)
+    want = fc.fused_gn_silu_conv_plain(x, a, c, weight, bias, temb, res)
+    torch.cuda.synchronize()
+    _assert_conv_matches(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 16, 32, 64, 160), (2, 9, 17, 40, 24),
+                                   (1, 8, 16, 1280, 160)], ids=str)
+def test_fused_conv_zeroes_the_border_after_silu(cuda, shape):
+    """With c = 3 every activated value is near 3, SiLU(c) far from 0: a
+    window pixel outside the image that is not zeroed after the activation
+    moves the outputs of the image's border rows and columns. Each border
+    (first and last row, first and last column) is held to the bar on its
+    own, and so is the interior."""
+    b, h, w, cin, cout = shape
+    x, a, _, weight, bias, _, _ = _conv_inputs(cuda, torch.bfloat16, *shape,
+                                               "none", seed=17)
+    c = torch.full_like(a, 3.0)
+    a = a * 0.1
+    got = fc.fused_gn_silu_conv(x, a, c, weight, bias)
+    want = fc.fused_gn_silu_conv_plain(x, a, c, weight, bias)
+    torch.cuda.synchronize()
+    bar = 1e-2 * want.float().abs().max().item()
+    for part in (np.s_[..., 0, :], np.s_[..., -1, :], np.s_[..., :, 0],
+                 np.s_[..., :, -1], np.s_[..., 1:-1, 1:-1]):
+        err = (got[part].float() - want[part].float()).abs().max().item()
+        assert err <= bar, part
+
+
+@pytest.mark.cuda
+def test_fused_conv_across_many_live_weights(cuda):
+    """The launcher keeps the last eight weight maps; twelve live weights
+    (two Cin, two Cout) visited in turn, twice, still give each its own
+    result, equal to the plain version's."""
+    torch.backends.cudnn.allow_tf32 = False
+    sets = [_conv_inputs(cuda, torch.bfloat16, 1, 8, 16, 64 + 64 * (i % 2),
+                         160 + 160 * (i % 3 == 0), "residual", seed=30 + i)
+            for i in range(12)]
+    first = [fc.fused_gn_silu_conv(*s) for s in sets]
+    for _ in range(2):
+        for s, want in zip(sets, first):
+            assert torch.equal(fc.fused_gn_silu_conv(*s), want)
+    for s, got in zip(sets, first):
+        _assert_conv_matches(got, fc.fused_gn_silu_conv_plain(*s),
+                             torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 16, 32, 64, 160),
+                                   (2, 8, 16, 1280, 1280)], ids=str)
+def test_fused_conv_is_deterministic(cuda, shape):
+    """The split-K partial sums are added in a fixed order: two calls give
+    the same bits."""
+    args = _conv_inputs(cuda, torch.bfloat16, *shape, "residual", seed=18)
+    assert torch.equal(fc.fused_gn_silu_conv(*args),
+                       fc.fused_gn_silu_conv(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 16, 32, 64, 160),
+                                   (2, 8, 16, 1280, 1280)], ids=str)
+def test_fused_conv_in_a_cuda_graph(cuda, shape):
+    """A launch captured in a CUDA graph (with the split-K workspace of the
+    second shape allocated in the capture) replays on new inputs copied
+    into the captured ones."""
+    x, a, c, weight, bias, temb, _ = _conv_inputs(cuda, torch.bfloat16,
+                                                  *shape, "temb", seed=19)
+    fc.fused_gn_silu_conv(x, a, c, weight, bias, temb)   # build, maps
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = fc.fused_gn_silu_conv(x, a, c, weight, bias, temb)
+    for seed in (20, 21):
+        x2, a2, c2, _, _, t2, _ = _conv_inputs(cuda, torch.bfloat16, *shape,
+                                               "temb", seed=seed)
+        for dst, src in ((x, x2), (a, a2), (c, c2), (temb, t2)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_conv_matches(y, fc.fused_gn_silu_conv_plain(
+            x, a, c, weight, bias, temb), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_fused_conv_follows_an_in_place_weight_update(cuda):
+    """The re-laid weight is kept per weight version: after an in-place
+    update the kernel reads the new weight."""
+    x, a, c, weight, bias, temb, _ = _conv_inputs(cuda, torch.bfloat16, 2,
+                                                  16, 32, 64, 160, "temb")
+    before = fc.fused_gn_silu_conv(x, a, c, weight, bias, temb)
+    weight.mul_(-0.5)
+    after = fc.fused_gn_silu_conv(x, a, c, weight, bias, temb)
+    torch.cuda.synchronize()
+    assert not torch.equal(before, after)
+    _assert_conv_matches(after, fc.fused_gn_silu_conv_plain(
+        x, a, c, weight, bias, temb), torch.bfloat16)
 
 
 @pytest.mark.cuda
