@@ -34,7 +34,12 @@ Phases, each reported on its own lines:
      (GroupNorm -> SiLU -> cuDNN conv -> add), cuDNN's conv alone, the
      weight re-lay and the bound, the wrapper by ten back-to-back calls,
      and all of them summed over the 44 convs of a forward
-     (``phase_fused_conv``);
+     (``phase_fused_conv``); then kernels 1, 3 and 7 at the shapes the
+     stage-3 UNet gives them at 512x512 (``phase_stage3_kernels``: the
+     frozen kernel at 10 / 20 x 4096 / 1024 tokens and at the batch
+     test's UNet batch 8, short-kv at 257 / 256 / 64 keys, the fused conv
+     at the square levels down to 8x8), each against its plain version and
+     timed beside SDPA's forward or the unfused route, and the bound;
   3. one full-width stage-2 UNet forward (512x1024 canvas, one pair,
      CFG-doubled to 2, bf16, random weights) with the kernels and with plain
      attention, compared by the relative L2 error of eps; the same under
@@ -46,6 +51,20 @@ Phases, each reported on its own lines:
      UniPC 3 steps at default routing, DDIM 2 steps under
      PCDMS_FROZEN_MAX=0 PCDMS_SHORTKV=pallas, and DDIM 4 steps with the
      fused UNet), with decode;
+  4b. stage 3 (``phase_stage3``): the 8-channel stage-3 UNet at full width
+     (64x64 latents, CFG batch 2, bf16) through the kernels against plain
+     attention (10 frozen launches), under PCDMS_SHORTKV=pallas (22
+     short-kv launches) and with the fused convs against the unfused
+     forward (44 launches); then ``stage3_generate`` (UniPC 3 steps, 4
+     samples, decode);
+  4c. stage 1 (``phase_stage1``): the full PriorConfig() (about 1.0B
+     parameters, f32, TF32 off) through ``stage1_generate``, 20 UnCLIP
+     steps at batch 2, finite and the same bits for the same generator,
+     one run profiled;
+     the prior cut to 2 layers at full width on the card against the CPU;
+  4d. ``cascade_generate`` at full width for one pair (``phase_cascade``):
+     the prior 20 steps, stages 2 and 3 at UniPC 3 steps, 75 frozen
+     launches, seconds per stage;
   5. the backward kernels (LSE forward, dq, dk/dv) against their plain
      versions at the training shapes and at ragged ones on both sides of
      the block and stage sizes (bf16, one f32 spot check; the bf16 dq and
@@ -72,7 +91,13 @@ Phases, each reported on its own lines:
      best of 4, batch 2) with host selection and with ``--device_select``
      (the same files), then train mode (CLIP ViT-H) under
      PCDMS_SHORTKV=pallas, where the short-kv kernel runs at head_dim 64
-     and 80.
+     and 80;
+ 10. the reference protocol chained through the disk (``phase_protocol``)
+     on 2 synthetic pairs: ``cli/stage1_batchtest.main`` (CLIP ViT-H and
+     the prior) writes the .npy embeddings, ``cli/stage2_batchtest.main
+     --prior_embeds_dir`` reads them, ``cli/stage3_batchtest.main
+     --gen_dir`` refines stage 2's PNGs (UniPC 20, best of 4) with host and
+     with device selection; seconds per pair and peak GiB per CLI.
 Launch counters are reset just before each path runs and read just after.
 
 The last three lines are the card's name and power limit (nvidia-smi), a
@@ -184,6 +209,22 @@ CONV_SHAPES = [
     (16, 32, 640, 1280, 1), (16, 32, 1280, 1280, 6), (16, 32, 1920, 1280, 1),
     (16, 32, 2560, 1280, 2),
     (8, 16, 1280, 1280, 11), (8, 16, 2560, 1280, 3)]
+# the stage-3 UNet at 512x512 (64x64 latents): the frozen kernel's
+# self-attentions, 4096 tokens with 5 heads and 1024 with 10, at CFG batch 2
+# and at the batch test's UNet batch 8 (one pair, best of 4, CFG-doubled)
+STAGE3_PATH_SHAPES = [(10, 4096, 4096), (20, 1024, 1024), (40, 4096, 4096),
+                      (80, 1024, 1024)]
+# its short-kv calls at CFG batch 2: the 257-token cross-attention on the
+# conditional half at the four levels, the 16x16 level's and the 8x8 mid
+# block's self-attention
+STAGE3_SHORTKV_SHAPES = [(5, 4096, 257), (10, 1024, 257), (20, 256, 257),
+                         (20, 64, 257), (40, 256, 256), (40, 64, 64)]
+# its 44 resnet convs: the stage-2 UNet's at square levels
+STAGE3_CONV_SHAPES = [(h, h, cin, cout, count)
+                      for h, _, cin, cout, count in CONV_SHAPES]
+# the prior cut to 2 layers at full width, f32 with TF32 off, card vs CPU
+# (relative L2): the two differ only in the order of f32 sums
+BAR_PRIOR_REL_L2 = 1e-4
 # fused conv vs its plain version: bf16 max abs error <= 1e-2 x max|plain|
 # (one bf16 ulp after another summation order) and relative L2 <= 5e-3
 # (dropping one of the 9 taps moves it by about 1/3); f32 max abs error
@@ -512,9 +553,12 @@ def phase_clip(fa, dev):
     torch.cuda.empty_cache()
 
 
-def phase_fused_conv(fc):
+def phase_fused_conv(fc, conv_shapes=CONV_SHAPES, label="unet",
+                     edges=True):
     """The fused conv kernel vs its plain version at the 14 conv shapes of
-    the full-width UNet (bf16, in the mode the UNet uses there), mode 0 and
+    the full-width UNet (``conv_shapes``: the stage-2 UNet's by default;
+    ``label`` names the UNet; ``edges=False`` leaves out what follows the
+    UNet shapes) (bf16, in the mode the UNet uses there), mode 0 and
     apply_act=False at level 0, one f32 case, and shapes that are ragged,
     split-K, smaller than the kernel's 8 x 16 tile, cut by the image border
     or with Cin not a multiple of 64. Each UNet shape is timed by device
@@ -623,9 +667,9 @@ def phase_fused_conv(fc):
               f"split={t['split']}", flush=True)
         return t
 
-    for h, w, cin, cout, count in CONV_SHAPES:
+    for h, w, cin, cout, count in conv_shapes:
         mode = "residual" if cin == cout else "temb"
-        *operands, err = check("unet", h, w, cin, cout, mode, bf16)
+        *operands, err = check(label, h, w, cin, cout, mode, bf16)
         t = timed(*operands)
         del operands
         for key in ("ms", "wrapper_ms", "unfused_ms", "library_ms",
@@ -637,12 +681,15 @@ def phase_fused_conv(fc):
             record = dict(max_abs_err=err, **{k: t[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "unfused_ms", "wrapper_ms")})
-    print("[conv] the 44 convs of one UNet forward, summed (ms; kernel, "
-          "unfused route, cuDNN, GroupNorm statistics by device time, "
-          "wrapper host-bound): "
+    print(f"[conv] the {sum(c[-1] for c in conv_shapes)} convs of one "
+          f"{label} forward, summed (ms; kernel, unfused route, cuDNN, "
+          "GroupNorm statistics by device time, wrapper host-bound): "
           + " ".join(f"{k}={v:.4f}" for k, v in totals.items())
           + f"; bound / kernel = {totals['bound_ms'] / totals['ms']:.1%}",
           flush=True)
+    if not edges:
+        torch.cuda.empty_cache()
+        return dict(record, unet_shapes=shapes, sums_44=totals)
     # level 0 at the batch test's UNet batch 16, where the device is the
     # limit
     *operands, _ = check("batch16", 64, 128, 320, 320, "residual", bf16, b=16)
@@ -897,20 +944,7 @@ def phase_pipeline(fa, models, dev):
     dino = torch.randn((1, 257, 1536), generator=gen, device=dev)
     emb = torch.randn((1, 1, 1024), generator=gen, device=dev)
 
-    unet_ms = []
-
-    def pre(*_):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        unet_ms.append([ev])
-
-    def post(*_):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        unet_ms[-1].append(ev)
-
-    hooks = [models["unet"].register_forward_pre_hook(pre),
-             models["unet"].register_forward_hook(post)]
+    unet_ms, unhook = _step_timer(models["unet"])
     launches = {}
     unet = models["unet"]
     runs = [("ddim", 4, {}, False), ("unipc", 3, {}, False),
@@ -919,8 +953,7 @@ def phase_pipeline(fa, models, dev):
             ("ddim", 4, {}, True)]
     try:
         for scheduler, steps, env, fused in runs:
-            saved = {k: os.environ.get(k) for k in env}
-            os.environ.update(env)
+            restore = _with_env(env)
             unet.cfg = dataclasses.replace(unet.cfg, fused_conv=fused)
             unet_ms.clear()
             torch.cuda.reset_peak_memory_stats()
@@ -938,11 +971,7 @@ def phase_pipeline(fa, models, dev):
                 counts = dict(fa.LAUNCHES)
             finally:
                 unet.cfg = dataclasses.replace(unet.cfg, fused_conv=False)
-                for k, v in saved.items():
-                    if v is None:
-                        os.environ.pop(k, None)
-                    else:
-                        os.environ[k] = v
+                restore()
             step_s = sum(a.elapsed_time(b) for a, b in unet_ms) / 1e3 / steps
             peak = torch.cuda.max_memory_allocated() / 2**30
             ok = (tuple(images.shape) == (1, 512, 1024, 3)
@@ -974,8 +1003,7 @@ def phase_pipeline(fa, models, dev):
                 if c:
                     launches.setdefault(name, c)
     finally:
-        for h in hooks:
-            h.remove()
+        unhook()
     for name in ("flash_frozen", "flash_online", "flash_shortkv",
                  "fused_gn_silu_conv"):
         if not launches.get(name):
@@ -1357,14 +1385,16 @@ def phase_cli():
 
 
 def _batchtest_dataset(root):
-    """3 synthetic 512x512 images with pose renders in the DeepFashion
-    layout, 2 pairs as test and train pair lists, and random stage-1
-    embeddings (1024-d) for the test pairs."""
+    """3 synthetic 512x512 images with pose renders and normalised pose
+    keypoints in the DeepFashion layout, 2 pairs as test and train pair
+    lists, and random stage-1 embeddings (1024-d) for the test pairs."""
     import numpy as np
     from PIL import Image
+    from pcdms_tpu_torch.pose.keypoints import write_pose_txt
     rng = np.random.default_rng(SEED)
     names = ["im0", "im1", "im2"]
-    for sub in ("train_all_png", "openpose_all_img", "prior"):
+    for sub in ("train_all_png", "openpose_all_img", "normalized_pose_txt",
+                "prior"):
         os.makedirs(os.path.join(root, sub))
     yy, xx = np.mgrid[0:512, 0:512] / 512.0
     for i, name in enumerate(names):
@@ -1378,6 +1408,8 @@ def _batchtest_dataset(root):
         pose = rng.integers(0, 255, (512, 512, 3), dtype=np.uint8)
         Image.fromarray(pose).save(
             os.path.join(root, "openpose_all_img", f"{name}_pose.jpg"))
+        write_pose_txt(os.path.join(root, "normalized_pose_txt",
+                                    f"{name}.txt"), rng.uniform(0, 1, 36))
     pairs = [{"source_image": f"train_all_png/{names[i]}.jpg",
               "target_image": f"train_all_png/{names[i + 1]}.jpg"}
              for i in range(2)]
@@ -1391,6 +1423,36 @@ def _batchtest_dataset(root):
     return [f"{names[i]}_to_{names[i + 1]}.png" for i in range(2)]
 
 
+def _gap_recording(best_of_n, gaps):
+    """``best_of_n`` (the batch tests' host selection) that also appends the
+    SSIM gap between the best and the second candidate to ``gaps``."""
+    import numpy as np
+    from pcdms_tpu_torch.eval.metrics import compare_ssim
+
+    def scored(cands, gt):
+        scores = sorted(compare_ssim(c.astype(np.float32) / 255.0,
+                                     (gt + 1.0) / 2.0) for c in cands)
+        gaps.append(scores[-1] - scores[-2])
+        return best_of_n(cands, gt)
+    return scored
+
+
+def _check_selection(tag, host_files, dev_files, gaps):
+    """--device_select must write the host selection's bytes, pair by pair,
+    unless the host's best two candidates tie (SSIM gap under 1e-5)."""
+    same = [a == b for a, b in zip(host_files, dev_files)]
+    print(f"[{tag}] --device_select vs host selection: files identical "
+          f"{same}; host best-vs-second SSIM gaps "
+          f"{[f'{g:.2e}' for g in gaps]}", flush=True)
+    for i, ok in enumerate(same):
+        if not ok and gaps[i] >= 1e-5:
+            fail(f"{tag}: --device_select chose another candidate than the "
+                 f"host for pair {i} (SSIM gap {gaps[i]:.2e}, not a tie)")
+        if not ok:
+            print(f"[{tag}] pair {i}: an SSIM tie ({gaps[i]:.2e}) chose "
+                  f"another candidate", flush=True)
+
+
 def phase_batchtest(fa):
     """``cli/stage2_batchtest.main`` at full width with --random_init
     (DINOv2-giant, the SD-2.1 stage-2 UNet, the full VAE) on 2 synthetic
@@ -1402,11 +1464,11 @@ def phase_batchtest(fa):
 
     import pcdms_tpu_torch.pipelines.stage2_inpaint as pipeline
     from pcdms_tpu_torch.cli import stage2_batchtest as cli
-    from pcdms_tpu_torch.eval.metrics import compare_ssim
     from pcdms_tpu_torch.utils.profiling import sync
 
     sampler_s, gaps = [], []
     generate, best_of_n = pipeline.stage2_generate, cli.best_of_n_ssim
+    scored_best_of_n = _gap_recording(best_of_n, gaps)
 
     def timed_generate(*args, **kwargs):
         torch.cuda.synchronize()
@@ -1415,12 +1477,6 @@ def phase_batchtest(fa):
         sync(out)
         sampler_s.append(time.perf_counter() - t0)
         return out
-
-    def scored_best_of_n(cands, gt):
-        scores = sorted(compare_ssim(c.astype(np.float32) / 255.0,
-                                     (gt + 1.0) / 2.0) for c in cands)
-        gaps.append(scores[-1] - scores[-2])
-        return best_of_n(cands, gt)
 
     def run(root, json_name, out, extra):
         sampler_s.clear()
@@ -1465,19 +1521,7 @@ def phase_batchtest(fa):
                                for i in imgs)):
                     fail(f"batch test ({label}): expected one 512x512 "
                          f"non-constant PNG per pair")
-            same = [a == b for a, b in zip(*files.values())]
-            print(f"[batchtest] --device_select vs host selection: files "
-                  f"identical {same}; host best-vs-second SSIM gaps "
-                  f"{[f'{g:.2e}' for g in gaps]}", flush=True)
-            for i, ok in enumerate(same):
-                if not ok and gaps[i] >= 1e-5:
-                    fail(f"--device_select chose another candidate than the "
-                         f"host for pair {i} (SSIM gap {gaps[i]:.2e}, not "
-                         f"a tie)")
-                if not ok:
-                    print(f"[batchtest] pair {i}: an SSIM tie "
-                          f"({gaps[i]:.2e}) chose another candidate",
-                          flush=True)
+            _check_selection("batchtest", *files.values(), gaps)
 
             os.environ["PCDMS_SHORTKV"] = "pallas"
             try:
@@ -1502,6 +1546,458 @@ def phase_batchtest(fa):
     return by_dim
 
 
+def phase_frozen(fa, shapes):
+    """The bf16 frozen kernel vs its plain version at ``shapes`` ((B*H, Lq,
+    Lk), head_dim 64), each timed by device time (``graph_ms``) beside
+    SDPA's forward, the plain version by CUDA events, and the bound.
+    Returns one record a shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    records = []
+    for bh, lq, lk in shapes:
+        q, k, v = (torch.randn((bh, n, 64), generator=gen, device=dev)
+                   .to(torch.bfloat16) for n in (lq, lk, lk))
+        got = fa.flash_frozen(q, k, v, 0.125)
+        want = fa.flash_frozen_plain(q, k, v, 0.125)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        amax = want.float().abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        del got, want
+        ms = graph_ms(lambda: fa.flash_frozen(q, k, v, 0.125))
+        lib_ms = graph_ms(lambda: sdpa(q[None], k[None], v[None],
+                                       scale=0.125))
+        plain_ms = cuda_ms(lambda: fa.flash_frozen_plain(q, k, v, 0.125), 3,
+                           1)
+        b_ms, b_by = bound_ms(bh, lq, lk)
+        line = (f"[frozen] bf16 bh={bh} lq={lq} lk={lk}: max_abs_err="
+                f"{err:.3e} (bar {BAR_REL:g} x max|want| {amax:.3e}); device "
+                f"ms (CUDA graph): kernel {ms:.4f} library {lib_ms:.4f}; "
+                f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) = "
+                f"{b_ms / ms:.1%} of the kernel's")
+        print(line, flush=True)
+        if not finite or not err <= BAR_REL * amax:
+            fail(f"flash_frozen disagrees with its plain version: {line}")
+        records.append(dict(shape=[bh, lq, lk], max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=lib_ms))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return records
+
+
+def phase_stage3_kernels(fa, fc):
+    """Kernels 1, 3 and 7 at the shapes the stage-3 UNet gives them at
+    512x512: the frozen kernel at its four self-attention shapes, the
+    short-kv kernel at Lk 257 / 256 / 64, the fused conv at the 14 conv
+    shapes of the square levels (64x64 down to 8x8, an image narrower than
+    the 16-pixel tile), each against its plain version and timed. Returns
+    {kernel: records}."""
+    return {
+        "flash_frozen": phase_frozen(fa, STAGE3_PATH_SHAPES),
+        "flash_shortkv": phase_shortkv(
+            fa, [(*shape, 64) for shape in STAGE3_SHORTKV_SHAPES]),
+        "fused_gn_silu_conv": phase_fused_conv(fc, STAGE3_CONV_SHAPES,
+                                               "stage3", edges=False)}
+
+
+def build_stage3_models(dev):
+    """The stage-3 UNet (8 channels, SD-2.1 widths), the full VAE and the
+    image projection, random weights from the seed, bf16."""
+    from pcdms_tpu_torch.models.projections import ImageProjModel
+    from pcdms_tpu_torch.models.unet2d import (
+        UNet2DConditionModel, stage3_unet_config,
+    )
+    from pcdms_tpu_torch.models.vae import AutoencoderKL
+    torch.manual_seed(SEED + 20)
+    with torch.device(dev):
+        models = {"unet": UNet2DConditionModel(stage3_unet_config()),
+                  "vae": AutoencoderKL(), "image_proj": ImageProjModel()}
+    return {k: m.to(torch.bfloat16).eval() for k, m in models.items()}
+
+
+def _with_env(env):
+    """Set ``env`` in os.environ; returns a function that restores it."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+
+    def restore():
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return restore
+
+
+def _step_timer(unet):
+    """CUDA events around every forward of ``unet``: returns (the list of
+    [start, end] event pairs, a function that removes the hooks)."""
+    pairs = []
+
+    def pre(*_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        pairs.append([ev])
+
+    def post(*_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        pairs[-1].append(ev)
+
+    hooks = [unet.register_forward_pre_hook(pre),
+             unet.register_forward_hook(post)]
+    return pairs, lambda: [h.remove() for h in hooks]
+
+
+def phase_stage3(fa, models, dev):
+    """The stage-3 UNet at full width (512x512: 64x64 latents, one image
+    CFG-doubled to 2, bf16): eps through the kernels against plain attention
+    (10 frozen launches), the same under PCDMS_SHORTKV=pallas (22 short-kv
+    launches), and with every resnet conv fused against the unfused forward
+    (44 launches); then ``stage3_generate`` (UniPC 3 steps, 4 samples,
+    decode). Returns the launches of these runs, summed."""
+    from pcdms_tpu_torch.pipelines.stage3_refine import stage3_generate
+    unet = models["unet"]
+    base = unet.cfg
+    n_params = sum(p.numel() for p in unet.parameters())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    sample, ctx = rand(2, 64, 64, 8), rand(2, 257, 1024)
+    ctx[:1] = 0
+    ts = torch.tensor([500, 500], device=dev)
+
+    def forward():
+        return unet(sample, ts, ctx, zero_ctx_prefix=1)
+
+    def run(env=None, **changes):
+        restore = _with_env(env or {})
+        unet.cfg = dataclasses.replace(base, **changes)
+        try:
+            fa.reset_launches()
+            with torch.inference_mode():
+                eps = forward()
+                torch.cuda.synchronize()
+                counts = {n: c for n, c in fa.LAUNCHES.items() if c}
+                by_dim = dict(fa.SHORTKV_LAUNCHES)
+                ms = cuda_ms(forward, 3, 1)
+        finally:
+            unet.cfg = base
+            restore()
+        return eps, counts, ms, by_dim
+
+    eps_k, l_k, ms_k, _ = run()
+    eps_p, _, ms_p, _ = run(use_flash=False)
+    eps_s, l_s, ms_s, by_dim = run({"PCDMS_SHORTKV": "pallas"})
+    eps_f, l_f, ms_f, _ = run(fused_conv=True)
+    checks = [
+        ("kernels vs plain attention", eps_k, eps_p, BAR_UNET_REL_L2, l_k,
+         {"flash_frozen": 10}, ms_k),
+        ("PCDMS_SHORTKV=pallas vs plain attention", eps_s, eps_p,
+         BAR_UNET_REL_L2, l_s, {"flash_frozen": 10, "flash_shortkv": 22},
+         ms_s),
+        ("fused_conv=True vs False", eps_f, eps_k, BAR_FUSED_UNET_REL_L2,
+         l_f, {"flash_frozen": 10, "fused_gn_silu_conv": 44}, ms_f)]
+    print(f"[stage3] UNet {n_params / 1e6:.1f}M parameters, 8 channels, "
+          f"64x64 latents batch 2 bf16; forward ms (CUDA events, 3 calls): "
+          f"plain attention {ms_p:.2f}", flush=True)
+    for label, got, want, bar, counts, expect, ms in checks:
+        rel = _rel_l2(got, want)
+        print(f"[stage3] {label}: eps rel_l2 = {rel:.3e} (bar {bar:g}); "
+              f"launches {counts}; forward_ms={ms:.2f}", flush=True)
+        if not torch.isfinite(got).all() or not rel <= bar:
+            fail(f"stage-3 UNet eps, {label}: above the bar")
+        if counts != expect:
+            fail(f"stage-3 UNet, {label}: expected launches {expect}, got "
+                 f"{counts}")
+    if by_dim[64] != 22:
+        fail(f"expected 22 short-kv launches at head_dim 64, got {by_dim}")
+    del eps_k, eps_p, eps_s, eps_f
+
+    gen_image = torch.rand((1, 512, 512, 3), generator=gen,
+                           device=dev) * 2 - 1
+    dino = torch.randn((1, 257, 1536), generator=gen, device=dev)
+    steps, samples = 3, 4
+    pairs, unhook = _step_timer(unet)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fa.reset_launches()
+        images = stage3_generate(
+            models, gen_image, dino,
+            generator=torch.Generator(device=dev).manual_seed(SEED),
+            num_steps=steps, scheduler="unipc", guidance_scale=2.0,
+            num_samples=samples, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {n: c for n, c in fa.LAUNCHES.items() if c}
+    finally:
+        unhook()
+    step_s = sum(a.elapsed_time(b) for a, b in pairs) / 1e3 / steps
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[stage3] stage3_generate UniPC-{steps} 512x512 1 image x "
+          f"{samples} samples (UNet batch {2 * samples}) CFG 2.0 bf16: "
+          f"{seconds:.2f} s total, {step_s:.4f} s per denoise step (UNet, "
+          f"CUDA events), peak {peak:.2f} GiB, images min "
+          f"{images.min().item():.3f} max {images.max().item():.3f}, "
+          f"launches {counts}", flush=True)
+    if (tuple(images.shape) != (samples, 512, 512, 3)
+            or not torch.isfinite(images).all()):
+        fail(f"stage3_generate: images not finite or of shape "
+             f"{tuple(images.shape)}")
+    if counts != {"flash_frozen": 10 * steps}:
+        fail(f"stage3_generate: expected {10 * steps} frozen launches, got "
+             f"{counts}")
+    total = {}
+    for c in (l_k, l_s, l_f, counts):
+        _add(total, c)
+    return total
+
+
+def _add(total, counts):
+    for name, c in counts.items():
+        total[name] = total.get(name, 0) + c
+    return total
+
+
+def phase_stage1(dev):
+    """The stage-1 prior at the full PriorConfig() (20 layers, 32 heads of
+    64, d 2048; f32 with TF32 off, random weights from the seed) through
+    ``stage1_generate``: 20 UnCLIP steps at batch 2, finite, of shape (2,
+    1024), the same bits for the same generator; one run profiled. Then the
+    prior cut to 2 layers at full width on the card against the CPU
+    (relative L2 within BAR_PRIOR_REL_L2): no kernel guards the prior's
+    numerics. Returns the full prior."""
+    import numpy as np
+    from pcdms_tpu_torch.models.prior_transformer import (
+        PriorConfig, PriorTransformer,
+    )
+    from pcdms_tpu_torch.pipelines.stage1_prior import stage1_generate
+    torch.manual_seed(SEED + 30)
+    with torch.device(dev):
+        prior = PriorTransformer().eval()
+    n_params = sum(p.numel() for p in prior.parameters())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    s_embed = torch.randn((2, 1024), generator=gen, device=dev)
+    s_pose, t_pose = (torch.rand((2, 36), generator=gen, device=dev)
+                      for _ in range(2))
+
+    def run():
+        return stage1_generate(
+            {"prior": prior}, s_embed, s_pose, t_pose,
+            generator=torch.Generator(device=dev).manual_seed(SEED),
+            num_steps=20, guidance_scale=0.0)
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    second = run()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same = torch.equal(first, second)
+    print(f"[stage1] PriorConfig() {n_params / 1e6:.1f}M parameters f32: "
+          f"stage1_generate 20 UnCLIP steps, batch 2: {seconds:.3f} s "
+          f"({seconds / 20 * 1e3:.2f} ms per step), peak {peak:.2f} GiB; "
+          f"shape {tuple(first.shape)}, std {first.std().item():.4f}, same "
+          f"bits for the same generator: {same}", flush=True)
+    if (tuple(first.shape) != (2, 1024) or not torch.isfinite(first).all()
+            or not same):
+        fail("stage1_generate at the full PriorConfig: not finite, not "
+             "(2, 1024) or not deterministic")
+    # where a step's time goes: the prior reads 4.1 GB of f32 weights a
+    # step, 1.2 ms at the HBM rate
+    profile_kernels(run, "stage1_generate, the full prior, 20 steps, "
+                    "batch 2", top=6)
+
+    cfg2 = dataclasses.replace(PriorConfig(), num_layers=2)
+    torch.manual_seed(SEED + 32)
+    cpu_prior = PriorTransformer(cfg2).eval()
+    card_prior = copy.deepcopy(cpu_prior).to(dev)
+    rng = np.random.default_rng(SEED + 33)
+    inputs = [torch.from_numpy(a) for a in (
+        rng.standard_normal((4, 1024)).astype(np.float32),
+        rng.integers(0, 1000, 4).astype(np.int32),
+        rng.standard_normal((4, 1024)).astype(np.float32),
+        rng.uniform(0, 1, (2, 36)).astype(np.float32),
+        rng.uniform(0, 1, (2, 36)).astype(np.float32))]
+    with torch.inference_mode():
+        want = cpu_prior(*inputs, cfg_zero_cond=True)
+        got = card_prior(*(x.to(dev) for x in inputs),
+                         cfg_zero_cond=True).cpu()
+    rel = _rel_l2(got, want)
+    print(f"[stage1] the prior cut to 2 layers at full width, f32, "
+          f"cfg_zero_cond: card vs CPU rel_l2 = {rel:.3e} (bar "
+          f"{BAR_PRIOR_REL_L2:g})", flush=True)
+    if not torch.isfinite(got).all() or not rel <= BAR_PRIOR_REL_L2:
+        fail("the prior on the card disagrees with the CPU")
+    del cpu_prior, card_prior
+    return prior
+
+
+def phase_cascade(fa, prior, s2_models, s3_models, dev):
+    """``cascade_generate`` at full width for one pair: the prior (f32, 20
+    UnCLIP steps), stages 2 and 3 at UniPC 3 steps, CFG 2.0, bf16; the
+    three outputs' shapes and finiteness, the frozen launches (15 per
+    stage-2 and 10 per stage-3 step), seconds per stage. Returns the
+    launches."""
+    import pcdms_tpu_torch.pipelines.cascade as cascade
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    s_embed = torch.randn((1, 1024), generator=gen, device=dev)
+    s_pose, t_pose = (torch.rand((1, 36), generator=gen, device=dev)
+                      for _ in range(2))
+    canvas = torch.rand((1, 512, 1024, 3), generator=gen, device=dev) * 2 - 1
+    canvas[:, :, 512:] = -1.0
+    pose = torch.rand((1, 512, 1024, 3), generator=gen, device=dev) * 2 - 1
+    dino = torch.randn((1, 257, 1536), generator=gen, device=dev)
+    names = ("stage1_generate", "stage2_generate", "stage3_generate")
+    originals = {name: getattr(cascade, name) for name in names}
+    stage_s = {}
+
+    def timed(name):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            stage_s[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    for name in names:
+        setattr(cascade, name, timed(name))
+    steps = 3
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        out = cascade.cascade_generate(
+            {"prior": prior}, s2_models, s3_models, s_embed, s_pose, t_pose,
+            canvas, pose, dino,
+            generator=torch.Generator(device=dev).manual_seed(SEED),
+            prior_steps=20, inpaint_steps=steps, refine_steps=steps,
+            guidance_scale=2.0, scheduler="unipc",
+            compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {n: c for n, c in fa.LAUNCHES.items() if c}
+    finally:
+        for name in names:
+            setattr(cascade, name, originals[name])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    print(f"[cascade] cascade_generate, one pair: prior 20 steps f32, "
+          f"stages 2 / 3 UniPC-{steps} CFG 2.0 bf16: {seconds:.2f} s total; "
+          f"seconds per stage "
+          + " ".join(f"{k.split('_')[0]}={v:.3f}" for k, v in
+                     stage_s.items())
+          + f"; peak {peak:.2f} GiB; shapes {shapes}; launches {counts}",
+          flush=True)
+    want = {"embeds": (1, 1024), "inpainted": (1, 512, 1024, 3),
+            "refined": (1, 512, 512, 3)}
+    if shapes != want or not all(torch.isfinite(v).all()
+                                 for v in out.values()):
+        fail(f"cascade_generate: expected finite outputs of shapes {want}")
+    if counts != {"flash_frozen": 15 * steps + 10 * steps}:
+        fail(f"cascade_generate: expected {25 * steps} frozen launches "
+             f"(15 + 10 per step), got {counts}")
+    return counts
+
+
+def phase_protocol(fa):
+    """The reference protocol chained through the disk at full width with
+    --random_init, on 2 synthetic 512x512 pairs: ``cli/stage1_batchtest``
+    (CLIP ViT-H and the prior, 20 steps) writes the .npy embeddings,
+    ``cli/stage2_batchtest --prior_embeds_dir`` reads them (UniPC 20, best
+    of 4), ``cli/stage3_batchtest --gen_dir`` refines stage 2's PNGs (UniPC
+    20, best of 4) with host selection and with --device_select (the same
+    files but for SSIM ties). Seconds per pair and peak GiB per CLI."""
+    import numpy as np
+    from PIL import Image
+
+    from pcdms_tpu_torch.cli import (
+        stage1_batchtest, stage2_batchtest, stage3_batchtest,
+    )
+
+    gaps, best_of_n = [], stage3_batchtest.best_of_n_ssim
+
+    def run(label, cli, argv):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        written = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = {n: c for n, c in fa.LAUNCHES.items() if c}
+        print(f"[protocol] {label}: 2 pairs, {wall:.2f} s in main = "
+              f"{wall / 2:.2f} s per pair, peak {peak:.2f} GiB; wrote "
+              f"{[os.path.basename(p) for p in written]}; launches {counts}",
+              flush=True)
+        return written
+
+    stage3_batchtest.best_of_n_ssim = _gap_recording(best_of_n, gaps)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            names = _batchtest_dataset(root)
+            stems = [name.rsplit(".", 1)[0] for name in names]
+            base = ["--json_path", os.path.join(root, "test_pairs.json"),
+                    "--image_root_path", root, "--random_init",
+                    "--batch_size", "2", "--seed", str(SEED),
+                    "--num_inference_steps", "20"]
+            dirs = {k: os.path.join(root, k) for k in ("s1", "s2", "host",
+                                                       "dev")}
+            written = run("stage1_batchtest (CLIP ViT-H, prior 20 steps)",
+                          stage1_batchtest, base + ["--save_path",
+                                                    dirs["s1"]])
+            embeds = [np.load(p) for p in written]
+            with open(os.path.join(dirs["s1"], "a_results.txt")) as f:
+                cosine = float(f.read().split()[-1])
+            print(f"[protocol] stage 1 mean cosine to the target CLIP "
+                  f"embeddings (random weights): {cosine:.4f}", flush=True)
+            if ([os.path.basename(p) for p in written]
+                    != [f"{s}.npy" for s in stems]
+                    or any(e.shape != (1, 1024) or not np.isfinite(e).all()
+                           for e in embeds) or not math.isfinite(cosine)):
+                fail("stage-1 batch test: expected one finite (1, 1024) "
+                     ".npy per pair and a finite cosine")
+            sample = ["--scheduler", "unipc", "--num_images_per_prompt", "4"]
+            written = run("stage2_batchtest --prior_embeds_dir (UniPC 20, "
+                          "best of 4)", stage2_batchtest,
+                          base + sample + ["--save_path", dirs["s2"],
+                                           "--prior_embeds_dir", dirs["s1"]])
+            if [os.path.basename(p) for p in written] != names:
+                fail("stage-2 batch test on stage 1's .npy: expected one "
+                     "PNG per pair")
+            files = {}
+            for label, extra in (("host", []), ("dev", ["--device_select"])):
+                written = run(f"stage3_batchtest --gen_dir ({label} "
+                              f"selection, UniPC 20, best of 4)",
+                              stage3_batchtest,
+                              base + sample + extra + [
+                                  "--save_path", dirs[label], "--gen_dir",
+                                  dirs["s2"]])
+                imgs = [np.asarray(Image.open(p)) for p in written]
+                if ([os.path.basename(p) for p in written] != names
+                        or any(i.shape != (512, 512, 3) or i.std() == 0
+                               for i in imgs)):
+                    fail(f"stage-3 batch test ({label}): expected one "
+                         f"512x512 non-constant PNG per pair")
+                files[label] = [open(p, "rb").read() for p in written]
+            _check_selection("protocol", files["host"], files["dev"], gaps)
+    finally:
+        stage3_batchtest.best_of_n_ssim = best_of_n
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1522,10 +2018,16 @@ def main() -> int:
     records = phase_kernels(fa, fb)
     phase_clip(fa, dev)
     records["fused_gn_silu_conv"] = phase_fused_conv(fc)
+    for name, recs in phase_stage3_kernels(fa, fc).items():
+        records[name]["stage3_shapes"] = recs
     models = build_models(dev)
     phase_unet(fa, models, dev)
     launches = phase_pipeline(fa, models, dev)
-    del models
+    s3_models = build_stage3_models(dev)
+    _add(launches, phase_stage3(fa, s3_models, dev))
+    prior = phase_stage1(dev)
+    _add(launches, phase_cascade(fa, prior, models, s3_models, dev))
+    del models, s3_models, prior
     gc.collect()
     torch.cuda.empty_cache()
     records.update(phase_bwd_kernels(fb))
@@ -1533,6 +2035,7 @@ def main() -> int:
     launches.update(phase_train(fa, dev))
     phase_cli()
     phase_batchtest(fa)
+    phase_protocol(fa)
     for kernel in KERNELS:
         if not launches.get(kernel):
             fail(f"kernel {kernel} was not launched on its path")

@@ -101,9 +101,10 @@ def compute_dtype_from_args(args) -> torch.dtype:
 
 
 def tiny_configs() -> SimpleNamespace:
-    """Tiny stage-2 geometry for ``--tiny_config`` (the JAX package's
-    ``tiny_configs`` for the parts stage 2 uses): CPU smoke runs of the full
-    CLI paths without SD-2.1-scale models."""
+    """Tiny geometry for ``--tiny_config`` (the JAX package's
+    ``tiny_configs``): CPU smoke runs of the full CLI paths without
+    SD-2.1-scale models."""
+    from pcdms_tpu_torch.models.prior_transformer import PriorConfig
     from pcdms_tpu_torch.models.unet2d import UNetConfig
     from pcdms_tpu_torch.models.vae import VAEConfig
     from pcdms_tpu_torch.models.vit import ViTConfig
@@ -116,6 +117,8 @@ def tiny_configs() -> SimpleNamespace:
             norm_groups=4, use_flash=False)
 
     return SimpleNamespace(
+        prior=PriorConfig(num_heads=2, head_dim=8, num_layers=2,
+                          embedding_dim=16, pose_hidden=8),
         clip=ViTConfig(hidden_size=24, num_layers=2, num_heads=2,
                        patch_size=32, projection_dim=16, pre_layernorm=True,
                        patch_bias=False, use_flash=False),
@@ -124,6 +127,9 @@ def tiny_configs() -> SimpleNamespace:
                        pre_layernorm=False, use_layer_scale=True,
                        use_swiglu=True, patch_bias=True, use_flash=False),
         unet2=unet2,
+        unet3=UNetConfig(in_channels=8, block_out_channels=(8, 16, 16, 16),
+                         layers_per_block=1, cross_attention_dim=16,
+                         head_dim=8, norm_groups=4, use_flash=False),
         vae=VAEConfig(block_out_channels=(4, 8, 8, 8), layers_per_block=1,
                       norm_groups=2),
         image_proj_kwargs=dict(in_dim=24, hidden_dim=16, out_dim=16),
@@ -131,6 +137,45 @@ def tiny_configs() -> SimpleNamespace:
                               block_out_channels=(4, 4, 4, 4)),
         dino_tokens=5, dino_dim=24, clip_dim=16,
     )
+
+
+def check_weight_flags(args, pretrained_flags, frozen_what: str) -> None:
+    """Raise for the flags that load pretrained weights (not ported yet),
+    and when neither ``--random_init`` nor ``--train_ckpt_dir`` is given;
+    exit when ``--train_ckpt_dir`` comes without its ``--frozen_dir``."""
+    given = [f"--{f}" for f in pretrained_flags if getattr(args, f)]
+    if given or not (args.random_init or args.train_ckpt_dir):
+        raise NotImplementedError(
+            f"loading pretrained weights ({', '.join(given) or 'the default'}"
+            f") is not ported yet (ROADMAP item 18): pass --random_init, or "
+            f"--train_ckpt_dir with --frozen_dir")
+    if args.train_ckpt_dir and not args.frozen_dir:
+        raise SystemExit(f"--train_ckpt_dir needs --frozen_dir ({frozen_what}"
+                         f")")
+
+
+def build_cli_models(args, trainable, frozen, device):
+    """{name: module} on ``device``: ``trainable`` from the checkpoint in
+    ``args.train_ckpt_dir`` (the EMA shadow if the run kept one) and
+    ``frozen`` from the bundle in ``args.frozen_dir``, or all of them drawn
+    from ``args.seed`` in that order (``--random_init``). Both map a name
+    to a function that makes the module."""
+    from pcdms_tpu_torch.train.frozen import (
+        load_frozen_modules, load_trained_params,
+    )
+    with torch.device(device):
+        if args.train_ckpt_dir:
+            trained = load_trained_params(args.train_ckpt_dir)
+            models = {}
+            for name, build in trainable.items():
+                models[name] = build()
+                models[name].load_state_dict(trained[name])
+            models.update(load_frozen_modules(args.frozen_dir, frozen))
+        else:
+            torch.manual_seed(args.seed)
+            models = {name: build()
+                      for name, build in {**trainable, **frozen}.items()}
+    return {k: m.eval() for k, m in models.items()}
 
 
 def per_item_latents(seed, global_indices, num_samples, shape):
@@ -191,3 +236,23 @@ def device_select_best(images, gt_u8, num_samples: int):
                   gt01).reshape(num_samples, n)
     best = torch.argmax(scores, dim=0)
     return cands[best, torch.arange(n, device=images.device)], best
+
+
+def queue_readback(t: torch.Tensor):
+    """Queue a copy of ``t`` to the host behind the work that makes it; ->
+    (host tensor, event or None). ``wait_readback`` blocks on the event
+    only, so later batches' work on the stream keeps running meanwhile."""
+    if not t.is_cuda:
+        return t.clone(), None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def wait_readback(host, event) -> np.ndarray:
+    """The host copy of ``queue_readback``, once it has landed."""
+    if event is not None:
+        event.synchronize()
+    return host.numpy()

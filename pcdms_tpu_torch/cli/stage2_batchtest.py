@@ -33,9 +33,11 @@ import numpy as np
 import torch
 
 from pcdms_tpu_torch.cli.common import (
-    device_select_best, device_uint8, per_item_latents, save_images,
-    setup_logging, tiny_configs,
+    build_cli_models, check_weight_flags, device_select_best, device_uint8,
+    per_item_latents, queue_readback, save_images, setup_logging,
+    tiny_configs, wait_readback,
 )
+from pcdms_tpu_torch.data.datasets import pair_stem
 from pcdms_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("pcdms_tpu_torch.stage2_batchtest")
@@ -104,15 +106,8 @@ def parse_args(argv=None):
 
 def check_supported(args) -> None:
     """Raise for flags whose code is not ported yet."""
-    given = [f"--{f}" for f in _PRETRAINED_FLAGS if getattr(args, f)]
-    if given or not (args.random_init or args.train_ckpt_dir):
-        raise NotImplementedError(
-            f"loading pretrained weights ({', '.join(given) or 'the default'}"
-            f") is not ported yet (ROADMAP item 18): pass --random_init, or "
-            f"--train_ckpt_dir with --frozen_dir")
-    if args.train_ckpt_dir and not args.frozen_dir:
-        raise SystemExit("--train_ckpt_dir needs --frozen_dir (the VAE / "
-                         "DINOv2 the run trained against)")
+    check_weight_flags(args, _PRETRAINED_FLAGS,
+                       "the VAE / DINOv2 the run trained against")
     if args.encoder_cache_interval > 1:
         raise NotImplementedError("--encoder_cache_interval > 1 (encoder "
                                   "propagation) is not ported yet")
@@ -146,9 +141,6 @@ def build_models(args, train_mode: bool, device):
     from pcdms_tpu_torch.models.vit import (
         VisionTransformer, clip_vit_h14_config, dinov2_giant_config,
     )
-    from pcdms_tpu_torch.train.frozen import (
-        load_frozen_modules, load_trained_params,
-    )
 
     with_class = not args.simple_variant
     if args.tiny_config:
@@ -170,44 +162,10 @@ def build_models(args, train_mode: bool, device):
               "dino": lambda: VisionTransformer(dino_cfg)}
     if train_mode:
         frozen["clip"] = lambda: VisionTransformer(clip_cfg)
-    with torch.device(device):
-        if args.train_ckpt_dir:
-            trained = load_trained_params(args.train_ckpt_dir)
-            models = {}
-            for name, build in trainable.items():
-                models[name] = build()
-                models[name].load_state_dict(trained[name])
-            models.update(load_frozen_modules(args.frozen_dir, frozen))
-        else:
-            torch.manual_seed(args.seed)
-            models = {name: build() for name, build in trainable.items()}
-            models["vae"] = frozen["vae"]()
-            models["dino"] = frozen["dino"]()
-            if train_mode:
-                torch.manual_seed(args.seed)
-                models["clip"] = frozen["clip"]()
-    models = {k: m.to(torch.bfloat16).eval() for k, m in models.items()}
+    models = {k: m.to(torch.bfloat16) for k, m in build_cli_models(
+        args, trainable, frozen, device).items()}
     dino, clip = models.pop("dino"), models.pop("clip", None)
     return models, dino, clip
-
-
-def _readback(t: torch.Tensor):
-    """Queue a copy of ``t`` to the host behind the work that makes it; ->
-    (host tensor, event or None). ``_wait`` blocks on the event only, so
-    later batches' work on the stream keeps running meanwhile."""
-    if not t.is_cuda:
-        return t.clone(), None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
-
-
-def _wait(host, event) -> np.ndarray:
-    if event is not None:
-        event.synchronize()
-    return host.numpy()
 
 
 def main(argv=None):
@@ -239,7 +197,7 @@ def main(argv=None):
     def finish(pending):
         """Wait for one batch's readback, select, write its PNGs."""
         chunk, readback, t_imgs, start, n = pending
-        images = _wait(*readback)
+        images = wait_readback(*readback)
         w = args.img_width
         for i, item in enumerate(chunk):
             if args.device_select:
@@ -247,9 +205,7 @@ def main(argv=None):
             else:
                 cands = images[i::n][:, :, w:, :]       # right halves
                 best_img = cands[best_of_n_ssim(cands, to_neg1_1(t_imgs[i]))]
-            s = os.path.basename(item["source_image"]).rsplit(".", 1)[0]
-            t = os.path.basename(item["target_image"]).rsplit(".", 1)[0]
-            path = os.path.join(args.save_path, f"{s}_to_{t}.png")
+            path = os.path.join(args.save_path, f"{pair_stem(item)}.png")
             save_images(best_img[None], [path])
             written.append(path)
         logger.info("processed %d/%d", min(start + bs, len(items)),
@@ -283,11 +239,9 @@ def main(argv=None):
             elif args.prior_embeds_dir:
                 embeds = []
                 for item in chunk:
-                    s = os.path.basename(item["source_image"]).rsplit(".", 1)[0]
-                    t = os.path.basename(item["target_image"]).rsplit(".", 1)[0]
                     embeds.append(np.load(os.path.join(
-                        args.prior_embeds_dir, f"{s}_to_{t}.npy")).reshape(
-                            1, -1))
+                        args.prior_embeds_dir,
+                        f"{pair_stem(item)}.npy")).reshape(1, -1))
                 embeds = np.stack(embeds).astype(np.float32)
             else:
                 raise SystemExit("need --prior_embeds_dir or "
@@ -312,7 +266,7 @@ def main(argv=None):
                     images, gt_u8, args.num_images_per_prompt)
             else:
                 dev_images = device_uint8(images)
-            readback = _readback(dev_images)
+            readback = queue_readback(dev_images)
         if args.sequential:
             finish((chunk, readback, t_imgs, start, n))
             continue

@@ -3,8 +3,9 @@
 The inverse of ``pcdms_tpu/compat/torch_convert.py``: turns the JAX
 package's parameter pytrees (leaves as numpy arrays) into diffusers-named
 state dicts for ``UNet2DConditionModel``, ``AutoencoderKL``,
-``ImageProjModel``, ``PoseCondEmbedding`` and the ``VisionTransformer``
-encoders (HuggingFace names):
+``ImageProjModel``, ``PoseCondEmbedding``, ``PriorTransformer`` (the
+reference prior's names) and the ``VisionTransformer`` encoders
+(HuggingFace names):
 
   * Linear kernel (in, out) -> weight (out, in)
   * Conv kernel HWIO        -> weight OIHW
@@ -166,6 +167,27 @@ def pose_proj_state_dict(p) -> StateDict:
     for i, block in enumerate(p["blocks"]):
         _conv(sd, f"blocks.{i}", block)
     _conv(sd, "conv_out", p["conv_out"])
+    return sd
+
+
+def prior_state_dict(p) -> StateDict:
+    """``prior_init`` pytree -> ``PriorTransformer`` state dict."""
+    sd: StateDict = {}
+    for name in ("pose_encoder", "pose_encoder1"):
+        mlp = p[name]
+        _linear(sd, f"{name}.net.0", mlp["fc1"])
+        _norm(sd, f"{name}.net.3", mlp["norm1"])
+        _linear(sd, f"{name}.net.4", mlp["fc2"])
+        _norm(sd, f"{name}.net.6", mlp["norm2"])
+    _timestep_embedding(sd, "time_embedding", p["time_embedding"])
+    for name in ("proj_in", "embedding_proj", "encoder_hidden_states_proj",
+                 "encoder_hidden_states_proj1", "proj_to_clip_embeddings"):
+        _linear(sd, name, p[name])
+    for name in ("positional_embedding", "prd_embedding"):
+        sd[name] = np.asarray(p[name])
+    for i, block in enumerate(p["blocks"]):
+        _transformer_block(sd, f"transformer_blocks.{i}", block)
+    _norm(sd, "norm_out", p["norm_out"])
     return sd
 
 

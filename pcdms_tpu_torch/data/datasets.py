@@ -1,12 +1,21 @@
 """The DeepFashion pair list (the port's own copy of ``PairList`` from
 ``pcdms_tpu/data/datasets.py``): a JSON list of {"source_image": ...,
-"target_image": ...} records and the reference's directory layout."""
+"target_image": ...} records and the reference's directory layout; and
+the stage-3 dataset's paths to the stage-2 outputs."""
 
 from __future__ import annotations
 
 import json
 import os
 from typing import Dict, List
+
+
+def pair_stem(item) -> str:
+    """``{src}_to_{tgt}``: the file stem of a pair's outputs (the stage-1
+    ``.npy``, the stage-2 and stage-3 PNGs)."""
+    s = os.path.basename(item["source_image"]).rsplit(".", 1)[0]
+    t = os.path.basename(item["target_image"]).rsplit(".", 1)[0]
+    return f"{s}_to_{t}"
 
 
 class PairList:
@@ -43,3 +52,29 @@ class PairList:
         """Every ``process_count``-th pair from ``process_index``."""
         return PairList(self.pairs[process_index::process_count],
                         self.image_root)
+
+
+class Stage3Dataset:
+    """The stage-3 pairs with their stage-2 images
+    (``{gen_dir}/{src}_to_{tgt}.png``). The batch test uses ``gen_path``;
+    the training examples wait for the stage-3 trainer (ROADMAP item
+    19b)."""
+
+    def __init__(self, pairs: PairList, gen_dir: str, size=(512, 512),
+                 gen_drop_rate=0.0, seed=0, embed_refs: bool = False):
+        self.pairs = pairs
+        self.gen_dir = gen_dir
+        self.size = size
+        self.gen_drop_rate = gen_drop_rate
+        self.seed = seed
+        self.embed_refs = embed_refs
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def gen_path(self, item) -> str:
+        return os.path.join(self.gen_dir, f"{pair_stem(item)}.png")
+
+    def _example(self, idx, rng):
+        raise NotImplementedError("stage-3 training examples are not ported "
+                                  "yet (ROADMAP item 19b)")

@@ -1,8 +1,9 @@
-"""Host SSIM of the batch-test protocol (the port's own copy of
-``compare_ssim`` / ``_ssim_single`` from ``pcdms_tpu/eval/metrics.py``):
+"""Host metrics of the batch-test protocol (the port's own copies from
+``pcdms_tpu/eval/metrics.py``): ``compare_ssim`` / ``_ssim_single``, with
 skimage ``structural_similarity`` semantics, per-channel 2D windows
 averaged over channels, K1 = 0.01 / K2 = 0.03, an edge crop of
-(win_size - 1) // 2, gaussian truncate 3.5, in f64."""
+(win_size - 1) // 2, gaussian truncate 3.5, in f64; and the stage-1
+batch test's ``cosine_similarity``."""
 
 from __future__ import annotations
 
@@ -67,3 +68,13 @@ def compare_ssim(img_true: np.ndarray, img_test: np.ndarray,
             for c in range(img_true.shape[-1])]))
     return _ssim_single(img_true, img_test, data_range, win_size,
                         gaussian_weights, sigma, use_sample_covariance)
+
+
+def cosine_similarity(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Row-wise cosine similarity in f64 (the stage-1 batch test's
+    score)."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    num = np.sum(a * b, axis=-1)
+    den = np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1)
+    return num / np.maximum(den, 1e-12)

@@ -2,14 +2,17 @@
 
 Plain Python loops over the precomputed per-step tables; the model is
 ``model_eps_fn(x, t) -> eps`` with an integer timestep t. The per-step
-scalars are float32, as the JAX package's scan inputs are.
+scalars are float32, as the JAX package's scan inputs are. Also the
+options check the stage-2 and stage-3 samplers share, and the per-row noise
+streams of ``seeds=``.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
 from pcdms_tpu_torch.diffusion.ddim import ddim_step_tables
 from pcdms_tpu_torch.diffusion.schedules import NoiseSchedule
@@ -44,3 +47,43 @@ def unipc_sample_loop(schedule: NoiseSchedule, model_eps_fn: Callable,
 
 
 SAMPLERS = {"ddim": ddim_sample_loop, "unipc": unipc_sample_loop}
+
+
+def check_sampler_options(scheduler: str, eta: float,
+                          encoder_cache_interval: int, unet_cfg) -> None:
+    """Raise for the sampler options that are not ported yet."""
+    if encoder_cache_interval > 1:
+        raise NotImplementedError("encoder_cache_interval > 1 (encoder "
+                                  "propagation) is not ported yet")
+    if scheduler not in SAMPLERS:
+        raise NotImplementedError(f"scheduler={scheduler!r} is not ported "
+                                  f"yet (have {sorted(SAMPLERS)})")
+    if eta > 0.0:
+        raise NotImplementedError("eta > 0 (ancestral DDIM) is not ported "
+                                  "yet")
+    if unet_cfg.time_cond_proj_dim is not None:
+        raise NotImplementedError("w-conditioned (LCM) UNets are not "
+                                  "ported yet")
+
+
+def row_generators(seeds: Sequence[int], tag: int,
+                   device) -> list:
+    """One torch generator per row, seeded from (tag, seed) through numpy's
+    ``SeedSequence``: a row's draws depend on its own seed and the stage's
+    tag only, never on the batch it runs in. torch streams, not the JAX
+    package's threefry ones: the same seed draws other numbers there."""
+    out = []
+    for seed in np.asarray(seeds).reshape(-1):
+        state = np.random.SeedSequence([tag, int(seed)]).generate_state(
+            2, np.uint32)
+        out.append(torch.Generator(device=device).manual_seed(
+            int(state[0]) << 32 | int(state[1])))
+    return out
+
+
+def row_randn(generators: Sequence[torch.Generator], shape,
+              device) -> torch.Tensor:
+    """(len(generators),) + shape f32 normals, row i from generator i."""
+    return torch.stack([torch.randn(tuple(shape), generator=g,
+                                    dtype=torch.float32, device=device)
+                        for g in generators])

@@ -19,14 +19,15 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 from pcdms_tpu_torch.diffusion.guidance import apply_cfg
 from pcdms_tpu_torch.diffusion.schedules import sd21_schedule
-from pcdms_tpu_torch.pipelines.sampling import SAMPLERS
+from pcdms_tpu_torch.pipelines.sampling import (
+    SAMPLERS, check_sampler_options,
+)
 from pcdms_tpu_torch.utils.device import resolve_device
-from pcdms_tpu_torch.utils.tree import cast_tree
+from pcdms_tpu_torch.utils.tree import as_tensor, cast_tree
 
 
 def build_half_mask(batch: int, latent_h: int, latent_w: int, dtype,
@@ -37,14 +38,6 @@ def build_half_mask(batch: int, latent_h: int, latent_w: int, dtype,
                        device=device)
     mask[:, :, :half] = 1
     return mask
-
-
-def _as_tensor(x, device):
-    if x is None:
-        return None
-    if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(device)
 
 
 def stage2_generate(models: Dict[str, torch.nn.Module], vae_image, st_pose,
@@ -79,18 +72,8 @@ def stage2_generate(models: Dict[str, torch.nn.Module], vae_image, st_pose,
     f32 images in [-1, 1] (latents if decode=False), sample-major:
     output[i*B + b] is sample i of input b.
     """
-    if encoder_cache_interval > 1:
-        raise NotImplementedError("encoder_cache_interval > 1 (encoder "
-                                  "propagation) is not ported yet")
-    if scheduler not in SAMPLERS:
-        raise NotImplementedError(f"scheduler={scheduler!r} is not ported "
-                                  f"yet (have {sorted(SAMPLERS)})")
-    if eta > 0.0:
-        raise NotImplementedError("eta > 0 (ancestral DDIM) is not ported "
-                                  "yet")
-    if models["unet"].cfg.time_cond_proj_dim is not None:
-        raise NotImplementedError("w-conditioned (LCM) UNets are not "
-                                  "ported yet")
+    check_sampler_options(scheduler, eta, encoder_cache_interval,
+                          models["unet"].cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -100,19 +83,19 @@ def stage2_generate(models: Dict[str, torch.nn.Module], vae_image, st_pose,
 
     with torch.inference_mode():
         m = cast_tree(models, cd, dev)
-        vae_image = _as_tensor(vae_image, dev)
+        vae_image = as_tensor(vae_image, dev)
         b, img_h, img_w, _ = vae_image.shape
         lh, lw = img_h // 8, img_w // 8
 
         # --- conditions (computed once, outside the loop) ---
-        proj_f = m["image_proj"](_as_tensor(dino_features, dev).to(cd))
+        proj_f = m["image_proj"](as_tensor(dino_features, dev).to(cd))
         if pred_t_embed is not None:
-            embed = _as_tensor(pred_t_embed, dev).to(cd)
+            embed = as_tensor(pred_t_embed, dev).to(cd)
             feature_f = torch.cat([proj_f, embed], dim=1)      # (B, 258, D)
             class_labels = embed[:, 0, :]
         else:
             feature_f, class_labels = proj_f, None
-        pose_cond = m["pose_proj"](_as_tensor(st_pose, dev).to(cd))
+        pose_cond = m["pose_proj"](as_tensor(st_pose, dev).to(cd))
         masked_latents = m["vae"].encode(
             vae_image.to(cd),
             generator=None if deterministic_vae else generator).float()
@@ -151,7 +134,7 @@ def stage2_generate(models: Dict[str, torch.nn.Module], vae_image, st_pose,
             return eps
 
         if latents is not None:
-            x_init = _as_tensor(latents, dev).float()
+            x_init = as_tensor(latents, dev).float()
         else:
             x_init = torch.randn((n, lh, lw, 4), generator=generator,
                                  dtype=torch.float32, device=dev)

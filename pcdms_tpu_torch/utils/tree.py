@@ -6,6 +6,7 @@ from __future__ import annotations
 import copy
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 
@@ -39,3 +40,12 @@ def cast_tree(tree: Any, dtype: torch.dtype,
     if isinstance(tree, dict):
         return {k: cast_tree(v, dtype, device) for k, v in tree.items()}
     return tree
+
+
+def as_tensor(x, device) -> Optional[torch.Tensor]:
+    """A numpy array or tensor on ``device`` (None passes through)."""
+    if x is None:
+        return None
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device)

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from pcdms_tpu.cli.common import tiny_configs
+from pcdms_tpu.models.prior_transformer import prior_init
 from pcdms_tpu.models.projections import (
     image_proj_mlp_init, pose_cond_embedding_init,
 )
@@ -17,7 +18,10 @@ from pcdms_tpu.models.vae import vae_init
 
 from pcdms_tpu_torch.compat.from_jax import (
     image_proj_state_dict, load_numpy_state_dict, pose_proj_state_dict,
-    unet_state_dict, vae_state_dict,
+    prior_state_dict, unet_state_dict, vae_state_dict,
+)
+from pcdms_tpu_torch.models.prior_transformer import (
+    PriorConfig as TPriorConfig, PriorTransformer,
 )
 from pcdms_tpu_torch.models.projections import (
     ImageProjModel, PoseCondEmbedding,
@@ -73,6 +77,15 @@ def pose_proj_pair(seed: int, **kwargs):
         pose_cond_embedding_init(jax.random.PRNGKey(seed), **kwargs), seed)
     model = PoseCondEmbedding(**kwargs)
     load_numpy_state_dict(model, pose_proj_state_dict(params))
+    return params, model.eval()
+
+
+def prior_pair(cfg, seed: int):
+    """(JAX params, port PriorTransformer) with the same non-zero random
+    weights (the zero positional and prd embeddings made non-zero too)."""
+    params = nonzero(prior_init(jax.random.PRNGKey(seed), cfg), seed)
+    model = PriorTransformer(port_config(cfg, TPriorConfig))
+    load_numpy_state_dict(model, prior_state_dict(params))
     return params, model.eval()
 
 

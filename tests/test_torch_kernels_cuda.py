@@ -13,7 +13,9 @@ round apart. Backward bars, each scaled to its output: bf16 max abs error
 1e-2 of the largest magnitude and relative L2 5e-3; f32 max abs error 2e-5
 of the largest magnitude; the LSE 1e-4 of its largest magnitude. The fused
 conv: bf16 max abs error 1e-2 of the largest magnitude and relative L2
-5e-3, f32 max abs error 2e-5 of the largest magnitude.
+5e-3, f32 max abs error 2e-5 of the largest magnitude. The full-width
+stage-3 UNet: eps relative L2 5e-2, kernels against plain attention and
+fused convs against unfused ones.
 """
 
 import math
@@ -813,3 +815,114 @@ def test_fused_conv_refuses_outside_its_domain(cuda):
         fc.fused_gn_silu_conv(x, a, c, weight, bias)
     with pytest.raises(TypeError):
         fc.fused_gn_silu_conv(x.half(), a, c, weight, bias)
+
+
+# ---------------------------------------------------------------------------
+# the stage-3 shapes (512x512 images: 64x64 latents, square levels)
+# ---------------------------------------------------------------------------
+
+# the frozen kernel's self-attentions, (B*H, L, L): 4096 tokens with 5 heads
+# and 1024 with 10, at CFG batch 2 and at the batch test's UNet batch 8
+STAGE3_SELF = [(10, 4096, 4096), (20, 1024, 1024), (40, 4096, 4096),
+               (80, 1024, 1024)]
+# the short-kv kernel's calls at CFG batch 2: the 257-token cross-attention
+# on the conditional half at the four levels, the 16x16 level's and the
+# 8x8 mid block's self-attention
+STAGE3_SHORTKV = [(5, 4096, 257), (10, 1024, 257), (20, 256, 257),
+                  (20, 64, 257), (40, 256, 256), (40, 64, 64)]
+STAGE3_CONVS = [(h, h, cin, cout) for h, _, cin, cout in UNET_CONVS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,lq,lk", STAGE3_SELF)
+def test_frozen_kernel_at_the_stage3_shapes(cuda, bh, lq, lk):
+    q, k, v = _qkv(cuda, torch.bfloat16, bh, lq, lk, seed=40)
+    fa.reset_launches()
+    got, want = _run("frozen", q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in fa.LAUNCHES.items() if c} == {
+        "flash_frozen": 1}
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    assert _max_rel(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,lq,lk", STAGE3_SHORTKV)
+def test_shortkv_kernel_at_the_stage3_shapes(cuda, bh, lq, lk):
+    _assert_shortkv_matches(
+        *_qkv(cuda, torch.bfloat16, bh, lq, lk, seed=41), 0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", STAGE3_CONVS, ids=str)
+def test_fused_conv_at_the_stage3_shapes(cuda, shape):
+    """bf16 at batch 2 as the stage-3 UNet calls it: square levels down to
+    8x8, an image narrower than the kernel's 16-pixel tile, split-K at the
+    small levels."""
+    h, w, cin, cout = shape
+    mode = "residual" if cin == cout else "temb"
+    x, a, c, weight, bias, temb, res = _conv_inputs(
+        cuda, torch.bfloat16, 2, h, w, cin, cout, mode, seed=42)
+    got = fc.fused_gn_silu_conv(x, a, c, weight, bias, temb, res)
+    want = fc.fused_gn_silu_conv_plain(x, a, c, weight, bias, temb, res)
+    torch.cuda.synchronize()
+    _assert_conv_matches(got, want, torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def stage3_unet():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    from pcdms_tpu_torch.models.unet2d import (
+        UNet2DConditionModel, stage3_unet_config,
+    )
+    torch.manual_seed(43)
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel(stage3_unet_config())
+    yield unet.to(torch.bfloat16).eval()
+    del unet
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,launched", [
+    ("default", {"flash_frozen": 10}),
+    ("shortkv", {"flash_frozen": 10, "flash_shortkv": 22}),
+    ("fused_conv", {"flash_frozen": 10, "fused_gn_silu_conv": 44})])
+def test_stage3_unet_through_the_kernels(cuda, stage3_unet, monkeypatch,
+                                         route, launched):
+    """The full-width 8-channel stage-3 UNet at 64x64 latents, CFG batch 2,
+    bf16: eps through the kernels against plain attention (default and
+    PCDMS_SHORTKV=pallas routes), and with every resnet conv fused against
+    the unfused forward, each with its launches counted."""
+    import dataclasses
+    gen = torch.Generator(device=cuda).manual_seed(44)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(
+            torch.bfloat16)
+
+    sample, ctx = rand(2, 64, 64, 8), rand(2, 257, 1024)
+    ctx[:1] = 0
+    ts = torch.tensor([500, 500], device=cuda)
+    unet = stage3_unet
+    base = unet.cfg
+
+    def eps(**changes):
+        unet.cfg = dataclasses.replace(base, **changes)
+        try:
+            with torch.inference_mode():
+                return unet(sample, ts, ctx, zero_ctx_prefix=1)
+        finally:
+            unet.cfg = base
+
+    if route == "shortkv":
+        monkeypatch.setenv("PCDMS_SHORTKV", "pallas")
+    fa.reset_launches()
+    got = eps(fused_conv=route == "fused_conv")
+    torch.cuda.synchronize()
+    assert {n: c for n, c in fa.LAUNCHES.items() if c} == launched
+    monkeypatch.delenv("PCDMS_SHORTKV", raising=False)
+    want = eps() if route == "fused_conv" else eps(use_flash=False)
+    assert got.shape == (2, 64, 64, 4) and torch.isfinite(got).all()
+    assert _rel_l2(got, want) <= 5e-2
