@@ -65,6 +65,16 @@ Phases, each reported on its own lines:
   4d. ``cascade_generate`` at full width for one pair (``phase_cascade``):
      the prior 20 steps, stages 2 and 3 at UniPC 3 steps, 75 frozen
      launches, seconds per stage;
+  4e. the sampler options (``phase_sampler_options``): encoder propagation
+     in ``stage2_generate`` (DDIM 4 at interval 2: 48 frozen launches,
+     136 fused-conv ones with the fused UNet, 52 short-kv ones under
+     PCDMS_SHORTKV=pallas; the cached run through the kernels against plain
+     attention; interval 2 over 1 step is interval 1 bit for bit) and in
+     ``stage3_generate`` (UniPC 3 at interval 2: 26 frozen launches); a key
+     step, a decode-only step and the full forward timed at UNet batch 2
+     and 16; ancestral DDIM (eta 0.5); FreeU (neutral against none, SD-2.1's
+     values); LCM on a w-conditioned copy of the stage-2 UNet (4 steps, no
+     CFG doubling, the same bits twice);
   5. the backward kernels (LSE forward, dq, dk/dv) against their plain
      versions at the training shapes and at ragged ones on both sides of
      the block and stage sizes (bf16, one f32 spot check; the bf16 dq and
@@ -234,6 +244,22 @@ BAR_CONV_REL_L2 = 5e-3
 # attention kernels): they differ only where the activation is rounded to
 # bf16, 44 times
 BAR_FUSED_UNET_REL_L2 = 5e-2
+# the sampler options (phase_sampler_options): launches of kernels 1, 3 and 7
+# in one stage-2 UNet forward at 64x128 latents, and in its up blocks alone,
+# all that a decode-only step of encoder propagation runs
+FORWARD_LAUNCHES = {"flash_frozen": 15, "flash_shortkv": 17,
+                    "fused_gn_silu_conv": 44}
+DECODE_LAUNCHES = {"flash_frozen": 9, "flash_shortkv": 9,
+                   "fused_gn_silu_conv": 24}
+# kernel 1 in the stage-3 UNet at 64x64 latents: a forward, its up blocks
+STAGE3_FORWARD_FROZEN, STAGE3_DECODE_FROZEN = 10, 6
+# neutral FreeU (1, 1, 1, 1) against none, the UNet in f32: only the skips'
+# f32 FFT round trip, which moves a value by about 1e-7 of the largest. In
+# bf16 the same round trip moves a few of the smallest values by an ulp, and
+# GroupNorm's statistics spread that to every value's rounding: eps then
+# sits at the bf16 floor of BAR_UNET_REL_L2, as kernels vs plain attention
+BAR_FREEU_NEUTRAL_REL_L2 = 5e-3
+SD21_FREEU = (0.9, 0.2, 1.4, 1.6)   # SD-2.1's published (s1, s2, b1, b2)
 
 
 def fail(msg: str) -> None:
@@ -1910,6 +1936,359 @@ def phase_cascade(fa, prior, s2_models, s3_models, dev):
     return counts
 
 
+def _unet_inputs(dev, b, seed):
+    """A stage-2 UNet call at 64x128 latents, batch b, bf16: (sample, ts,
+    ctx, labels, pose, zero_ctx_prefix) with the first half CFG-zeroed."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    sample, pose = rand(b, 64, 128, 9), rand(b, 64, 128, 320)
+    ctx, labels = rand(b, 258, 1024), rand(b, 1024)
+    zp = b // 2
+    ctx[:zp] = 0
+    labels[:zp] = 0
+    return sample, torch.full((b,), 500, device=dev), ctx, labels, pose, zp
+
+
+def _step_ms(fa, unet, dev, b):
+    """A key step (time embedding, encode, decode), a decode-only step on
+    cached features (time embedding, decode) and the full forward of the
+    stage-2 UNet at batch b, ms by CUDA events around 3 calls each, in
+    turns (full, key, decode-only, decode-only, key, full); the kernel-1
+    launches of one decode-only step."""
+    sample, ts, ctx, labels, pose, zp = _unet_inputs(dev, b, SEED + 52)
+
+    def embed():
+        return unet.time_embed(ts, labels, None, torch.bfloat16)
+
+    def full():
+        return unet(sample, ts, ctx, labels, pose, zero_ctx_prefix=zp)
+
+    def key():
+        e = embed()
+        return unet.decode(*unet.encode(sample, e, ctx, pose, zp), e, ctx,
+                           zp)
+
+    with torch.inference_mode():
+        cache = unet.encode(sample, embed(), ctx, pose, zp)
+
+        def decode_only():
+            return unet.decode(*cache, embed(), ctx, zp)
+
+        fa.reset_launches()
+        decode_only()
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in fa.LAUNCHES.items() if c}
+        ms = {"full": [], "key": [], "decode_only": []}
+        for name, fn in (("full", full), ("key", key),
+                         ("decode_only", decode_only),
+                         ("decode_only", decode_only), ("key", key),
+                         ("full", full)):
+            ms[name].append(cuda_ms(fn, 3, 1))
+    del cache
+    torch.cuda.empty_cache()
+    return ms, counts
+
+
+def _w_conditioned_copy(unet, dev, cond_dim=256):
+    """The stage-2 UNet's weights, cloned, in a w-conditioned UNet
+    (``time_cond_proj_dim=cond_dim``) with a seeded random ``cond_proj``:
+    a second module of its own, built on the meta device so that no third
+    865M UNet is initialised."""
+    from pcdms_tpu_torch.models.unet2d import UNet2DConditionModel
+    with torch.device("meta"):
+        unet_w = UNet2DConditionModel(dataclasses.replace(
+            unet.cfg, time_cond_proj_dim=cond_dim))
+    state = {k: v.clone() for k, v in unet.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    state["time_embedding.cond_proj.weight"] = (0.02 * torch.randn(
+        (unet.cfg.block_out_channels[0], cond_dim), generator=gen,
+        device=dev)).to(torch.bfloat16)
+    unet_w.load_state_dict(state, assign=True)
+    return unet_w.eval()
+
+
+def _relaid(unet):
+    """{resnet conv name: its weight's kept re-lay (key, tensor) or None}."""
+    return {name: getattr(m.weight, "_pcdms_relaid", None)
+            for name, m in unet.named_modules()
+            if ".resnets." in name and name.endswith(("conv1", "conv2"))}
+
+
+def phase_sampler_options(fa, models, s3_models, dev):
+    """The sampler options at full width with random weights (stage 2:
+    512x1024 canvas, one pair CFG-doubled to batch 2, bf16):
+    a. encoder propagation in ``stage2_generate`` (DDIM 4 steps at interval
+       2: 2 key and 2 decode-only steps) through the kernels against plain
+       attention, with the fused convs and under PCDMS_SHORTKV=pallas,
+       launches counted; interval 2 over 1 step gives interval 1's bits; a
+       key step, a decode-only step and the full forward timed at UNet
+       batch 2 and 16;
+    b. ``stage3_generate`` at UniPC 3 steps and interval 2;
+    c. ancestral DDIM (eta 0.5, 4 steps): the same bits for the same
+       generator, not those of eta 0;
+    d. FreeU on the stage-2 UNet forward (neutral against none, SD-2.1's
+       values) and in ``stage2_generate``;
+    e. LCM on a w-conditioned copy of the stage-2 UNet (4 steps with decode,
+       no CFG doubling, the same bits twice), and its fused convs against
+       its unfused ones, each conv with its own re-laid weight.
+    Returns the launches of the runs through the kernels, summed."""
+    from pcdms_tpu_torch.nn.layers import guidance_scale_embedding
+    from pcdms_tpu_torch.pipelines.stage2_inpaint import stage2_generate
+    from pcdms_tpu_torch.pipelines.stage3_refine import stage3_generate
+    t_phase = time.perf_counter()
+    unet = models["unet"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    canvas = torch.rand((1, 512, 1024, 3), generator=gen, device=dev) * 2 - 1
+    canvas[:, :, 512:] = -1.0
+    pose = torch.rand((1, 512, 1024, 3), generator=gen, device=dev) * 2 - 1
+    dino = torch.randn((1, 257, 1536), generator=gen, device=dev)
+    emb = torch.randn((1, 1, 1024), generator=gen, device=dev)
+    total = {}
+
+    def s2(mods=models, env=None, changes=None, **kw):
+        """One ``stage2_generate`` run (DDIM 4 steps, latents, unless kw
+        says otherwise): (output, launches, seconds, UNet forward ms per
+        full-forward step by CUDA events, or 0.0 where none ran)."""
+        target = mods["unet"]
+        saved = target.cfg
+        restore = _with_env(env or {})
+        target.cfg = dataclasses.replace(saved, **(changes or {}))
+        pairs, unhook = _step_timer(target)
+        kw = dict(dict(scheduler="ddim", num_steps=4, decode=False), **kw)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fa.reset_launches()
+            out = stage2_generate(
+                mods, canvas, pose, dino, emb,
+                generator=torch.Generator(device=dev).manual_seed(SEED),
+                guidance_scale=2.0, compute_dtype=torch.bfloat16, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = {n: c for n, c in fa.LAUNCHES.items() if c}
+        finally:
+            unhook()
+            target.cfg = saved
+            restore()
+        if counts:
+            _add(total, counts)
+        ms = (sum(a.elapsed_time(b) for a, b in pairs) / len(pairs)
+              if pairs else 0.0)
+        return out, counts, seconds, ms
+
+    def check(label, ok, counts=None, want=None):
+        if not ok:
+            fail(f"sampler options, {label}")
+        if want is not None and counts != want:
+            fail(f"sampler options, {label}: expected launches {want}, got "
+                 f"{counts}")
+
+    def cached(names, keys, decodes):
+        return {k: FORWARD_LAUNCHES[k] * keys + DECODE_LAUNCHES[k] * decodes
+                for k in names}
+
+    # a. encoder propagation, DDIM 4 steps at interval 2
+    exact, l_e, sec_e, ms_e = s2()
+    lat_k, l_k, sec_k, _ = s2(encoder_cache_interval=2)
+    lat_p, l_p, _, _ = s2(encoder_cache_interval=2,
+                          changes=dict(use_flash=False))
+    lat_f, l_f, sec_f, _ = s2(encoder_cache_interval=2,
+                              changes=dict(fused_conv=True))
+    lat_s, l_s, _, _ = s2(encoder_cache_interval=2,
+                          env={"PCDMS_SHORTKV": "pallas"})
+    one_c, _, _, _ = s2(num_steps=1, encoder_cache_interval=2)
+    one_e, _, _, _ = s2(num_steps=1)
+    rels = {"kernels vs plain attention": _rel_l2(lat_k, lat_p),
+            "fused_conv vs unfused": _rel_l2(lat_f, lat_k),
+            "PCDMS_SHORTKV=pallas vs plain attention": _rel_l2(lat_s, lat_p),
+            "interval 2 vs 1 (the approximation)": _rel_l2(lat_k, exact)}
+    print(f"[options] stage2_generate DDIM-4 at encoder_cache_interval 2 "
+          f"(2 key + 2 decode-only steps), 512x1024 1 pair CFG 2.0 bf16, "
+          f"final latents rel_l2: "
+          + "; ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + f"; launches {l_k} / fused {l_f} / shortkv {l_s}; seconds "
+          f"(4 steps, no decode) cached {sec_k:.3f} fused {sec_f:.3f} exact "
+          f"{sec_e:.3f}; interval 2 over 1 step == interval 1: "
+          f"{torch.equal(one_c, one_e)}", flush=True)
+    check("cached latents not finite", all(
+        torch.isfinite(x).all() for x in (lat_k, lat_p, lat_f, lat_s)))
+    check("cached run through the kernels vs plain attention",
+          rels["kernels vs plain attention"] <= BAR_UNET_REL_L2
+          and rels["PCDMS_SHORTKV=pallas vs plain attention"]
+          <= BAR_UNET_REL_L2
+          and rels["fused_conv vs unfused"] <= BAR_FUSED_UNET_REL_L2)
+    check("interval 2 over 1 step differs from interval 1",
+          torch.equal(one_c, one_e))
+    check("cached run", True, l_k, cached(["flash_frozen"], 2, 2))
+    check("cached run under plain attention", True, l_p, {})
+    check("cached fused run", True, l_f,
+          cached(["flash_frozen", "fused_gn_silu_conv"], 2, 2))
+    check("cached run under PCDMS_SHORTKV=pallas", True, l_s,
+          cached(["flash_frozen", "flash_shortkv"], 2, 2))
+    for b in (2, 16):
+        ms, counts = _step_ms(fa, unet, dev, b)
+        print(f"[options] stage-2 UNet batch {b} (64x128 latents, bf16), ms "
+              f"by CUDA events (3 calls; full, key, decode-only, "
+              f"decode-only, key, full): full "
+              f"{ms['full'][0]:.2f} / {ms['full'][1]:.2f}, key "
+              f"{ms['key'][0]:.2f} / {ms['key'][1]:.2f}, decode-only "
+              f"{ms['decode_only'][0]:.2f} / {ms['decode_only'][1]:.2f} "
+              f"(decode-only / full = "
+              f"{sum(ms['decode_only']) / sum(ms['full']):.3f}); one "
+              f"decode-only step launches {counts}", flush=True)
+        check(f"decode-only step at batch {b}", True, counts,
+              {"flash_frozen": DECODE_LAUNCHES["flash_frozen"]})
+
+    # b. stage 3 at interval 2
+    gen_image = torch.rand((1, 512, 512, 3), generator=gen,
+                           device=dev) * 2 - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    images = stage3_generate(
+        s3_models, gen_image, dino,
+        generator=torch.Generator(device=dev).manual_seed(SEED),
+        num_steps=3, scheduler="unipc", guidance_scale=2.0,
+        encoder_cache_interval=2, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {n: c for n, c in fa.LAUNCHES.items() if c}
+    _add(total, counts)
+    print(f"[options] stage3_generate UniPC-3 at encoder_cache_interval 2 "
+          f"(2 key + 1 decode-only), 512x512 1 image CFG 2.0 bf16, decode: "
+          f"{seconds:.3f} s, launches {counts}, images min "
+          f"{images.min().item():.3f} max {images.max().item():.3f}",
+          flush=True)
+    check("stage-3 images not finite or of another shape",
+          tuple(images.shape) == (1, 512, 512, 3)
+          and bool(torch.isfinite(images).all()), counts,
+          {"flash_frozen": 2 * STAGE3_FORWARD_FROZEN + STAGE3_DECODE_FROZEN})
+
+    # c. ancestral DDIM
+    anc, l_a, sec_a, ms_a = s2(eta=0.5)
+    anc2, _, _, _ = s2(eta=0.5)
+    rel = _rel_l2(anc, exact)
+    print(f"[options] stage2_generate DDIM-4 eta 0.5: {sec_a:.3f} s (no "
+          f"decode), {ms_a:.2f} ms UNet per step (CUDA events; eta 0: "
+          f"{ms_e:.2f}), same bits for the same generator: "
+          f"{torch.equal(anc, anc2)}, rel_l2 to eta 0 {rel:.3e}; launches "
+          f"{l_a}", flush=True)
+    check("ancestral DDIM not finite, not deterministic or equal to eta 0",
+          bool(torch.isfinite(anc).all()) and torch.equal(anc, anc2)
+          and rel > 1e-3, l_a, {"flash_frozen": 4 * 15})
+
+    # d. FreeU on the forward and in the sampler
+    sample, ts, ctx, labels, upose, zp = _unet_inputs(dev, 2, SEED + 54)
+    saved = unet.cfg
+
+    def forward(freeu):
+        unet.cfg = dataclasses.replace(saved, freeu=freeu)
+        try:
+            with torch.inference_mode():
+                fa.reset_launches()
+                eps = unet(sample, ts, ctx, labels, upose, zero_ctx_prefix=zp)
+                torch.cuda.synchronize()
+                counts = {n: c for n, c in fa.LAUNCHES.items() if c}
+                ms = cuda_ms(lambda: unet(sample, ts, ctx, labels, upose,
+                                          zero_ctx_prefix=zp), 3, 1)
+        finally:
+            unet.cfg = saved
+        return eps, counts, ms
+
+    eps_n, l_n, ms_n = forward(None)
+    eps_1, _, ms_1 = forward((1.0, 1.0, 1.0, 1.0))
+    eps_sd, l_sd, ms_sd = forward(SD21_FREEU)
+    _add(total, l_sd)
+    rel_1, rel_sd = _rel_l2(eps_1, eps_n), _rel_l2(eps_sd, eps_n)
+    # the same weights and inputs in f32 (the f32 attention kernels)
+    unet32 = copy.deepcopy(unet).float()
+    args32 = [x.float() if x.is_floating_point() else x
+              for x in (sample, ts, ctx, labels, upose)]
+    eps32 = {}
+    with torch.inference_mode():
+        for freeu in (None, (1.0, 1.0, 1.0, 1.0), SD21_FREEU):
+            unet32.cfg = dataclasses.replace(saved, freeu=freeu)
+            eps32[freeu] = unet32(*args32, zero_ctx_prefix=zp)
+    rel32_1 = _rel_l2(eps32[(1.0, 1.0, 1.0, 1.0)], eps32[None])
+    rel32_sd = _rel_l2(eps32[SD21_FREEU], eps32[None])
+    del unet32, eps32
+    torch.cuda.empty_cache()
+    lat_fr, l_fr, sec_fr, ms_fr = s2(changes=dict(freeu=SD21_FREEU))
+    print(f"[options] FreeU on the stage-2 UNet forward (batch 2), eps "
+          f"rel_l2 against none: neutral (1, 1, 1, 1) f32 {rel32_1:.3e} (bar "
+          f"{BAR_FREEU_NEUTRAL_REL_L2:g}), bf16 {rel_1:.3e} (bar "
+          f"{BAR_UNET_REL_L2:g}); SD-2.1's {SD21_FREEU} f32 {rel32_sd:.3e}, "
+          f"bf16 {rel_sd:.3e}, launches {l_sd} (none: {l_n}); bf16 forward "
+          f"ms (CUDA events, 3 calls) none {ms_n:.2f} neutral {ms_1:.2f} "
+          f"SD-2.1 {ms_sd:.2f}; stage2_generate DDIM-4 with FreeU: "
+          f"{sec_fr:.3f} s, {ms_fr:.2f} ms UNet per step, launches {l_fr}",
+          flush=True)
+    check("neutral FreeU vs none", rel32_1 <= BAR_FREEU_NEUTRAL_REL_L2
+          and rel_1 <= BAR_UNET_REL_L2)
+    check("SD-2.1 FreeU not finite or within the bar of none",
+          bool(torch.isfinite(eps_sd).all())
+          and rel32_sd > BAR_FREEU_NEUTRAL_REL_L2, l_sd, l_n)
+    check("stage2_generate with FreeU", bool(torch.isfinite(lat_fr).all()),
+          l_fr, {"flash_frozen": 4 * 15})
+    del eps_n, eps_1, eps_sd
+
+    # e. LCM on a w-conditioned copy of the stage-2 UNet
+    unet_w = _w_conditioned_copy(unet, dev)
+    models_w = dict(models, unet=unet_w)
+    batches = []
+    hook = unet_w.register_forward_pre_hook(
+        lambda _, args: batches.append(args[0].shape[0]))
+    try:
+        lcm, l_lcm, sec_lcm, ms_lcm = s2(models_w, scheduler="lcm",
+                                         decode=True)
+        lcm2, _, _, _ = s2(models_w, scheduler="lcm", decode=True)
+    finally:
+        hook.remove()
+    cond = guidance_scale_embedding(
+        torch.full((1,), 2.0, device=dev), 256).to(torch.bfloat16)
+    sample, ts, ctx, labels, upose, _ = _unet_inputs(dev, 1, SEED + 55)
+    with torch.inference_mode():
+        eps_u = unet_w(sample, ts, ctx, labels, upose, timestep_cond=cond)
+        unet_w.cfg = dataclasses.replace(unet_w.cfg, fused_conv=True)
+        fa.reset_launches()
+        eps_f = unet_w(sample, ts, ctx, labels, upose, timestep_cond=cond)
+        torch.cuda.synchronize()
+        l_wf = {n: c for n, c in fa.LAUNCHES.items() if c}
+    _add(total, l_wf)
+    rel_w = _rel_l2(eps_f, eps_u)
+    mine, theirs = _relaid(unet_w), _relaid(unet)
+    own = all(kept is not None
+              and kept[0][0] == unet_w.get_submodule(name)
+              .weight.untyped_storage().data_ptr()
+              and (theirs[name] is None
+                   or kept[1].data_ptr() != theirs[name][1].data_ptr())
+              for name, kept in mine.items())
+    print(f"[options] LCM, w-conditioned stage-2 UNet (time_cond_proj_dim "
+          f"256), 4 steps with decode, guidance 2.0 embedded: "
+          f"{sec_lcm:.3f} s, {ms_lcm:.2f} ms UNet per step at UNet batches "
+          f"{sorted(set(batches))}, same bits twice: "
+          f"{torch.equal(lcm, lcm2)}, images min {lcm.min().item():.3f} max "
+          f"{lcm.max().item():.3f}, launches {l_lcm}; its fused convs vs "
+          f"unfused eps rel_l2 {rel_w:.3e} (bar {BAR_FUSED_UNET_REL_L2:g}), "
+          f"launches {l_wf}, each conv its own re-lay: {own}", flush=True)
+    check("LCM images not finite, of another shape or not deterministic",
+          tuple(lcm.shape) == (1, 512, 1024, 3)
+          and bool(torch.isfinite(lcm).all()) and torch.equal(lcm, lcm2)
+          and batches == [1] * 8, l_lcm, {"flash_frozen": 4 * 15})
+    check("the w-conditioned UNet's fused convs",
+          bool(torch.isfinite(eps_f).all()) and rel_w <= BAR_FUSED_UNET_REL_L2
+          and own, l_wf, {"flash_frozen": 15, "fused_gn_silu_conv": 44})
+    del unet_w, models_w, eps_u, eps_f
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[options] phase_sampler_options: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def phase_protocol(fa):
     """The reference protocol chained through the disk at full width with
     --random_init, on 2 synthetic 512x512 pairs: ``cli/stage1_batchtest``
@@ -2027,6 +2406,7 @@ def main() -> int:
     _add(launches, phase_stage3(fa, s3_models, dev))
     prior = phase_stage1(dev)
     _add(launches, phase_cascade(fa, prior, models, s3_models, dev))
+    _add(launches, phase_sampler_options(fa, models, s3_models, dev))
     del models, s3_models, prior
     gc.collect()
     torch.cuda.empty_cache()

@@ -73,7 +73,9 @@ def parse_args(argv=None):
                         "batch_size x num_images_per_prompt x 2 (CFG)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--encoder_cache_interval", type=int, default=1,
-                   help=">1 (encoder propagation) is not ported yet")
+                   help=">1 = encoder-propagation sampling (the UNet's "
+                        "encoder runs on every k-th step only; approximate). "
+                        "1 (default) = reference-exact")
     p.add_argument("--random_init", action="store_true")
     p.add_argument("--simple_variant", action="store_true",
                    help="released simplified checkpoint: no prior / class "
@@ -108,9 +110,6 @@ def check_supported(args) -> None:
     """Raise for flags whose code is not ported yet."""
     check_weight_flags(args, _PRETRAINED_FLAGS,
                        "the VAE / DINOv2 the run trained against")
-    if args.encoder_cache_interval > 1:
-        raise NotImplementedError("--encoder_cache_interval > 1 (encoder "
-                                  "propagation) is not ported yet")
 
 
 def best_of_n_ssim(candidates: np.ndarray, gt: np.ndarray) -> int:
@@ -259,7 +258,9 @@ def main(argv=None):
                 latents=latents, num_steps=args.num_inference_steps,
                 guidance_scale=args.guidance_scale,
                 scheduler=args.scheduler,
-                num_samples=args.num_images_per_prompt, device=device)
+                num_samples=args.num_images_per_prompt,
+                encoder_cache_interval=args.encoder_cache_interval,
+                device=device)
             if args.device_select:
                 gt_u8 = np.stack([np.asarray(t, np.uint8) for t in t_imgs])
                 dev_images, _ = device_select_best(

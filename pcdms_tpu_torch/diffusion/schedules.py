@@ -3,6 +3,7 @@
 there too, but that module imports ``jax.numpy``).
 
   * scaled_linear (SD-2.1): stage-2 / stage-3 DDIM and UniPC
+  * linear: diffusers' default DDPM betas
   * squaredcos_cap_v2 with prediction_type='sample': the stage-1 prior's
     UnCLIP sampler
 
@@ -23,6 +24,13 @@ def scaled_linear_betas(num_train_timesteps: int = 1000,
                         beta_end: float = 0.012) -> np.ndarray:
     return np.linspace(beta_start ** 0.5, beta_end ** 0.5,
                        num_train_timesteps, dtype=np.float64) ** 2
+
+
+def linear_betas(num_train_timesteps: int = 1000,
+                 beta_start: float = 0.0001,
+                 beta_end: float = 0.02) -> np.ndarray:
+    return np.linspace(beta_start, beta_end, num_train_timesteps,
+                       dtype=np.float64)
 
 
 def squaredcos_cap_v2_betas(num_train_timesteps: int = 1000,
@@ -55,6 +63,8 @@ def make_schedule(kind: str = "scaled_linear",
                   **kwargs) -> NoiseSchedule:
     if kind == "scaled_linear":
         betas = scaled_linear_betas(num_train_timesteps, **kwargs)
+    elif kind == "linear":
+        betas = linear_betas(num_train_timesteps, **kwargs)
     elif kind == "squaredcos_cap_v2":
         betas = squaredcos_cap_v2_betas(num_train_timesteps, **kwargs)
     else:

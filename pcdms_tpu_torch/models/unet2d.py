@@ -42,9 +42,10 @@ class UNetConfig:
     # every resnet conv through the fused GroupNorm + SiLU + conv3x3 kernel
     # (inference only: the kernel has no backward)
     fused_conv: bool = False
-    # the options below are not ported yet; the model or the sampler raises
-    # if set
+    # FreeU (s1, s2, b1, b2) on up blocks 0 and 1; None = off
     freeu: Optional[Tuple[float, float, float, float]] = None
+    # the LCM student's w-conditioning: width of the guidance-scale
+    # embedding added to the time embedding through cond_proj
     time_cond_proj_dim: Optional[int] = None
 
     @property
@@ -65,16 +66,9 @@ def stage3_unet_config() -> UNetConfig:
     return UNetConfig(in_channels=8, class_embed_proj_dim=None)
 
 
-def _check_supported(cfg: UNetConfig) -> None:
-    if cfg.freeu is not None:
-        raise NotImplementedError(
-            "UNetConfig.freeu is not ported to pcdms_tpu_torch yet")
-
-
 class UNet2DConditionModel(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         ch0 = cfg.block_out_channels[0]
         temb_dim = cfg.time_embed_dim
@@ -151,16 +145,22 @@ class UNet2DConditionModel(nn.Module):
         return x, tuple(skips)
 
     def decode(self, x, skips, emb, ctx, zero_ctx_prefix: int = 0):
-        """Up blocks + output head (``unet_decode``). Returns NHWC."""
+        """Up blocks + output head (``unet_decode``), FreeU on up blocks 0
+        and 1 under ``cfg.freeu``. ``skips`` is left as it was. Returns
+        NHWC."""
         skips = list(skips)
-        for block in self.up_blocks:
+        for bi, block in enumerate(self.up_blocks):
             nres = len(block.resnets)
             block_skips = skips[-nres:]
             del skips[-nres:]
+            freeu = None
+            if self.cfg.freeu is not None and bi < 2:
+                s1, s2, b1, b2 = self.cfg.freeu
+                freeu = (s1, b1) if bi == 0 else (s2, b2)
             x = self._block(block, x, block_skips, emb, ctx,
                             use_flash=self.cfg.use_flash,
                             zero_ctx_prefix=zero_ctx_prefix,
-                            fused_conv=self.cfg.fused_conv)
+                            fused_conv=self.cfg.fused_conv, freeu=freeu)
         x = self.conv_out(silu(self.conv_norm_out(x)))
         return x.permute(0, 2, 3, 1)
 

@@ -106,6 +106,14 @@ def timestep_sinusoidal_embedding(timesteps, dim: int,
     return out
 
 
+def guidance_scale_embedding(w, embedding_dim: int):
+    """LCM guidance-scale embedding: sinusoidal features of
+    (w - 1) * 1000. w: (B,) floats -> (B, embedding_dim) f32."""
+    return timestep_sinusoidal_embedding(
+        (w - 1.0) * 1000.0, embedding_dim, flip_sin_to_cos=False,
+        downscale_freq_shift=1.0)
+
+
 class TimestepEmbedding(nn.Module):
     """diffusers ``TimestepEmbedding``: linear_1 -> SiLU -> linear_2, with an
     optional bias-free ``cond_proj`` added to the input features."""

@@ -4,6 +4,8 @@ ResnetBlock2D, Transformer2DModel (linear projections), Down/Upsample2D,
 CrossAttn{Down,Up}Block2D / {Down,Up}Block2D, UNetMidBlock2DCrossAttn.
 ``fused_conv=True`` runs each resnet conv through the fused GroupNorm +
 SiLU + conv3x3 kernel (``ops/fused_conv.py``), as the JAX blocks' flag does.
+``freeu=(s, b)`` applies FreeU in an up block: the backbone's first half of
+channels scaled by b, the skip's low frequencies by s (``fourier_filter``).
 """
 
 from __future__ import annotations
@@ -163,6 +165,24 @@ class MidBlock(nn.Module):
         return self.resnets[1](x, temb, fused=fused_conv)
 
 
+def fourier_filter(x, threshold: int = 1, scale: float = 1.0):
+    """FreeU's low-frequency rescaling of skip features (NCHW): the centred
+    ``2 * threshold``-wide box of the shifted 2-D spectrum is scaled by
+    ``scale``. In f32 (torch.fft has no bf16 path), cast back to x's
+    dtype."""
+    dtype = x.dtype
+    h, w = x.shape[-2:]
+    dims = (-2, -1)
+    x_freq = torch.fft.fftshift(torch.fft.fftn(x.float(), dim=dims),
+                                dim=dims)
+    mask = torch.ones((h, w), dtype=torch.float32, device=x.device)
+    ch, cw = h // 2, w // 2
+    mask[ch - threshold:ch + threshold, cw - threshold:cw + threshold] = scale
+    x_filtered = torch.fft.ifftn(torch.fft.ifftshift(x_freq * mask,
+                                                     dim=dims), dim=dims).real
+    return x_filtered.to(dtype)
+
+
 class UpBlock(nn.Module):
     """CrossAttnUpBlock2D (cross_attn=True) or UpBlock2D. in_ch: channels of
     the skip from the matching down level; prev_ch: channels from below."""
@@ -188,12 +208,17 @@ class UpBlock(nn.Module):
 
     def forward(self, x, skips: List[torch.Tensor], temb, context,
                 use_flash: bool = True, zero_ctx_prefix: int = 0,
-                fused_conv: bool = False):
+                fused_conv: bool = False, freeu=None):
         for i, resnet in enumerate(self.resnets):
             # last skip first; the list is left as it was (a rematerialised
-            # block runs twice on it)
-            x = resnet(torch.cat([x, skips[-1 - i]], dim=1), temb,
-                       fused=fused_conv)
+            # block runs twice on it, a decode-only step reuses it)
+            skip = skips[-1 - i]
+            if freeu is not None:
+                s, b = freeu
+                half = x.shape[1] // 2
+                x = torch.cat([x[:, :half] * b, x[:, half:]], dim=1)
+                skip = fourier_filter(skip, threshold=1, scale=s)
+            x = resnet(torch.cat([x, skip], dim=1), temb, fused=fused_conv)
             if hasattr(self, "attentions"):
                 x = self.attentions[i](x, context, use_flash=use_flash,
                                        zero_ctx_prefix=zero_ctx_prefix)

@@ -3,7 +3,8 @@
 
 VAE encode of the [source | black] canvas, the [ones | zeros] half mask,
 the pose encoder, the DINOv2-feature projection, a CFG-doubled denoising
-loop (DDIM or UniPC) over the 9-channel UNet, and VAE decode.
+loop (DDIM, ancestral DDIM or UniPC, optionally with encoder propagation;
+or LCM on a w-conditioned student) over the 9-channel UNet, and VAE decode.
 
 Conditioning layout (as the reference's):
   * UNet input: concat([noisy_latents, mask, masked_latents]) = 9 channels
@@ -21,10 +22,10 @@ from typing import Dict, Optional
 
 import torch
 
-from pcdms_tpu_torch.diffusion.guidance import apply_cfg
 from pcdms_tpu_torch.diffusion.schedules import sd21_schedule
+from pcdms_tpu_torch.nn.layers import guidance_scale_embedding
 from pcdms_tpu_torch.pipelines.sampling import (
-    SAMPLERS, check_sampler_options,
+    check_sampler_options, run_sampler, unet_model_eps,
 )
 from pcdms_tpu_torch.utils.device import resolve_device
 from pcdms_tpu_torch.utils.tree import as_tensor, cast_tree
@@ -54,6 +55,7 @@ def stage2_generate(models: Dict[str, torch.nn.Module], vae_image, st_pose,
                     eta: float = 0.0,
                     encoder_cache_interval: int = 1,
                     deterministic_vae: bool = False,
+                    lcm_origin_steps: int = 50,
                     device=None):
     """Generate target-pose images.
 
@@ -65,21 +67,32 @@ def stage2_generate(models: Dict[str, torch.nn.Module], vae_image, st_pose,
     dino_features: (B, 257, 1536) DINOv2 last_hidden_state of the source.
     pred_t_embed: (B, 1, 1024) stage-1 target CLIP embedding, or None for
         the demo variant (no class embedding).
-    generator: draws the VAE posterior sample (unless deterministic_vae)
-        and the initial latents (unless given); a fresh generator seeded 0
-        on ``device`` when None.
+    generator: draws, in this order, the VAE posterior sample (unless
+        deterministic_vae), the initial latents (unless given), and one
+        (B*num_samples, H/8, 2W/8, 4) f32 normal per step where the sampler
+        adds noise (ancestral DDIM, eta > 0: after every step; LCM: after
+        every step but the last); a fresh generator seeded 0 on ``device``
+        when None. torch streams, not the JAX package's threefry ones.
+    scheduler: "unipc", "ddim" (ancestral for eta > 0) or "lcm" (a
+        w-conditioned student, ``UNetConfig.time_cond_proj_dim``, on the
+        boundary grid of ``lcm_origin_steps``). A w-conditioned UNet gets
+        the guidance scale through its embedding and no CFG doubling, under
+        every scheduler.
+    encoder_cache_interval: > 1 runs the UNet's encoder on every
+        interval-th step only (``sampling.unet_model_eps``); 1 is exact.
     Inputs may be numpy arrays or tensors. Returns (B*num_samples, H, 2W, 3)
     f32 images in [-1, 1] (latents if decode=False), sample-major:
     output[i*B + b] is sample i of input b.
     """
-    check_sampler_options(scheduler, eta, encoder_cache_interval,
-                          models["unet"].cfg)
+    unet_cfg = models["unet"].cfg
+    check_sampler_options(scheduler, encoder_cache_interval, unet_cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     cd = compute_dtype
-    schedule = sd21_schedule()
-    use_cfg = guidance_scale > 1.0
+    # the LCM student embeds the guidance scale: no CFG doubling
+    lcm_mode = unet_cfg.time_cond_proj_dim is not None
+    use_cfg = guidance_scale > 1.0 and not lcm_mode
 
     with torch.inference_mode():
         m = cast_tree(models, cd, dev)
@@ -120,25 +133,34 @@ def stage2_generate(models: Dict[str, torch.nn.Module], vae_image, st_pose,
             mask = torch.cat([mask] * 2)
             masked_latents = torch.cat([masked_latents] * 2)
         mask_d, masked_d = mask.to(cd), masked_latents.to(cd)
-        zp = n if use_cfg else 0
+        timestep_cond = None
+        if lcm_mode:
+            timestep_cond = guidance_scale_embedding(
+                torch.full((n,), guidance_scale, dtype=torch.float32,
+                           device=dev), unet_cfg.time_cond_proj_dim).to(cd)
 
-        def model_eps(x, t):
+        def make_inp(x, t):
             lat = torch.cat([x] * 2) if use_cfg else x
             inp = torch.cat([lat.to(cd), mask_d, masked_d], dim=-1)
-            tt = torch.full((inp.shape[0],), t, dtype=torch.int32,
-                            device=dev)
-            eps = m["unet"](inp, tt, feature_f, class_labels=class_labels,
-                            pose_cond=pose_cond, zero_ctx_prefix=zp).float()
-            if use_cfg:
-                eps = apply_cfg(eps, guidance_scale, guidance_rescale)
-            return eps
+            return inp, torch.full((inp.shape[0],), t, dtype=torch.int32,
+                                   device=dev)
+
+        model_eps = unet_model_eps(
+            m["unet"], make_inp, feature_f,
+            encoder_cache_interval=encoder_cache_interval,
+            zero_ctx_prefix=n if use_cfg else 0, use_cfg=use_cfg,
+            guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
+            class_labels=class_labels, pose_cond=pose_cond,
+            timestep_cond=timestep_cond)
 
         if latents is not None:
             x_init = as_tensor(latents, dev).float()
         else:
             x_init = torch.randn((n, lh, lw, 4), generator=generator,
                                  dtype=torch.float32, device=dev)
-        out = SAMPLERS[scheduler](schedule, model_eps, x_init, num_steps)
+        out = run_sampler(scheduler, sd21_schedule(), model_eps, x_init,
+                          num_steps, generator, eta=eta,
+                          lcm_origin_steps=lcm_origin_steps)
         if not decode:
             return out
         return m["vae"].decode(out.to(cd)).float()

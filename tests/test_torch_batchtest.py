@@ -140,9 +140,10 @@ def test_pretrained_flags_raise():
                   ["--random_init", "--image_encoder_p_path", "d"]):
         with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
             check_supported(parse_args(base + extra))
-    with pytest.raises(NotImplementedError):
-        check_supported(parse_args(base + ["--random_init",
-                                           "--encoder_cache_interval", "2"]))
+    # encoder propagation is ported: the flag passes (run against the JAX
+    # CLI in test_cli_matches_jax[enc_prop])
+    check_supported(parse_args(base + ["--random_init",
+                                       "--encoder_cache_interval", "2"]))
 
 
 # ---------------------------------------------------------------------------
@@ -234,10 +235,13 @@ def _deterministic_vae(module, dtype):
                              compute_dtype=dtype)
 
 
-# (json name, --simple_variant): the JAX suite's tiny run, and train mode
-# (target CLIP embeddings, class-embedding UNet)
-RUNS = {"simple": ("test_pairs.json", True),
-        "train": ("train_pairs.json", False)}
+# (json name, --simple_variant, flags of both CLIs): the JAX suite's tiny
+# run, train mode (target CLIP embeddings, class-embedding UNet), and the
+# tiny run with encoder propagation (step 0 full, step 1 decode-only)
+RUNS = {"simple": ("test_pairs.json", True, []),
+        "train": ("train_pairs.json", False, []),
+        "enc_prop": ("test_pairs.json", True,
+                     ["--encoder_cache_interval", "2"])}
 
 
 @pytest.fixture(scope="module")
@@ -252,14 +256,14 @@ def cli_runs(dataset, tmp_path_factory):
         mp.setattr(t_pipeline, "stage2_generate",
                    _deterministic_vae(t_pipeline, torch.float32))
         from pcdms_tpu.cli.stage2_batchtest import main as j_main
-        for run, (json_name, simple) in RUNS.items():
+        for run, (json_name, simple, both) in RUNS.items():
             d = str(tmp_path_factory.mktemp(f"cli_{run}"))
             flags = _port_weights(d, simple)
             j_out, t_out = os.path.join(d, "jax"), os.path.join(d, "port")
             j_main(_argv(dataset, json_name, j_out, simple,
-                         ["--random_init"]))
+                         ["--random_init"] + both))
             written = t_main(_argv(dataset, json_name, t_out, simple,
-                                   flags + ["--device", "cpu"]))
+                                   flags + both + ["--device", "cpu"]))
             assert len(written) == 3
             out[run] = (_read(j_out), _read(t_out), flags)
     return out
@@ -272,6 +276,9 @@ def test_cli_matches_jax(cli_runs, run):
         assert got[key].shape == want[key].shape == (64, 64, 3)
         assert got[key].std() > 0                 # not a constant canvas
         assert np.abs(got[key] - want[key]).max() <= 3, key
+    if run == "enc_prop":      # the flag reached the sampler
+        exact = cli_runs["simple"][1]
+        assert any(not np.array_equal(got[k], exact[k]) for k in got)
 
 
 @pytest.mark.parametrize("mode", ["--sequential", "--device_select"])

@@ -3,7 +3,7 @@
 ``seeds=`` for the deterministic VAE) against the JAX package's three stage
 functions chained as ``pcdms_tpu/pipelines/cascade.py`` chains them, at the
 module bar (atol 1e-4, rtol 1e-3) for the embeddings, the inpainted canvas
-and the refined target; then the per-row ``seeds=`` contract and the
+and the refined target, exact and with encoder propagation; then the per-row ``seeds=`` contract and the
 refusal of explicit latents without seeds."""
 
 import functools
@@ -66,7 +66,7 @@ def _args(x):
             x["st_pose"], x["dino"])
 
 
-def test_cascade_matches_jax_chain():
+def _check_against_jax_chain(interval):
     (jp, j2, j3), port = _models()
     b = 2
     x = _inputs(b)
@@ -78,13 +78,14 @@ def test_cascade_matches_jax_chain():
                            s2_latents=s2, s3_latents=s3, prior_steps=1,
                            inpaint_steps=STEPS, refine_steps=STEPS,
                            scheduler="ddim", compute_dtype=torch.float32,
-                           device="cpu")
+                           encoder_cache_interval=interval, device="cpu")
 
     # pcdms_tpu/pipelines/cascade.py's chain, with the latents given and
     # the VAE at its posterior mean (what seeds= gives there)
     key = jax.random.PRNGKey(0)
     common = dict(vae_cfg=TINY.vae, guidance_scale=2.0, scheduler="ddim",
-                  compute_dtype=jnp.float32, deterministic_vae=True)
+                  compute_dtype=jnp.float32, deterministic_vae=True,
+                  encoder_cache_interval=interval)
     embeds = j_stage1(jp, x["s_embed"], x["s_pose"], x["t_pose"], key, s1,
                       prior_cfg=TINY.prior, num_steps=1, guidance_scale=0.0)
     inpainted = j_stage2(j2, x["vae_image"], x["st_pose"], x["dino"],
@@ -100,6 +101,16 @@ def test_cascade_matches_jax_chain():
         assert got[name].shape == want[name].shape == shape, name
         np.testing.assert_allclose(n(got[name]), n(want[name]), **TOL,
                                    err_msg=name)
+
+
+def test_cascade_matches_jax_chain():
+    _check_against_jax_chain(1)
+
+
+def test_cascade_with_encoder_propagation_matches_jax_chain():
+    """encoder_cache_interval=2 reaches both stages: step 0 full, step 1
+    decode-only (STEPS = 2)."""
+    _check_against_jax_chain(2)
 
 
 def test_seeds_batch_composition_invariance():

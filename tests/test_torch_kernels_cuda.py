@@ -926,3 +926,65 @@ def test_stage3_unet_through_the_kernels(cuda, stage3_unet, monkeypatch,
     want = eps() if route == "fused_conv" else eps(use_flash=False)
     assert got.shape == (2, 64, 64, 4) and torch.isfinite(got).all()
     assert _rel_l2(got, want) <= 5e-2
+
+
+@pytest.fixture(scope="module")
+def reduced_stage2_unet():
+    """The stage-2 UNet at full width cut to one layer per block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    import dataclasses
+    from pcdms_tpu_torch.models.unet2d import (
+        UNet2DConditionModel, stage2_unet_config,
+    )
+    torch.manual_seed(45)
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel(dataclasses.replace(
+            stage2_unet_config(), layers_per_block=1))
+    yield unet.to(torch.bfloat16).eval()
+    del unet
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_decode_only_step_through_the_kernels(cuda, reduced_stage2_unet):
+    """A decode-only step of encoder propagation (64x128 latents, CFG batch
+    2, bf16): a fresh time embedding and the up blocks on features an
+    encode cached at another timestep. Kernel 1 launches the up blocks'
+    6 (two transformers in each of the three attention up blocks, all above
+    384 tokens), the cached features are left as they were, and eps matches
+    the same step under plain attention within rel L2 5e-2."""
+    import dataclasses
+    gen = torch.Generator(device=cuda).manual_seed(46)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(
+            torch.bfloat16)
+
+    sample, pose = rand(2, 64, 128, 9), rand(2, 64, 128, 320)
+    ctx, labels = rand(2, 258, 1024), rand(2, 1024)
+    ctx[:1] = 0
+    labels[:1] = 0
+    unet = reduced_stage2_unet
+    base = unet.cfg
+
+    def embed(t):
+        return unet.time_embed(torch.full((2,), t, device=cuda), labels,
+                               None, torch.bfloat16)
+
+    with torch.inference_mode():
+        h, skips = unet.encode(sample, embed(801), ctx, pose, 1)
+        kept = [s.clone() for s in skips]
+        fa.reset_launches()
+        got = unet.decode(h, skips, embed(701), ctx, 1)
+        torch.cuda.synchronize()
+        launched = {n: c for n, c in fa.LAUNCHES.items() if c}
+        unet.cfg = dataclasses.replace(base, use_flash=False)
+        try:
+            want = unet.decode(h, skips, embed(701), ctx, 1)
+        finally:
+            unet.cfg = base
+    assert launched == {"flash_frozen": 6}
+    assert all(torch.equal(a, b) for a, b in zip(skips, kept))
+    assert got.shape == (2, 64, 128, 4) and torch.isfinite(got).all()
+    assert _rel_l2(got, want) <= 5e-2

@@ -256,8 +256,10 @@ def test_sampler_tables_exact(steps):
                  "sqrt_one_minus_alphas_cumprod"):
         np.testing.assert_array_equal(getattr(ts, name), getattr(js, name))
     want_ddim = j_ddim_tables(js, steps)
+    got_ddim = ddim_step_tables(ts, steps)
     assert not want_ddim[3].any()                     # sigma at eta = 0
-    for a, b in zip(ddim_step_tables(ts, steps), want_ddim[:3]):
+    assert len(got_ddim) == len(want_ddim) == 4
+    for a, b in zip(got_ddim, want_ddim):
         np.testing.assert_array_equal(a, b)
     jc, tc = j_unipc_coeffs(js, steps), unipc_coeffs(ts, steps)
     for name in jc.__dataclass_fields__:

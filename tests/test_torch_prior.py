@@ -45,7 +45,7 @@ def _same_schedule(got, want):
 
 @pytest.mark.parametrize("kind,prediction_type", [
     ("scaled_linear", "epsilon"), ("squaredcos_cap_v2", "sample"),
-    ("squaredcos_cap_v2", "v_prediction")])
+    ("squaredcos_cap_v2", "v_prediction"), ("linear", "epsilon")])
 def test_make_schedule_matches_jax(kind, prediction_type):
     _same_schedule(schedules.make_schedule(kind, 1000, prediction_type),
                    j_schedules.make_schedule(kind, 1000, prediction_type))

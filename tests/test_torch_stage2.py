@@ -107,25 +107,66 @@ def test_half_mask_matches_jax():
 
 
 @pytest.mark.parametrize("option", [
-    dict(encoder_cache_interval=2), dict(scheduler="lcm"), dict(eta=0.5)])
+    dict(scheduler="lcm"), dict(scheduler="lcm", encoder_cache_interval=2),
+    dict(scheduler="euler")])
 def test_deferred_options_raise(option):
-    """Options not ported yet raise instead of computing something else."""
-    _, tmodels = _models(True)
+    """The port refuses what the JAX package refuses, with its ValueError:
+    LCM without a w-conditioned UNet (before its clash with encoder
+    propagation, as there), and a scheduler neither side has."""
+    jparams, tmodels = _models(True)
     canvas, pose, dino, emb, latents = _inputs(True)
-    with pytest.raises(NotImplementedError):
+    kw = dict(num_samples=SAMPLES, deterministic_vae=True, decode=False,
+              **option)
+    with pytest.raises(ValueError, match="w-conditioned|unknown scheduler"):
         stage2_generate(tmodels, canvas, pose, dino, emb, latents=latents,
-                        compute_dtype=torch.float32, device="cpu", **option)
+                        compute_dtype=torch.float32, device="cpu", **kw)
+    if option["scheduler"] == "lcm":
+        with pytest.raises(ValueError, match="w-conditioned"):
+            j_generate(jparams, canvas, pose, dino, emb,
+                       jax.random.PRNGKey(0), latents,
+                       unet_cfg=TINY.unet2(True), vae_cfg=TINY.vae,
+                       compute_dtype=jnp.float32, **kw)
 
 
-@pytest.mark.parametrize("field,value", [("freeu", (1.0, 1.0, 1.0, 1.0))])
-def test_deferred_unet_options_raise(field, value):
+def test_lcm_with_encoder_propagation_raises():
+    """A w-conditioned UNet still refuses LCM with encoder propagation, on
+    both sides (few-step sampling)."""
+    import dataclasses
+    cfg = dataclasses.replace(TINY.unet2(True), time_cond_proj_dim=8)
+    jparams, tmodels = _models(True)
+    jparams = dict(jparams, unet=unet_pair(cfg, 35)[0])
+    tmodels = dict(tmodels, unet=unet_pair(cfg, 35)[1])
+    canvas, pose, dino, emb, latents = _inputs(True)
+    kw = dict(num_samples=SAMPLES, deterministic_vae=True, decode=False,
+              scheduler="lcm", encoder_cache_interval=2)
+    with pytest.raises(ValueError, match="don't compose"):
+        stage2_generate(tmodels, canvas, pose, dino, emb, latents=latents,
+                        compute_dtype=torch.float32, device="cpu", **kw)
+    with pytest.raises(ValueError, match="don't compose"):
+        j_generate(jparams, canvas, pose, dino, emb, jax.random.PRNGKey(0),
+                   latents, unet_cfg=cfg, vae_cfg=TINY.vae,
+                   compute_dtype=jnp.float32, **kw)
+
+
+@pytest.mark.parametrize("field,value", [("freeu", (1.0, 1.0, 1.0, 1.0)),
+                                         ("time_cond_proj_dim", 8)])
+def test_unet_options_build(field, value):
+    """The UNet options that used to be refused build and run (their
+    parity with the JAX UNet is in test_torch_sampler_options.py)."""
     import dataclasses
     from pcdms_tpu_torch.models.unet2d import UNet2DConditionModel, UNetConfig
     cfg = dataclasses.replace(UNetConfig(block_out_channels=(8, 16, 16, 16),
-                                         norm_groups=4, head_dim=8),
+                                         norm_groups=4, head_dim=8,
+                                         cross_attention_dim=16,
+                                         use_flash=False),
                               **{field: value})
-    with pytest.raises(NotImplementedError):
-        UNet2DConditionModel(cfg)
+    model = UNet2DConditionModel(cfg).eval()
+    cond = (torch.ones((1, value)) if field == "time_cond_proj_dim"
+            else None)
+    with torch.no_grad():
+        out = model(torch.randn((1, 8, 8, 9)), torch.tensor([10]),
+                    torch.randn((1, 3, 16)), timestep_cond=cond)
+    assert out.shape == (1, 8, 8, 4) and torch.isfinite(out).all()
 
 
 def test_device_resolution(monkeypatch):

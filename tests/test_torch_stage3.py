@@ -2,7 +2,7 @@
 JAX ``unet_apply``, and the port's ``stage3_generate`` against the JAX
 package's for DDIM and UniPC (4 steps), two samples per input, latents and
 images, ``deterministic_vae=True`` and explicit latents, at the module bar
-(atol 1e-4, rtol 1e-3); then the options that are not ported yet."""
+(atol 1e-4, rtol 1e-3); then the schedulers stage 3 refuses."""
 
 import functools
 
@@ -128,10 +128,15 @@ def test_generator_draws_vae_sample_then_latents():
 
 
 @pytest.mark.parametrize("option", [
-    dict(encoder_cache_interval=2), dict(scheduler="lcm"), dict(eta=0.5)])
+    dict(scheduler="lcm"), dict(scheduler="lcm", encoder_cache_interval=2),
+    dict(scheduler="euler")])
 def test_deferred_options_raise(option):
+    """Stage 3 has no LCM on either side: the port refuses it, and any
+    scheduler it does not have, with a ValueError (encoder propagation and
+    eta are held against JAX in test_torch_encoder_prop.py and
+    test_torch_sampler_options.py)."""
     _, tmodels = _models()
     gen, dino, latents = _inputs()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown scheduler"):
         stage3_generate(tmodels, gen, dino, latents=latents,
                         compute_dtype=torch.float32, device="cpu", **option)
