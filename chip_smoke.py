@@ -107,7 +107,21 @@ Phases, each reported on its own lines:
      the prior) writes the .npy embeddings, ``cli/stage2_batchtest.main
      --prior_embeds_dir`` reads them, ``cli/stage3_batchtest.main
      --gen_dir`` refines stage 2's PNGs (UniPC 20, best of 4) with host and
-     with device selection; seconds per pair and peak GiB per CLI.
+     with device selection; seconds per pair and peak GiB per CLI;
+ 11. weight loading (``phase_weights``): phase 9's ``--random_init`` models
+     saved as f32 files in the reference's layouts (a DeepSpeed-wrapped
+     monolithic checkpoint, an SD-2.1 dir with the VAE's old attention
+     names, an HF DINOv2 dir; 8.4 GB), then ``cli/stage2_batchtest.main``
+     from the files: PNGs byte-identical to the ``--random_init`` run's;
+ 12. serving (``phase_serve``): ``Stage2Service`` at 512x1024 behind
+     ``ServingServer`` (8 concurrent HTTP requests, the same bits for the
+     same request in the same bucket, bucket 4 against bucket 1, 45 frozen
+     launches per batch), ``CascadeService`` (the same seed twice, its stage
+     2 against ``Stage2Service``) and the serve CLI's deployment
+     (``cli/serve.py::build_deployment``): a ``ShapeRouter`` over two
+     canvases sharing one set of bf16 modules, both engines launching at
+     once. Its images/s is a smoke reading of 8 requests at 3 steps, not a
+     serving rate.
 Launch counters are reset just before each path runs and read just after.
 
 The last three lines are the card's name and power limit (nvidia-smi), a
@@ -1791,6 +1805,14 @@ def _add(total, counts):
     return total
 
 
+def build_prior(dev):
+    """The full PriorConfig() prior, random weights from the seed, f32."""
+    from pcdms_tpu_torch.models.prior_transformer import PriorTransformer
+    torch.manual_seed(SEED + 30)
+    with torch.device(dev):
+        return PriorTransformer().eval()
+
+
 def phase_stage1(dev):
     """The stage-1 prior at the full PriorConfig() (20 layers, 32 heads of
     64, d 2048; f32 with TF32 off, random weights from the seed) through
@@ -1804,9 +1826,7 @@ def phase_stage1(dev):
         PriorConfig, PriorTransformer,
     )
     from pcdms_tpu_torch.pipelines.stage1_prior import stage1_generate
-    torch.manual_seed(SEED + 30)
-    with torch.device(dev):
-        prior = PriorTransformer().eval()
+    prior = build_prior(dev)
     n_params = sum(p.numel() for p in prior.parameters())
     gen = torch.Generator(device=dev).manual_seed(SEED + 31)
     s_embed = torch.randn((2, 1024), generator=gen, device=dev)
@@ -2377,6 +2397,370 @@ def phase_protocol(fa):
         stage3_batchtest.best_of_n_ssim = best_of_n
 
 
+# the reference files phase_weights writes, f32: the stage-2 UNet (865M
+# parameters), the VAE (84M) and DINOv2-giant (1.1B) at 4 bytes each, and
+# a margin of 15 %
+WEIGHT_FILE_BYTES = 4 * (865e6 + 84e6 + 1137e6)
+OLD_VAE_NAMES = {"to_q": "query", "to_k": "key", "to_v": "value",
+                 "to_out.0": "proj_attn"}
+
+
+def _f32_state_dict(module, prefix=""):
+    return {prefix + k: v.detach().float().cpu()
+            for k, v in module.state_dict().items()}
+
+
+def _write_reference_layouts(root, models, dino):
+    """The stage-2 batch test's modules in the reference's layouts under
+    ``root``: the monolithic checkpoint in a DeepSpeed ``module`` wrapper
+    with ``unet.`` / ``pose_proj.`` / ``image_proj_model_p.`` keys, an
+    SD-2.1 dir whose VAE carries the old mid-attention names, and an HF
+    DINOv2 dir (with its ``mask_token``, at the module's 16 x 16 grid, so
+    that the load-time resize is the identity). -> (the CLI's weight flags,
+    bytes written)."""
+    ckpt = os.path.join(root, "pcdms_stage2.pt")
+    sd21, dino_dir = (os.path.join(root, d) for d in ("sd21", "dinov2"))
+    os.makedirs(os.path.join(sd21, "vae"))
+    os.makedirs(dino_dir)
+    torch.save({"module": {
+        **_f32_state_dict(models["unet"], "unet."),
+        **_f32_state_dict(models["pose_proj"], "pose_proj."),
+        **_f32_state_dict(models["image_proj"], "image_proj_model_p.")}},
+        ckpt)
+    vae = {}
+    for k, v in _f32_state_dict(models["vae"]).items():
+        for new, old in OLD_VAE_NAMES.items():
+            k = k.replace(f"attentions.0.{new}.", f"attentions.0.{old}.")
+        vae[k] = v
+    torch.save(vae, os.path.join(sd21, "vae", "diffusion_pytorch_model.bin"))
+    dino_sd = _f32_state_dict(dino)
+    dino_sd["embeddings.mask_token"] = torch.zeros(
+        1, dino_sd["embeddings.cls_token"].shape[-1])
+    torch.save(dino_sd, os.path.join(dino_dir, "pytorch_model.bin"))
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, files in os.walk(root) for f in files
+                 if f.endswith((".pt", ".bin")))
+    return ["--weights_name", ckpt, "--pretrained_model_name_or_path", sd21,
+            "--image_encoder_p_path", dino_dir], nbytes
+
+
+def phase_weights(fa, dev):
+    """Weight loading at full width: the stage-2 batch test's
+    ``--random_init`` models (phase 9's seed: DINOv2-giant, the stage-2
+    UNet, the VAE, the projections) saved in the reference's layouts as f32
+    files (``_write_reference_layouts``), then ``cli/stage2_batchtest.main``
+    once with ``--random_init`` and once from the files (no
+    ``--random_init``) on 2 pairs (UniPC 3 steps, 2 per prompt): the PNGs
+    must be byte-identical. Prints the bytes written and the seconds the
+    CLI's ``build_models`` takes each way. Fails, never skips, when the
+    disk lacks room for the files. Returns the launches of the two runs."""
+    import shutil
+
+    from pcdms_tpu_torch.cli import stage2_batchtest as cli
+
+    build, build_s = cli.build_models, []
+
+    def timed_build(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = build(*args, **kwargs)
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t0)
+        return out
+
+    with tempfile.TemporaryDirectory() as root:
+        free = shutil.disk_usage(root).free
+        if free < 1.15 * WEIGHT_FILE_BYTES:
+            fail(f"phase_weights needs {1.15 * WEIGHT_FILE_BYTES / 1e9:.1f} "
+                 f"GB free under {root}, has {free / 1e9:.1f} GB")
+        names = _batchtest_dataset(root)
+        base = ["--json_path", os.path.join(root, "test_pairs.json"),
+                "--image_root_path", root, "--batch_size", "2", "--seed",
+                str(SEED), "--num_inference_steps", "3", "--scheduler",
+                "unipc", "--num_images_per_prompt", "2",
+                "--prior_embeds_dir", os.path.join(root, "prior")]
+        models, dino, _ = build(cli.parse_args(
+            base + ["--save_path", root, "--random_init"]), False, dev)
+        t0 = time.perf_counter()
+        flags, nbytes = _write_reference_layouts(
+            os.path.join(root, "weights"), models, dino)
+        write_s = time.perf_counter() - t0
+        del models, dino
+        gc.collect()
+        torch.cuda.empty_cache()
+        files, counts = {}, {}
+        cli.build_models = timed_build
+        try:
+            for label, extra in (("random", ["--random_init"]),
+                                 ("loaded", flags)):
+                fa.reset_launches()
+                written = cli.main(base + extra + [
+                    "--save_path", os.path.join(root, label)])
+                torch.cuda.synchronize()
+                _add(counts, {n: c for n, c in fa.LAUNCHES.items() if c})
+                files[label] = [open(p, "rb").read() for p in written]
+                if [os.path.basename(p) for p in written] != names:
+                    fail(f"phase_weights ({label}): expected one PNG per "
+                         f"pair")
+        finally:
+            cli.build_models = build
+    same = files["random"] == files["loaded"]
+    print(f"[weights] the stage-2 batch test's full-width models saved in "
+          f"the reference layouts: {nbytes} bytes ({nbytes / 1e9:.2f} GB) "
+          f"in {write_s:.2f} s; build_models {build_s[0]:.2f} s with "
+          f"--random_init, {build_s[1]:.2f} s loading the files; PNGs "
+          f"byte-identical: {same}; launches {counts}", flush=True)
+    if not same:
+        fail("the batch test from the loaded files wrote other PNGs than "
+             "its --random_init run")
+    return counts
+
+
+def card_name_and_limit() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def _serve_request(rng, embed_dim=1024):
+    import numpy as np
+    canvas = rng.uniform(-1, 1, (512, 1024, 3)).astype(np.float32)
+    canvas[:, 512:] = -1.0
+    return dict(vae_image=canvas,
+                st_pose=rng.uniform(-1, 1, (512, 1024, 3)).astype(np.float32),
+                dino_features=rng.standard_normal((257, 1536)).astype(
+                    np.float32),
+                embed=rng.standard_normal((embed_dim,)).astype(np.float32))
+
+
+def phase_serve(fa, dev):
+    """The serving stack at full width. ``Stage2Service`` over the stage-2
+    UNet, VAE and projections (bf16, a 512x1024 canvas, UniPC 3 steps,
+    buckets 1 / 2 / 4, warmed) behind ``ServingServer`` on 127.0.0.1: 8
+    concurrent HTTP requests (7 seeds, one request twice), then a request
+    alone twice (bucket 1, the same bits) and packed with three others
+    twice (bucket 4, the same bits; against bucket 1 within
+    BAR_UNET_REL_L2); frozen launches = 15 x 3 per batch, warmup included.
+    Then ``CascadeService`` (the full prior in f32 and stages 2 and 3 in
+    bf16, every stage at 3 UniPC steps, the service's one step count, as the
+    JAX service's; buckets 1 / 2): the same seed twice gives the same bits,
+    and its ``inpainted`` image against ``Stage2Service`` given its
+    ``embeds`` and seed. Last the serve CLI's deployment
+    (``cli/serve.py::build_deployment``, random weights from the seed): a
+    ``ShapeRouter`` over 512 and 256 per side sharing one set of bf16
+    modules, a request to each at once (two engine threads launching
+    together), HTTP 400 for another shape. Returns the launches."""
+    import threading
+
+    import numpy as np
+
+    from pcdms_tpu_torch.cli import serve as serve_cli
+    from pcdms_tpu_torch.serve.http import ServingServer, post_npz
+    from pcdms_tpu_torch.serve.router import ShapeRouter
+    from pcdms_tpu_torch.serve.stage2 import CascadeService, Stage2Service
+
+    steps, card = 3, card_name_and_limit()
+    models = build_models(dev)
+    rng = np.random.default_rng(SEED + 70)
+    reqs = [_serve_request(rng) for _ in range(7)]
+    total = {}
+
+    def frozen():
+        return {n: c for n, c in fa.LAUNCHES.items() if c}
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    svc = Stage2Service(models, num_steps=steps, buckets=(1, 2, 4),
+                        max_delay_ms=50.0, warmup=True)
+    warm_s = time.perf_counter() - t0
+    try:
+        with ServingServer(svc, port=0, request_timeout_s=300) as server:
+            outs, lats = [None] * 8, [0.0] * 8
+            wave = [dict(r, seed=i) for i, r in enumerate(reqs)] + [
+                dict(reqs[0], seed=0)]
+
+            def call(i):
+                t = time.perf_counter()
+                outs[i] = post_npz("127.0.0.1", server.port, wave[i],
+                                   timeout=300)["image"]
+                lats[i] = time.perf_counter() - t
+
+            threads = [threading.Thread(target=call, args=(i,))
+                       for i in range(8)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(600)
+            wall = time.perf_counter() - t0
+            if any(th.is_alive() for th in threads) or any(
+                    o is None or o.shape != (512, 1024, 3)
+                    or not np.isfinite(o).all() for o in outs):
+                fail("Stage2Service over HTTP: expected 8 finite (512, 1024, "
+                     "3) images")
+            repeat_rel = _rel_l2(torch.from_numpy(outs[7]),
+                                 torch.from_numpy(outs[0]))
+            wave_stats = svc.stats()
+
+            def packed(seeds):
+                futs = [svc.submit(**dict(reqs[i], seed=s))
+                        for i, s in enumerate(seeds)]
+                return [f.result(300) for f in futs]
+
+            alone = [packed([0])[0] for _ in range(2)]
+            four = [packed([0, 1, 2, 3])[0] for _ in range(2)]
+            cross = _rel_l2(torch.from_numpy(four[0]),
+                            torch.from_numpy(alone[0]))
+    finally:
+        svc.close()
+    torch.cuda.synchronize()
+    counts, st = frozen(), svc.stats()
+    batches = st["batches"] + 3                   # and the warmup's buckets
+    print(f"[serve] Stage2Service 512x1024 bf16 UniPC-{steps}, buckets "
+          f"(1, 2, 4), warmup {warm_s:.2f} s; 8 concurrent HTTP requests in "
+          f"{wall:.2f} s = {8 / wall:.3f} images/s (a smoke reading of 8 "
+          f"requests, not a serving rate), latency per request s "
+          f"{[round(x, 3) for x in lats]}; the repeated request vs its first "
+          f"copy rel_l2 {repeat_rel:.3e}; the wave's counters {wave_stats}; "
+          f"{card}", flush=True)
+    print(f"[serve] a request alone twice: same bits {np.array_equal(*alone)}"
+          f"; packed in bucket 4 twice: same bits {np.array_equal(*four)}; "
+          f"bucket 4 vs bucket 1 rel_l2 {cross:.3e} (bar "
+          f"{BAR_UNET_REL_L2:g}); counters {st}; launches {counts} over "
+          f"{batches} batches (warmup included)", flush=True)
+    if not (np.array_equal(*alone) and np.array_equal(*four)):
+        fail("Stage2Service: the same request in the same bucket gave "
+             "other bits")
+    if not (cross <= BAR_UNET_REL_L2 and repeat_rel <= BAR_UNET_REL_L2):
+        fail("Stage2Service: bucket 4 and bucket 1 disagree beyond the bar")
+    if counts != {"flash_frozen": FORWARD_LAUNCHES["flash_frozen"] * steps
+                  * batches}:
+        fail(f"Stage2Service: expected {15 * steps} frozen launches per "
+             f"batch over {batches} batches, got {counts}")
+    _add(total, counts)
+
+    prior = build_prior(dev)
+    s3_models = build_stage3_models(dev)
+    creq = dict(s_embed=rng.standard_normal(1024).astype(np.float32),
+                s_pose=rng.uniform(0, 1, 36).astype(np.float32),
+                t_pose=rng.uniform(0, 1, 36).astype(np.float32),
+                vae_image=reqs[0]["vae_image"], st_pose=reqs[0]["st_pose"],
+                dino_features=reqs[0]["dino_features"], seed=5)
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    casc = CascadeService({"prior": prior}, models, s3_models, steps=steps,
+                          buckets=(1, 2), warmup=True)
+    warm_s = time.perf_counter() - t0
+    single = Stage2Service(models, num_steps=steps, buckets=(1,))
+    try:
+        t0 = time.perf_counter()
+        outs = [casc.submit(**creq).result(300) for _ in range(2)]
+        casc_s = (time.perf_counter() - t0) / 2
+        img = single.submit(vae_image=creq["vae_image"],
+                            st_pose=creq["st_pose"],
+                            dino_features=creq["dino_features"],
+                            embed=outs[0]["embeds"], seed=5).result(300)
+    finally:
+        casc.close()
+        single.close()
+    torch.cuda.synchronize()
+    counts = frozen()
+    shapes = {k: v.shape for k, v in outs[0].items()}
+    same = all(np.array_equal(outs[0][k], outs[1][k]) for k in outs[0])
+    port_rel = _rel_l2(torch.from_numpy(img),
+                       torch.from_numpy(outs[0]["inpainted"]))
+    print(f"[serve] CascadeService (prior f32, stages 2 / 3 bf16, all at "
+          f"UniPC-{steps}), buckets (1, 2), warmup {warm_s:.2f} s: "
+          f"{casc_s:.2f} s per request; shapes {shapes}; the same seed "
+          f"twice, same bits: {same}; its inpainted vs Stage2Service given "
+          f"its embeds and seed rel_l2 {port_rel:.3e}; counters "
+          f"{casc.stats()}; launches {counts}", flush=True)
+    want = {"embeds": (1024,), "inpainted": (512, 1024, 3),
+            "refined": (512, 512, 3)}
+    if shapes != want or not same or not all(
+            np.isfinite(v).all() for v in outs[0].values()):
+        fail(f"CascadeService: expected the same finite outputs of shapes "
+             f"{want} for the same seed")
+    if not port_rel <= BAR_UNET_REL_L2:
+        fail("CascadeService and Stage2Service disagree for one seed")
+    per_batch = FORWARD_LAUNCHES["flash_frozen"] + STAGE3_FORWARD_FROZEN
+    want = per_batch * steps * (casc.stats()["batches"] + 2) + (
+        FORWARD_LAUNCHES["flash_frozen"] * steps)
+    if counts != {"flash_frozen": want}:
+        fail(f"CascadeService: expected {want} frozen launches (25 per step "
+             f"of a batch, warmup included, and 15 per step of the stage-2 "
+             f"request), got {counts}")
+    _add(total, counts)
+
+    del s3_models, prior
+    gc.collect()
+    # the serve CLI's deployment, as ``pcdms-torch-serve`` builds it: full
+    # width, modules loaded once in bf16 and shared by both canvases
+    fa.reset_launches()
+    router = serve_cli.build_deployment(serve_cli.parse_args([
+        "--model", "stage2", "--random_init", "--seed", str(SEED),
+        "--canvas", "512", "512", "--canvas", "256", "256",
+        "--num_inference_steps", str(steps), "--buckets", "1"]))
+    try:
+        services = [router._by_canvas[c] for c in router.canvases] if (
+            isinstance(router, ShapeRouter)) else []
+        shared = len(services) == 2 and all(
+            services[0]._models[k] is services[1]._models[k]
+            for k in services[0]._models)
+        dtypes = {p.dtype for svc in services
+                  for p in svc._models["unet"].parameters()}
+        if not shared or dtypes != {torch.bfloat16}:
+            fail(f"serve CLI: expected a ShapeRouter over two canvases "
+                 f"sharing one set of bf16 modules, got {type(router)} "
+                 f"over {len(services)} services, shared {shared}, unet "
+                 f"dtypes {dtypes}")
+        with ServingServer(router, port=0, request_timeout_s=300) as server:
+            small = dict(reqs[1], seed=1)
+            small.update({k: np.ascontiguousarray(small[k][::2, ::2])
+                          for k in ("vae_image", "st_pose")})
+            got = [None, None]
+
+            def routed(i, r):
+                got[i] = post_npz("127.0.0.1", server.port, r,
+                                  timeout=300)["image"]
+
+            # the two engines launch at once, each from its own thread
+            threads = [threading.Thread(target=routed, args=(i, r))
+                       for i, r in enumerate((dict(reqs[0], seed=0), small))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(600)
+            if any(g is None for g in got):
+                fail("ShapeRouter: a request got no image")
+            try:
+                post_npz("127.0.0.1", server.port,
+                         dict(small, vae_image=small["vae_image"][:, :384]),
+                         timeout=300)
+                refused = None
+            except RuntimeError as e:
+                refused = str(e)[:60]
+    finally:
+        router.close()
+    torch.cuda.synchronize()
+    counts = frozen()
+    print(f"[serve] serve CLI's ShapeRouter (build_deployment, --canvas 512 "
+          f"512 --canvas 256 256, one set of bf16 modules, warmed), a request "
+          f"to each at once: shapes {[g.shape for g in got]}; another shape: "
+          f"{refused}; counters {router.stats()}; launches {counts}",
+          flush=True)
+    if ([g.shape for g in got] != [(512, 1024, 3), (256, 512, 3)]
+            or refused is None or "HTTP 400" not in refused):
+        fail("ShapeRouter: expected one image per canvas and HTTP 400 for "
+             "another shape")
+    _add(total, counts)
+    del models, router, services
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2416,16 +2800,14 @@ def main() -> int:
     phase_cli()
     phase_batchtest(fa)
     phase_protocol(fa)
+    _add(launches, phase_weights(fa, dev))
+    _add(launches, phase_serve(fa, dev))
     for kernel in KERNELS:
         if not launches.get(kernel):
             fail(f"kernel {kernel} was not launched on its path")
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card_name_and_limit())
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src, replaces=tpu,
              launches=launches[k], **records[k])

@@ -21,8 +21,7 @@ def setup_logging():
 
 def add_common_train_flags(p: argparse.ArgumentParser):
     p.add_argument("--pretrained_model_name_or_path", type=str, default=None,
-                   help="local SD-2.1 model dir (not ported yet: pass "
-                        "--random_init)")
+                   help="local SD-2.1 model dir (its unet/ and vae/)")
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--img_height", type=int, default=512)
@@ -140,29 +139,33 @@ def tiny_configs() -> SimpleNamespace:
 
 
 def check_weight_flags(args, pretrained_flags, frozen_what: str) -> None:
-    """Raise for the flags that load pretrained weights (not ported yet),
-    and when neither ``--random_init`` nor ``--train_ckpt_dir`` is given;
-    exit when ``--train_ckpt_dir`` comes without its ``--frozen_dir``."""
-    given = [f"--{f}" for f in pretrained_flags if getattr(args, f)]
-    if given or not (args.random_init or args.train_ckpt_dir):
-        raise NotImplementedError(
-            f"loading pretrained weights ({', '.join(given) or 'the default'}"
-            f") is not ported yet (ROADMAP item 18): pass --random_init, or "
-            f"--train_ckpt_dir with --frozen_dir")
+    """Exit where the JAX package's CLI cannot go on: ``--train_ckpt_dir``
+    without its ``--frozen_dir``, and pretrained loading (neither
+    ``--random_init`` nor ``--train_ckpt_dir``) without the files it reads,
+    ``pretrained_flags``."""
     if args.train_ckpt_dir and not args.frozen_dir:
         raise SystemExit(f"--train_ckpt_dir needs --frozen_dir ({frozen_what}"
                          f")")
+    if args.random_init or args.train_ckpt_dir:
+        return
+    missing = [f"--{f}" for f in pretrained_flags if not getattr(args, f)]
+    if missing:
+        raise SystemExit(f"{', '.join(missing)} required without "
+                         f"--random_init or --train_ckpt_dir")
 
 
-def build_cli_models(args, trainable, frozen, device):
+def build_cli_models(args, trainable, frozen, device, pretrained=None):
     """{name: module} on ``device``: ``trainable`` from the checkpoint in
     ``args.train_ckpt_dir`` (the EMA shadow if the run kept one) and
-    ``frozen`` from the bundle in ``args.frozen_dir``, or all of them drawn
-    from ``args.seed`` in that order (``--random_init``). Both map a name
-    to a function that makes the module."""
+    ``frozen`` from the bundle in ``args.frozen_dir``; or all of them drawn
+    from ``args.seed`` in that order (``--random_init``); or else all of
+    them loaded from the pretrained files, ``pretrained()`` returning
+    {name: state dict} (``compat/load.py``). ``trainable`` and ``frozen``
+    map a name to a function that makes the module."""
     from pcdms_tpu_torch.train.frozen import (
         load_frozen_modules, load_trained_params,
     )
+    builders = {**trainable, **frozen}
     with torch.device(device):
         if args.train_ckpt_dir:
             trained = load_trained_params(args.train_ckpt_dir)
@@ -171,11 +174,28 @@ def build_cli_models(args, trainable, frozen, device):
                 models[name] = build()
                 models[name].load_state_dict(trained[name])
             models.update(load_frozen_modules(args.frozen_dir, frozen))
-        else:
+        elif args.random_init:
             torch.manual_seed(args.seed)
-            models = {name: build()
-                      for name, build in {**trainable, **frozen}.items()}
+            models = {name: build() for name, build in builders.items()}
+        else:
+            from pcdms_tpu_torch.compat.load import load_into
+            weights = pretrained()
+            models = {name: load_into(build(), weights.pop(name), name)
+                      for name, build in builders.items()}
     return {k: m.eval() for k, m in models.items()}
+
+
+def pretrained_vae_dino(args, dino_cfg) -> dict:
+    """{"vae", "dino"} state dicts from ``--pretrained_model_name_or_path``
+    and ``--image_encoder_p_path`` (``compat/load.py``). DINOv2's position
+    embeddings are resized to ``dino_cfg``'s grid: (16, 16) at full width,
+    as the JAX loader does; the tiny DINOv2's (7, 7), where the JAX CLI
+    resizes its (16, 16) once more at run time."""
+    from pcdms_tpu_torch.compat.load import load_dinov2, load_sd_vae
+    grid = dino_cfg.image_size // dino_cfg.patch_size
+    return {"vae": load_sd_vae(args.pretrained_model_name_or_path),
+            "dino": load_dinov2(args.image_encoder_p_path,
+                                target_grid=(grid, grid))}
 
 
 def per_item_latents(seed, global_indices, num_samples, shape):

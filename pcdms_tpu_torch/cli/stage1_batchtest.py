@@ -11,9 +11,11 @@ ground-truth target embeddings is appended to ``a_results.txt``.
     python -m pcdms_tpu_torch.cli.stage1_batchtest --random_init \\
         --json_path test_pairs.json --image_root_path <root> --save_path out
 
-Weights: ``--random_init`` (from ``--seed``), or a port training run's
-checkpoint (``--train_ckpt_dir``, its ``prior``) with the frozen-encoder
-bundle it used (``--frozen_dir``, its ``clip``). The prior runs in f32; the
+Weights: the reference's files (``--weights_name``, the trained prior;
+``--image_encoder_path``, CLIP ViT-H; ``compat/load.py``), ``--random_init``
+(from ``--seed``), or a port training run's checkpoint
+(``--train_ckpt_dir``, its ``prior``) with the frozen-encoder bundle it
+used (``--frozen_dir``, its ``clip``). The prior runs in f32; the
 CLIP encoder keeps f32 weights and computes in bf16, on the source and
 target images of a batch in one pass.
 """
@@ -48,9 +50,9 @@ def parse_args(argv=None):
                    help="unused; flag parity")
     p.add_argument("--save_path", type=str, required=True)
     p.add_argument("--weights_name", type=str, default=None,
-                   help="trained prior checkpoint (not ported yet)")
+                   help="trained prior checkpoint (a state dict file)")
     p.add_argument("--image_encoder_path", type=str, default=None,
-                   help="CLIP ViT-H dir (not ported yet)")
+                   help="CLIP ViT-H dir")
     p.add_argument("--num_inference_steps", type=int, default=20)
     p.add_argument("--guidance_scale", type=float, default=0.0)
     p.add_argument("--batch_size", type=int, default=64)
@@ -70,7 +72,7 @@ def parse_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Raise for flags whose code is not ported yet."""
+    """Exit where the JAX CLI cannot go on (``cli/common.py``)."""
     check_weight_flags(args, _PRETRAINED_FLAGS,
                        "the CLIP encoder the run trained against")
 
@@ -88,9 +90,18 @@ def build_models(args, device):
         prior_cfg, clip_cfg = tiny.prior, tiny.clip
     else:
         prior_cfg, clip_cfg = PriorConfig(), clip_vit_h14_config()
+
+    def pretrained():
+        from pcdms_tpu_torch.compat.load import (
+            load_clip_vision, load_state_dict, split_reference_checkpoint,
+        )
+        sd = load_state_dict(args.weights_name)
+        return {"prior": split_reference_checkpoint(sd).get("prior", sd),
+                "clip": load_clip_vision(args.image_encoder_path)}
+
     models = build_cli_models(
         args, {"prior": lambda: PriorTransformer(prior_cfg)},
-        {"clip": lambda: VisionTransformer(clip_cfg)}, device)
+        {"clip": lambda: VisionTransformer(clip_cfg)}, device, pretrained)
     clip = models.pop("clip")
     return models, clip
 

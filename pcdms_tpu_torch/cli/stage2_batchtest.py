@@ -16,10 +16,13 @@ Conditioning follows the reference: if the json file name starts with
 stage-1 ``.npy`` predictions come from ``--prior_embeds_dir``.
 ``--simple_variant`` (no class embedding) needs neither.
 
-Weights: ``--random_init`` (from ``--seed``), or a port training run's
-checkpoint (``--train_ckpt_dir``) with the frozen-encoder bundle it used
-(``--frozen_dir``: vae, dino, and clip for train mode). One process drives
-one card: there is no mesh.
+Weights: the reference's files (``--weights_name``, the monolithic stage-2
+checkpoint; ``--pretrained_model_name_or_path``, SD-2.1's VAE;
+``--image_encoder_p_path``, DINOv2-giant; ``--image_encoder_g_path``, CLIP
+ViT-H for train mode; ``compat/load.py``), ``--random_init`` (from
+``--seed``), or a port training run's checkpoint (``--train_ckpt_dir``)
+with the frozen-encoder bundle it used (``--frozen_dir``: vae, dino, and
+clip for train mode). One process drives one card: there is no mesh.
 """
 
 from __future__ import annotations
@@ -34,16 +37,18 @@ import torch
 
 from pcdms_tpu_torch.cli.common import (
     build_cli_models, check_weight_flags, device_select_best, device_uint8,
-    per_item_latents, queue_readback, save_images, setup_logging,
-    tiny_configs, wait_readback,
+    per_item_latents, pretrained_vae_dino, queue_readback, save_images,
+    setup_logging, tiny_configs, wait_readback,
 )
 from pcdms_tpu_torch.data.datasets import pair_stem
 from pcdms_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("pcdms_tpu_torch.stage2_batchtest")
 
+# the files pretrained loading reads (and --image_encoder_g_path in train
+# mode)
 _PRETRAINED_FLAGS = ("weights_name", "pretrained_model_name_or_path",
-                     "image_encoder_p_path", "image_encoder_g_path")
+                     "image_encoder_p_path")
 
 
 def parse_args(argv=None):
@@ -52,13 +57,13 @@ def parse_args(argv=None):
     p.add_argument("--image_root_path", type=str, default="")
     p.add_argument("--save_path", type=str, required=True)
     p.add_argument("--weights_name", type=str, default=None,
-                   help="monolithic stage-2 checkpoint (not ported yet)")
+                   help="monolithic stage-2 checkpoint (.pt)")
     p.add_argument("--pretrained_model_name_or_path", type=str, default=None,
-                   help="SD-2.1 model dir (not ported yet)")
+                   help="SD-2.1 model dir (its vae/)")
     p.add_argument("--image_encoder_p_path", type=str, default=None,
-                   help="DINOv2-giant dir (not ported yet)")
+                   help="DINOv2-giant dir")
     p.add_argument("--image_encoder_g_path", type=str, default=None,
-                   help="CLIP ViT-H dir (not ported yet)")
+                   help="CLIP ViT-H dir (train-mode GT conditioning)")
     p.add_argument("--prior_embeds_dir", type=str, default=None,
                    help="stage-1 .npy output dir (test mode)")
     p.add_argument("--img_width", type=int, default=512)
@@ -107,7 +112,7 @@ def parse_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Raise for flags whose code is not ported yet."""
+    """Exit where the JAX CLI cannot go on (``cli/common.py``)."""
     check_weight_flags(args, _PRETRAINED_FLAGS,
                        "the VAE / DINOv2 the run trained against")
 
@@ -161,8 +166,22 @@ def build_models(args, train_mode: bool, device):
               "dino": lambda: VisionTransformer(dino_cfg)}
     if train_mode:
         frozen["clip"] = lambda: VisionTransformer(clip_cfg)
+
+    def pretrained():
+        from pcdms_tpu_torch.compat.load import (
+            load_clip_vision, load_pcdms_stage2_checkpoint,
+        )
+        if train_mode and not args.image_encoder_g_path:
+            raise SystemExit("train mode needs --image_encoder_g_path "
+                             "without --random_init or --train_ckpt_dir")
+        weights = load_pcdms_stage2_checkpoint(args.weights_name)
+        weights.update(pretrained_vae_dino(args, dino_cfg))
+        if train_mode:
+            weights["clip"] = load_clip_vision(args.image_encoder_g_path)
+        return weights
+
     models = {k: m.to(torch.bfloat16) for k, m in build_cli_models(
-        args, trainable, frozen, device).items()}
+        args, trainable, frozen, device, pretrained).items()}
     dino, clip = models.pop("dino"), models.pop("clip", None)
     return models, dino, clip
 

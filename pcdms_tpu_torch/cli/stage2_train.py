@@ -6,9 +6,14 @@ CUDA card unless ``--device cpu`` is given.
         --synthetic_data --output_dir out --img_height 512 --img_width 512 \\
         --train_batch_size 2 --max_train_steps 100
 
-What this slice ports: random-init models (``--random_init``, full width or
-``--tiny_config``) trained on synthetic batches. Flags that need unported
-parts raise ``NotImplementedError`` naming their ROADMAP item.
+Models: random from ``--seed`` (``--random_init``), or the UNet and VAE of
+the SD-2.1 dir ``--pretrained_model_name_or_path`` (``compat/load.py``):
+``conv_in`` grows from 4 to 9 input channels with zeros, and a UNet without
+a class embedding gets a seeded one, as the JAX CLI does; the projections
+are drawn from ``--seed``. The JAX CLI draws ``--tiny_config`` models at
+random whatever the flags; the port loads the dir at any geometry. Batches
+are synthetic. Flags that need unported parts raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -32,10 +37,10 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     add_common_train_flags(p)
     p.add_argument("--image_encoder_p_path", type=str, default=None,
-                   help="local DINOv2-giant dir (used with the DeepFashion "
+                   help="local DINOv2-giant dir (read by the DeepFashion "
                         "data path, not ported yet)")
     p.add_argument("--image_encoder_g_path", type=str, default=None,
-                   help="local CLIP ViT-H dir (used with the DeepFashion "
+                   help="local CLIP ViT-H dir (read by the DeepFashion "
                         "data path, not ported yet)")
     p.add_argument("--imgp_drop_rate", type=float, default=0.1)
     p.add_argument("--imgg_drop_rate", type=float, default=0.1)
@@ -47,11 +52,8 @@ def parse_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Raise for flags whose code is not ported yet (ROADMAP.md section 1)."""
-    if not args.random_init:
-        raise NotImplementedError(
-            "loading pretrained SD-2.1 weights is not ported yet (ROADMAP "
-            "item 18): pass --random_init")
+    """Raise for flags whose code is not ported yet (ROADMAP.md section 1);
+    exit when pretrained loading has no SD-2.1 dir."""
     if not args.synthetic_data:
         raise NotImplementedError(
             "the DeepFashion data path of the trainer is not ported yet "
@@ -64,6 +66,9 @@ def check_supported(args) -> None:
     if args.report_to is not None:
         raise NotImplementedError("--report_to is not ported yet: metrics "
                                   "log to stdout")
+    if not args.random_init and not args.pretrained_model_name_or_path:
+        raise SystemExit("--pretrained_model_name_or_path required without "
+                         "--random_init")
 
 
 class ModelAux:
@@ -76,8 +81,10 @@ class ModelAux:
 
 
 def build_models(args, device):
-    """(unet_cfg, trainable {unet, image_proj, pose_proj}, frozen vae, aux),
-    random weights from ``args.seed``, f32 on ``device``."""
+    """(unet_cfg, trainable {unet, image_proj, pose_proj}, frozen vae, aux)
+    in f32 on ``device``: random weights from ``args.seed``, the UNet and VAE
+    loaded from ``args.pretrained_model_name_or_path`` without
+    ``--random_init``."""
     import dataclasses
 
     from pcdms_tpu_torch.models.projections import (
@@ -107,9 +114,49 @@ def build_models(args, device):
             "image_proj": ImageProjModel(**proj_kw),
             "pose_proj": PoseCondEmbedding(**pose_kw),
         }
-        vae = frozen_dir_or_build(
-            args.frozen_dir, {"vae": lambda: AutoencoderKL(vae_cfg)})["vae"]
+        root = None if args.random_init else args.pretrained_model_name_or_path
+        if root:
+            from pcdms_tpu_torch.compat.load import load_into, load_sd_unet
+            sd = _grow_conv_in(load_sd_unet(root), unet_cfg)
+            sd = _maybe_init_class_embedding(sd, unet_cfg, args.seed)
+            load_into(trainable["unet"], sd, "unet")
+
+        def build_vae():
+            vae = AutoencoderKL(vae_cfg)
+            if root:
+                from pcdms_tpu_torch.compat.load import load_into, load_sd_vae
+                load_into(vae, load_sd_vae(root), "vae")
+            return vae
+
+        vae = frozen_dir_or_build(args.frozen_dir, {"vae": build_vae})["vae"]
     return unet_cfg, trainable, vae.eval(), aux
+
+
+def _grow_conv_in(sd, cfg):
+    """SD-2.1's 4-channel ``conv_in`` grown to ``cfg.in_channels`` with
+    zero weights for the extra inputs (the reference's
+    ``ignore_mismatched_sizes``); the file's channels are kept as they are."""
+    w = sd["conv_in.weight"]
+    if w.shape[1] < cfg.in_channels:
+        extra = torch.zeros((w.shape[0], cfg.in_channels - w.shape[1])
+                            + tuple(w.shape[2:]), dtype=w.dtype)
+        sd["conv_in.weight"] = torch.cat([w, extra], dim=1)
+    return sd
+
+
+def _maybe_init_class_embedding(sd, cfg, seed):
+    """A class embedding drawn from ``seed`` when the config has one and the
+    file does not (SD-2.1 has none; the stage-2 UNet projects the target
+    CLIP embedding through it)."""
+    if cfg.class_embed_proj_dim and "class_embedding.linear_1.weight" not in sd:
+        from pcdms_tpu_torch.nn.layers import TimestepEmbedding
+        with torch.device("cpu"), torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            emb = TimestepEmbedding(cfg.class_embed_proj_dim,
+                                    cfg.time_embed_dim)
+        sd.update({f"class_embedding.{k}": v
+                   for k, v in emb.state_dict().items()})
+    return sd
 
 
 def synthetic_batches(args, aux=None):

@@ -12,9 +12,12 @@ and write it as ``{src}_to_{tgt}.png`` (with ``--grid_output`` also a
         --json_path test_pairs.json --image_root_path <root> \\
         --gen_dir <stage-2 PNG dir> --save_path out --batch_size 2
 
-Weights: ``--random_init`` (from ``--seed``), or a port training run's
-checkpoint (``--train_ckpt_dir``: unet, image_proj) with the frozen-encoder
-bundle it used (``--frozen_dir``: vae, dino).
+Weights: the reference's files (``--weights_name``, the monolithic stage-3
+checkpoint; ``--pretrained_model_name_or_path``, SD-2.1's VAE;
+``--image_encoder_p_path``, DINOv2-giant; ``compat/load.py``),
+``--random_init`` (from ``--seed``), or a port training run's checkpoint
+(``--train_ckpt_dir``: unet, image_proj) with the frozen-encoder bundle it
+used (``--frozen_dir``: vae, dino).
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ import torch
 
 from pcdms_tpu_torch.cli.common import (
     build_cli_models, check_weight_flags, device_select_best, device_uint8,
-    per_item_latents, queue_readback, save_images, setup_logging,
-    tiny_configs, wait_readback,
+    per_item_latents, pretrained_vae_dino, queue_readback, save_images,
+    setup_logging, tiny_configs, wait_readback,
 )
 from pcdms_tpu_torch.cli.stage2_batchtest import best_of_n_ssim
 from pcdms_tpu_torch.data.datasets import pair_stem
@@ -49,11 +52,11 @@ def parse_args(argv=None):
     p.add_argument("--gen_dir", type=str, required=True)
     p.add_argument("--save_path", type=str, required=True)
     p.add_argument("--weights_name", type=str, default=None,
-                   help="stage-3 checkpoint (not ported yet)")
+                   help="monolithic stage-3 checkpoint (.pt)")
     p.add_argument("--pretrained_model_name_or_path", type=str, default=None,
-                   help="SD-2.1 model dir (not ported yet)")
+                   help="SD-2.1 model dir (its vae/)")
     p.add_argument("--image_encoder_p_path", type=str, default=None,
-                   help="DINOv2-giant dir (not ported yet)")
+                   help="DINOv2-giant dir")
     p.add_argument("--img_width", type=int, default=512)
     p.add_argument("--img_height", type=int, default=512)
     p.add_argument("--num_inference_steps", type=int, default=20)
@@ -86,7 +89,7 @@ def parse_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Raise for flags whose code is not ported yet."""
+    """Exit where the JAX CLI cannot go on (``cli/common.py``)."""
     check_weight_flags(args, _PRETRAINED_FLAGS,
                        "the VAE / DINOv2 the run trained against")
 
@@ -112,8 +115,15 @@ def build_models(args, device):
                  "image_proj": lambda: ImageProjModel(**proj_kw)}
     frozen = {"vae": lambda: AutoencoderKL(vae_cfg),
               "dino": lambda: VisionTransformer(dino_cfg)}
+
+    def pretrained():
+        from pcdms_tpu_torch.compat.load import load_pcdms_stage3_checkpoint
+        weights = load_pcdms_stage3_checkpoint(args.weights_name)
+        weights.update(pretrained_vae_dino(args, dino_cfg))
+        return weights
+
     models = {k: m.to(torch.bfloat16) for k, m in build_cli_models(
-        args, trainable, frozen, device).items()}
+        args, trainable, frozen, device, pretrained).items()}
     return models, models.pop("dino")
 
 

@@ -8,22 +8,28 @@ and loaded with ``ctypes``. The builds run at first use, all ``nvcc``
 processes started together, from the repository's sources only, into
 ``build/`` at the repository root; a library's file name carries a hash of
 its source and of the shared headers, so an edited source is rebuilt and a
-stale one never loads. Nothing here runs at import time.
+stale one never loads. Nothing here runs at import time. One lock
+serialises building and loading, so threads that launch kernels at once (a
+server's engine threads) wait for one build; each writer's temporary file
+is named for its process and thread.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+# held by build() and library() around building and loading
+_LOCK = threading.Lock()
+_LOADED = {}      # source stem -> its loaded library
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # source stem -> {C entry -> argtypes}; every entry returns
@@ -68,6 +74,11 @@ def build() -> dict:
     {source stem: seconds its nvcc took (0.0 if cached)}. The compiler's
     report (registers, shared memory, spills per kernel) is kept beside
     each library as ``.log``."""
+    with _LOCK:
+        return _build_all()
+
+
+def _build_all() -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, seconds = {}, {}
     start = time.perf_counter()
@@ -76,7 +87,7 @@ def build() -> dict:
         seconds[stem] = 0.0
         if lib.exists():
             continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         procs[stem] = (lib, tmp, subprocess.Popen(
             [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
              "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -96,18 +107,25 @@ def build() -> dict:
     return seconds
 
 
-@functools.lru_cache(maxsize=None)
 def library(stem: str) -> ctypes.CDLL:
     """The loaded kernel library built from ``csrc/<stem>.cu``, built (with
-    the others) on first use."""
-    if not _library_path(stem).exists():
-        build()
-    lib = ctypes.CDLL(str(_library_path(stem)))
-    for entry, argtypes in _ENTRIES[stem].items():
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    the others) on first use. A loaded library is returned without the
+    lock; only a miss takes it."""
+    lib = _LOADED.get(stem)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if stem in _LOADED:
+            return _LOADED[stem]
+        if not _library_path(stem).exists():
+            _build_all()
+        lib = ctypes.CDLL(str(_library_path(stem)))
+        for entry, argtypes in _ENTRIES[stem].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LOADED[stem] = lib
+        return lib
 
 
 def build_log(stem: str) -> str:

@@ -137,6 +137,14 @@ inline bool make_tensor_map(CUtensorMap* map, const void* base,
                             const int (&dims)[3], const int (&box)[3]) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
+  // the encoding needs a context current on this host thread, which a
+  // thread that has launched nothing yet lacks (a server's engine thread
+  // whose tensors came from the caching allocator's reuse): cudaSetDevice
+  // binds the device's primary context to the calling thread
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaSetDevice(device) != cudaSuccess)
+    return false;
   const cuuint64_t gdims[3] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1],
                                (cuuint64_t)dims[2]};
   const cuuint64_t strides[2] = {gdims[0] * 2, gdims[0] * gdims[1] * 2};

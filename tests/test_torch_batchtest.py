@@ -135,11 +135,25 @@ def test_pair_list_matches_jax():
 
 
 def test_pretrained_flags_raise():
+    """Pretrained loading is ported (tests/test_torch_load.py): the check
+    exits only where the JAX CLI cannot go on, with no weight files and no
+    other source, or --train_ckpt_dir without --frozen_dir; --random_init
+    wins over the file flags, as in the JAX CLI."""
     base = ["--json_path", "p.json", "--save_path", "out"]
-    for extra in ([], ["--random_init", "--weights_name", "w.pt"],
-                  ["--random_init", "--image_encoder_p_path", "d"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-            check_supported(parse_args(base + extra))
+    with pytest.raises(SystemExit, match="--weights_name, --pretrained_model"
+                       "_name_or_path, --image_encoder_p_path required"):
+        check_supported(parse_args(base))
+    with pytest.raises(SystemExit, match="--pretrained_model_name_or_path "
+                       "required"):
+        check_supported(parse_args(base + ["--weights_name", "w.pt",
+                                           "--image_encoder_p_path", "d"]))
+    with pytest.raises(SystemExit, match="--frozen_dir"):
+        check_supported(parse_args(base + ["--train_ckpt_dir", "c"]))
+    for extra in (["--random_init", "--weights_name", "w.pt"],
+                  ["--random_init", "--image_encoder_p_path", "d"],
+                  ["--weights_name", "w.pt", "--pretrained_model_name_or_"
+                   "path", "sd", "--image_encoder_p_path", "d"]):
+        check_supported(parse_args(base + extra))
     # encoder propagation is ported: the flag passes (run against the JAX
     # CLI in test_cli_matches_jax[enc_prop])
     check_supported(parse_args(base + ["--random_init",

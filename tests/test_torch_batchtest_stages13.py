@@ -135,10 +135,15 @@ def test_pretrained_flags_raise(cli, flag):
     base = ["--json_path", "p.json", "--save_path", "out"]
     if cli is stage3_batchtest:
         base += ["--gen_dir", "gen"]
-    for extra in ([], ["--random_init", flag, "x"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-            cli.check_supported(cli.parse_args(base + extra))
-    with pytest.raises(SystemExit):
+    # pretrained loading is ported (tests/test_torch_load.py): without
+    # --random_init or --train_ckpt_dir each file it reads is required
+    with pytest.raises(SystemExit, match=f"{flag}.* required"):
+        cli.check_supported(cli.parse_args(base))
+    with pytest.raises(SystemExit) as refused:
+        cli.check_supported(cli.parse_args(base + [flag, "x"]))
+    assert flag not in str(refused.value)
+    cli.check_supported(cli.parse_args(base + ["--random_init", flag, "x"]))
+    with pytest.raises(SystemExit, match="--frozen_dir"):
         cli.check_supported(cli.parse_args(base + ["--train_ckpt_dir", "c"]))
 
 

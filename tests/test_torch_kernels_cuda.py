@@ -19,6 +19,7 @@ fused convs against unfused ones.
 """
 
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -988,3 +989,108 @@ def test_decode_only_step_through_the_kernels(cuda, reduced_stage2_unet):
     assert all(torch.equal(a, b) for a, b in zip(skips, kept))
     assert got.shape == (2, 64, 128, 4) and torch.isfinite(got).all()
     assert _rel_l2(got, want) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_cold_build_from_two_threads(cuda, tmp_path, monkeypatch):
+    """Two threads (a server's engine threads) launch the frozen kernel at
+    once on an empty build dir: the lock lets one build run, each library
+    is built once, no temporary file is left behind, and both results
+    agree with the plain version."""
+    from pcdms_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LOADED", {})
+    q, k, v = _qkv(cuda, torch.bfloat16, 10, 512, 512)
+    scale = 1.0 / math.sqrt(D)
+    results, errors = [None, None], []
+    start = threading.Barrier(2)
+
+    def launch(i):
+        try:
+            start.wait(30)
+            results[i] = fa.flash_frozen(q, k, v, scale)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=launch, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    assert len(list(tmp_path.glob("*.so"))) == len(_build._ENTRIES)
+    assert not list(tmp_path.glob("*.tmp"))
+    want = fa.flash_frozen_plain(q, k, v, scale).float()
+    for got in results:
+        err = (got.float() - want).abs().max().item()
+        assert err <= 1e-2 * want.abs().max().item()
+
+
+def _fresh_thread(fn):
+    """Run ``fn`` in a new host thread; -> its result (or raise its
+    exception)."""
+    out = []
+
+    def run():
+        try:
+            out.append(fn())
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 -- re-raised below
+            out.append(e)
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join(300)
+    assert not th.is_alive() and len(out) == 1
+    if isinstance(out[0], Exception):
+        raise out[0]
+    return out[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["frozen", "online", "shortkv", "shortkv80",
+                                    "lse", "dq", "dkv", "fused_conv"])
+def test_kernels_launch_from_fresh_threads(cuda, kernel):
+    """Each bf16 Hopper kernel launched as the first CUDA work of new host
+    threads, one after another (tensors from the caching allocator's reuse,
+    so nothing else binds the thread's context first): every launch right.
+    The tensor-map encoding of a thread's first launch needs the context
+    that ``make_tensor_map`` binds."""
+    d = 80 if kernel == "shortkv80" else D
+    q, k, v = _qkv(cuda, torch.bfloat16, 3, 200, 130, d=d)
+    scale = 1.0 / math.sqrt(d)
+    if kernel in ("frozen", "online", "shortkv", "shortkv80"):
+        name = "shortkv" if kernel.startswith("shortkv") else kernel
+        got, want = _run(name, q, k, v, scale)
+        launch = {"frozen": lambda: fa.flash_frozen(q, k, v, scale),
+                  "online": lambda: fa.flash_online(q, k, v, scale),
+                  "shortkv": lambda: fa.shortkv_attention(q, k, v, scale)}[
+                      name]
+    elif kernel == "lse":
+        want = fb.flash_fwd_lse_plain(q, k, v, scale)[0]
+        launch = lambda: fb.flash_fwd_lse(q, k, v, scale)[0]  # noqa: E731
+    elif kernel in ("dq", "dkv"):
+        o, lse2 = fb.flash_fwd_lse(q, k, v, scale)
+        do = torch.randn_like(o)
+        dsum = fb.row_dot(do, o)
+        want = fb.flash_bwd_plain(q, k, v, o, lse2, do, scale)[
+            0 if kernel == "dq" else 1]
+        launch = (lambda: fb.launch_dq(q, k, v, lse2, do, dsum, scale)
+                  if kernel == "dq" else
+                  fb.launch_dkv(q, k, v, lse2, do, dsum, scale)[0])
+    else:
+        # f32 a / c / bias and a bf16 temb: the wrapper converts nothing, and
+        # the first call re-lays the weight, so a thread's launch is its
+        # first CUDA work
+        x, a, c, w, b, temb, _ = _conv_inputs(cuda, torch.bfloat16, 2, 8,
+                                              16, 64, 128, "temb")
+        b = b.float()
+        want = fc.fused_gn_silu_conv_plain(x, a, c, w, b, temb)
+        fc.fused_gn_silu_conv(x, a, c, w, b, temb)
+        launch = lambda: fc.fused_gn_silu_conv(x, a, c, w, b, temb)  # noqa
+    for _ in range(3):
+        got = _fresh_thread(launch)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 1e-2 * want.float().abs().max().item()

@@ -355,24 +355,30 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path):
 
 
 # what each refusal must name: only what is missing (the DINOv2 / CLIP
-# encoders are ported; the trainer's DeepFashion data path is not)
+# encoders and pretrained loading are ported; the trainer's DeepFashion data
+# path is not), and the exit of pretrained loading without its SD-2.1 dir
+_DATA_PATH = (NotImplementedError,
+              r"DeepFashion data path of the trainer is not ported yet "
+              r"\(ROADMAP item 19b; the DINOv2 / CLIP encoders it feeds are, "
+              r"in train/encoders.py\)")
 _REFUSALS = {
-    (): "pretrained SD-2.1 weights",
-    ("--random_init",): r"DeepFashion data path of the trainer is not ported "
-                        r"yet \(ROADMAP item 19b; the DINOv2 / CLIP encoders "
-                        r"it feeds are, in train/encoders.py\)",
-    ("--synthetic_data",): "pretrained SD-2.1 weights",
-    ("--random_init", "--synthetic_data", "--zero1"): "ZeRO-1",
-    ("--random_init", "--synthetic_data", "--dcn_slices", "2"): "ZeRO-1",
-    ("--random_init", "--synthetic_data", "--report_to", "tensorboard"):
-        "--report_to",
+    (): _DATA_PATH,
+    ("--random_init",): _DATA_PATH,
+    ("--synthetic_data",): (SystemExit, "--pretrained_model_name_or_path "
+                                        "required without --random_init"),
+    ("--random_init", "--synthetic_data", "--zero1"): (NotImplementedError,
+                                                       "ZeRO-1"),
+    ("--random_init", "--synthetic_data", "--dcn_slices", "2"): (
+        NotImplementedError, "ZeRO-1"),
+    ("--random_init", "--synthetic_data", "--report_to", "tensorboard"): (
+        NotImplementedError, "--report_to"),
 }
 
 
 @pytest.mark.parametrize("extra", [list(k) for k in _REFUSALS])
 def test_cli_refuses_unported_flags(tmp_path, extra):
     from pcdms_tpu_torch.cli.stage2_train import main
-    with pytest.raises(NotImplementedError,
-                       match=_REFUSALS[tuple(extra)]) as refused:
+    exc, match = _REFUSALS[tuple(extra)]
+    with pytest.raises(exc, match=match) as refused:
         main(["--output_dir", str(tmp_path), "--device", "cpu"] + extra)
     assert "items 11" not in str(refused.value)
