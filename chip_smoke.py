@@ -93,6 +93,25 @@ Phases, each reported on its own lines:
      calls it: 4 steps, 2 steps with ``remat``, and 7 steps with a
      ``profile_dir`` trace of steps 3-6 (device time by kernel, busy
      share);
+  7b. kernels 4-6 at the stage-3 trainer's shapes (``phase_bwd_stage3``:
+     10 x 4096², 20 x 1024², 80 x 4096², bf16) against their plain versions,
+     timed by CUDA-graph replay beside SDPA's forward and backward; the
+     stage-3 trainer (``phase_train_stage3``): the 8-channel stage-3 UNet at
+     512x512, f32 master weights, bf16 compute, one batch's loss and
+     gradient through the kernels against plain attention, then
+     ``run_training`` 4 steps at batch 2 and 2 steps at the CLI's batch 16
+     with remat (10 launches of each kernel a step, 20 of the LSE forward
+     with remat);
+  7c. the stage-1 trainer (``phase_train_stage1``): the full PriorConfig()
+     at the CLI's batch 128, 4 steps, bf16 compute on f32 weights; a
+     2-layer full-width prior's loss and gradient, card vs CPU;
+  7d. the three trainer CLIs' ``main`` at full width on DeepFashion-layout
+     images (``phase_train_data``: 512x512, 2 pairs, batch 2, 2 steps):
+     stage 2 with DINOv2-giant and CLIP ViT-H on the fly, stage 3 with
+     DINOv2 and ``--gen_dir`` PNGs, stage 1 with CLIP ViT-H, then each from
+     ``--cache_embeddings``: the cache's rows against the encoders' outputs,
+     the memory held with and without the cache (the final checkpoint
+     write is skipped there: 10-12 GB at full width);
   8. ``cli/stage2_train.main`` at the tiny config on the card, 2 steps, then
      resumed from its checkpoint to step 3;
   9. ``cli/stage2_batchtest.main`` at full width with random weights
@@ -1061,6 +1080,22 @@ def _rel_l2(got, want):
     return ((got - want).norm() / want.norm()).item()
 
 
+def bwd_bounds(bh: int, lq: int, lk: int, d: int = 64):
+    """Bounds of kernels 4-6 in bf16: the LSE forward (q, k, v read, o and
+    the f32 LSE written; two products), dq (q, k, v, dO read, dq written,
+    the LSE and D read; three products) and dk / dv (q, k, v, dO read, dk
+    and dv written; four products). {kernel: (ms, bound_by)}."""
+    pair = 2 * bh * lq * lk * d           # flops of one L_q x L_k x d mm
+    io = 2 * (bh * lq * d + bh * lk * d)  # bytes of one q-sized + k-sized
+    return {
+        "flash_fwd_lse": bound(2 * pair, io * 2 + 4 * bh * lq),
+        "flash_dq": bound(3 * pair, 2 * (3 * bh * lq * d + 2 * bh * lk * d)
+                          + 8 * bh * lq),
+        "flash_dkv": bound(4 * pair, 2 * (2 * bh * lq * d + 4 * bh * lk * d)
+                           + 8 * bh * lq),
+    }
+
+
 def phase_bwd_kernels(fb):
     """Kernels 4-6 vs their plain versions on the same inputs, timed at the
     three training levels; returns the level-0 records for the JSON line,
@@ -1126,19 +1161,13 @@ def phase_bwd_kernels(fb):
         lib_fwd = cuda_ms(lambda: sdpa(q4, k4, v4), 10)
         lib_fwd_bwd = cuda_ms(lambda: sdpa(q4, k4, v4).backward(do[None]), 10)
         lib_bwd = lib_fwd_bwd - lib_fwd
-        pair = 2 * bh * lq * lk * d           # flops of one L_q x L_k x d mm
-        io = 2 * (bh * lq * d + bh * lk * d)  # bytes of one q-sized + k-sized
+        bounds = bwd_bounds(bh, lq, lk, d)
         rows = {
             "flash_fwd_lse": (fwd_ms, plain_fwd, lib_fwd,
-                              bound(2 * pair, io * 2 + 4 * bh * lq),
-                              errs["out"]),
-            "flash_dq": (dq_ms, plain_dq, lib_bwd,
-                         bound(3 * pair, 2 * (3 * bh * lq * d + 2 * bh * lk
-                                              * d) + 8 * bh * lq),
+                              bounds["flash_fwd_lse"], errs["out"]),
+            "flash_dq": (dq_ms, plain_dq, lib_bwd, bounds["flash_dq"],
                          errs["dq"]),
-            "flash_dkv": (dkv_ms, plain_dkv, lib_bwd,
-                          bound(4 * pair, 2 * (2 * bh * lq * d + 4 * bh * lk
-                                               * d) + 8 * bh * lq),
+            "flash_dkv": (dkv_ms, plain_dkv, lib_bwd, bounds["flash_dkv"],
                           max(errs["dk"], errs["dv"])),
         }
         for name, (ms, plain_ms, lib_ms, (b_ms, b_by), err) in rows.items():
@@ -1152,6 +1181,8 @@ def phase_bwd_kernels(fb):
             print(f"[bwd]   {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
                   f" library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})",
                   flush=True)
+        pair = 2 * bh * lq * lk * d           # flops of one L_q x L_k x d mm
+        io = 2 * (bh * lq * d + bh * lk * d)  # bytes of one q-sized + k-sized
         both, both_by = bound(5 * pair, 4 * io)
         print(f"[bwd]   flash_bwd (D + dq + dk/dv): kernel_ms={bwd_ms:.4f} "
               f"vs SDPA backward (fwd+bwd {lib_fwd_bwd:.4f} - fwd "
@@ -1240,7 +1271,8 @@ def phase_train(fa, dev):
     from pcdms_tpu_torch.train.common import (
         init_train_state, make_train_step,
     )
-    from pcdms_tpu_torch.train.loop import device_batches, run_training
+    from pcdms_tpu_torch.data.loader import prefetch_to_device
+    from pcdms_tpu_torch.train.loop import run_training
     from pcdms_tpu_torch.train.stage2 import stage2_loss_fn
 
     args = cli.parse_args([
@@ -1249,7 +1281,7 @@ def phase_train(fa, dev):
         "2", "--learning_rate", "1e-4", "--lr_warmup_steps", "1",
         "--mixed_precision", "bf16", "--seed", str(SEED)])
     cli.check_supported(args)
-    _, trainable, vae, aux = cli.build_models(args, dev)
+    _, trainable, vae, _, _, aux = cli.build_models(args, dev)
     loss_fn = stage2_loss_fn(vae, noise_offset=args.noise_offset,
                              compute_dtype=compute_dtype_from_args(args))
     tcfg = train_config_from_args(args)
@@ -1304,7 +1336,7 @@ def phase_train(fa, dev):
     init = {k: copy.deepcopy(m.state_dict()) for k, m in trainable.items()}
     state = init_train_state(trainable, tcfg)
     step_fn = make_train_step(loss_fn, tcfg)
-    batch = next(device_batches(cli.synthetic_batches(args, aux), dev))
+    batch = next(prefetch_to_device(cli.synthetic_batches(args, aux), dev))
     losses = [step_fn(state, batch, torch.Generator(device=dev).manual_seed(
         SEED))["loss"].item() for _ in range(5)]
     print(f"[train] fixed batch and draws, 5 steps (the first update has lr "
@@ -1374,7 +1406,7 @@ def profile_kernels(fn, label, top=8):
 
 
 def profile_window(run_training, loss_fn, trainable, cli, args, aux, tcfg,
-                   dev):
+                   dev, label="run_training"):
     """``run_training``'s ``profile_dir`` trace of steps 3-6 (7 steps):
     device time by kernel, and the device's busy share of the window."""
     gc.collect()
@@ -1389,7 +1421,7 @@ def profile_window(run_training, loss_fn, trainable, cli, args, aux, tcfg,
     by_name, busy, window, n_kernels = _kernel_times(events)
     total = sum(by_name.values()) / 1e3
     flash = sum(v for k, v in by_name.items() if "flash_" in k) / 1e3
-    print(f"[profile] steps 3-6 of run_training (torch.profiler, "
+    print(f"[profile] steps 3-6 of {label} (torch.profiler, "
           f"profile_dir): {n_kernels} kernels, window {window:.1f} ms "
           f"({window / 4:.1f} ms/step), device busy {busy:.1f} ms = "
           f"{busy / window:.1%}, kernel time {total:.1f} ms, of which "
@@ -1398,6 +1430,528 @@ def profile_window(run_training, loss_fn, trainable, cli, args, aux, tcfg,
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[profile]   {us / 1e3:9.2f} ms {us / 1e3 / total:6.1%}  "
               f"{name[:110]}", flush=True)
+
+
+# kernels 4-6 at the stage-3 trainer's self-attentions, (B*H, L, L): 512x512
+# images at batch 2 (5 heads at 4096 tokens, 10 at 1024) and level 0 at the
+# CLI's default batch 16
+STAGE3_TRAIN_SHAPES = [(10, 4096, 4096), (20, 1024, 1024), (80, 4096, 4096)]
+# the stage-3 UNet's self-attentions that take kernels 4-6 under autograd:
+# 5 at level 0 and 5 at level 1 (the 16x16 level's 256 tokens take plain
+# attention)
+STAGE3_TRAIN_ATTN = 10
+
+
+def phase_bwd_stage3(fb, shapes=STAGE3_TRAIN_SHAPES):
+    """Kernels 4-6 (bf16) against their plain versions at ``shapes``, each
+    timed by device time (``graph_ms``) beside SDPA's forward and backward
+    on the same inputs (also by graph replay: the backward is the captured
+    forward + backward less the forward), its plain version (CUDA events)
+    and its bound. Returns {kernel: records}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = 0.125
+    out = {"flash_fwd_lse": [], "flash_dq": [], "flash_dkv": []}
+    for bh, lq, lk in shapes:
+        q, k, v, do = (torch.randn((bh, n, 64), generator=gen, device=dev)
+                       .to(torch.bfloat16) for n in (lq, lk, lk, lq))
+        o, lse2 = fb.flash_fwd_lse(q, k, v, scale)
+        dsum = fb.row_dot(do, o)
+        dq = fb.launch_dq(q, k, v, lse2, do, dsum, scale)
+        dk, dv = fb.launch_dkv(q, k, v, lse2, do, dsum, scale)
+        torch.cuda.synchronize()
+        p_o, p_lse2 = fb.flash_fwd_lse_plain(q, k, v, scale)
+        checks = {"flash_fwd_lse": [(o, p_o, 1e-2, None),
+                                    (lse2, p_lse2, BAR_LSE_REL, None)]}
+        del p_o, p_lse2
+        p_dq = fb.flash_dq_plain(q, k, v, lse2, do, dsum, scale)
+        checks["flash_dq"] = [(dq, p_dq, 1e-2, BAR_BWD_REL_L2)]
+        p_dk, p_dv = fb.flash_dkv_plain(q, k, v, lse2, do, dsum, scale)
+        checks["flash_dkv"] = [(dk, p_dk, 1e-2, BAR_BWD_REL_L2),
+                               (dv, p_dv, 1e-2, BAR_BWD_REL_L2)]
+        errs = {}
+        for name, pairs in checks.items():
+            errs[name] = 0.0
+            for got, want, bar_max, bar_l2 in pairs:
+                mr, l2 = _max_rel(got, want), _rel_l2(got, want)
+                errs[name] = max(errs[name], (got.float() - want.float())
+                                 .abs().max().item())
+                if (not bool(torch.isfinite(got).all()) or mr > bar_max
+                        or (bar_l2 is not None and l2 > bar_l2)):
+                    fail(f"{name} disagrees with its plain version at the "
+                         f"stage-3 shape bh={bh} lq={lq} lk={lk}: "
+                         f"err/max|want| {mr:.2e}, rel_l2 {l2:.2e}")
+        del checks, p_dq, p_dk, p_dv
+        calls = {
+            "flash_fwd_lse": (lambda: fb.flash_fwd_lse(q, k, v, scale),
+                              lambda: fb.flash_fwd_lse_plain(q, k, v, scale)),
+            "flash_dq": (lambda: fb.launch_dq(q, k, v, lse2, do, dsum, scale),
+                         lambda: fb.flash_dq_plain(q, k, v, lse2, do, dsum,
+                                                   scale)),
+            "flash_dkv": (lambda: fb.launch_dkv(q, k, v, lse2, do, dsum,
+                                                scale),
+                          lambda: fb.flash_dkv_plain(q, k, v, lse2, do, dsum,
+                                                     scale))}
+        q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
+        do4 = do[None]
+
+        def lib_fwd_bwd():
+            q4.grad = k4.grad = v4.grad = None   # no accumulation kernels
+            sdpa(q4, k4, v4, scale=scale).backward(do4)
+
+        lib_fwd = graph_ms(lambda: sdpa(q4, k4, v4, scale=scale))
+        lib_bwd = graph_ms(lib_fwd_bwd) - lib_fwd
+        del q4, k4, v4, do4
+        bounds = bwd_bounds(bh, lq, lk)
+        for name, (kernel, plain) in calls.items():
+            ms = graph_ms(kernel)
+            plain_ms = cuda_ms(plain, 2, 1)
+            b_ms, b_by = bounds[name]
+            lib_ms = lib_fwd if name == "flash_fwd_lse" else lib_bwd
+            print(f"[bwd-s3] {name} bf16 bh={bh} lq={lq} lk={lk}: "
+                  f"max_abs_err={errs[name]:.3e}; kernel_ms={ms:.4f} (CUDA "
+                  f"graph) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                  f"(SDPA {'forward' if lib_ms is lib_fwd else 'backward'}, "
+                  f"CUDA graph) bound_ms={b_ms:.4f} ({b_by}) = "
+                  f"{b_ms / ms:.1%} of the kernel's", flush=True)
+            out[name].append(dict(shape=[bh, lq, lk],
+                                  max_abs_err=errs[name], ms=ms,
+                                  plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=lib_ms))
+        del q, k, v, do, o, lse2, dsum, dq, dk, dv, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_cli_args(cli, *extra):
+    """Full-width, random-init trainer flags (512x512, lr 1e-4 after one
+    warmup step, bf16)."""
+    return cli.parse_args([
+        "--output_dir", "unused", "--random_init", "--img_height", "512",
+        "--img_width", "512", "--learning_rate", "1e-4",
+        "--lr_warmup_steps", "1", "--mixed_precision", "bf16", "--seed",
+        str(SEED), *extra])
+
+
+def _drive_training(fa, run_training, loss_fn, trainable, batches, tcfg, dev,
+                    label, steps, batch_size, want):
+    """``run_training`` for ``steps`` steps with every count at 0 before:
+    s per step (host clock, each step waited for), peak GiB and the
+    launches, which must be ``want``. Returns (launches, peak GiB, mean s
+    per step after the first)."""
+    rows = []
+
+    def on_step(step, metrics):
+        rows.append((step, metrics["loss"].item(),
+                     metrics["grad_norm"].item(), time.perf_counter()))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    state = run_training(loss_fn, trainable, batches, tcfg, device=dev,
+                         seed=SEED, max_train_steps=steps, log_every=1000,
+                         on_step=on_step)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in fa.LAUNCHES.items() if c}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    prev, times = t0, []
+    for step, loss, gnorm, t in rows:
+        times.append(t - prev)
+        print(f"[{label}] step {step}: loss {loss:.5f} grad_norm "
+              f"{gnorm:.4f} {t - prev:.3f} s/step "
+              f"{batch_size / (t - prev):.3f} examples/s", flush=True)
+        prev = t
+    later = times[1:] or times
+    per_step = sum(later) / len(later)
+    print(f"[{label}] {steps} steps at batch {batch_size}: "
+          f"{per_step:.3f} s/step after the first, peak {peak:.2f} GiB, "
+          f"launches {counts}", flush=True)
+    if len(rows) != steps or not all(math.isfinite(r[1])
+                                     and math.isfinite(r[2]) for r in rows):
+        fail(f"{label}: expected {steps} finite steps, got {rows}")
+    if counts != want:
+        fail(f"{label}: expected launches {want}, got {counts}")
+    return counts, peak, per_step
+
+
+def phase_train_stage3(fa, dev):
+    """The stage-3 trainer at full width, as ``cli/stage3_train.main``
+    drives it (without an output_dir: no 10 GB checkpoint; stage 1's
+    full-width one is written and resumed in ``phase_train_data``): the
+    8-channel stage-3 UNet
+    (f32 master weights, bf16 compute), the full VAE frozen and
+    ``image_proj``, 512x512. One batch's loss and gradient through kernels
+    4-6 against plain attention; ``run_training`` 4 steps at batch 2 and 2
+    steps at the CLI's batch 16 with ``--gradient_checkpointing``. Returns
+    the launches of the two runs."""
+    from pcdms_tpu_torch.cli import stage3_train as cli
+    from pcdms_tpu_torch.cli.common import (
+        compute_dtype_from_args, train_config_from_args,
+    )
+    from pcdms_tpu_torch.data.loader import prefetch_to_device
+    from pcdms_tpu_torch.diffusion.schedules import sd21_schedule
+    from pcdms_tpu_torch.train.loop import run_training
+    from pcdms_tpu_torch.train.stage3 import (
+        stage3_draws, stage3_loss, stage3_loss_fn,
+    )
+    from pcdms_tpu_torch.utils.tree import (
+        cast_tree, param_bytes, param_count,
+    )
+
+    args = _train_cli_args(cli, "--synthetic_data", "--train_batch_size", "2")
+    cli.check_supported(args)
+    _, trainable, vae, _, aux = cli.build_models(args, dev)
+    dtype = compute_dtype_from_args(args)
+    loss_fn = stage3_loss_fn(vae, noise_offset=args.noise_offset,
+                             compute_dtype=dtype)
+    tcfg = train_config_from_args(args)
+    unet = trainable["unet"]
+    print(f"[train-s3] stage-3 full width: "
+          f"{param_count(trainable) / 1e6:.1f}M trainable "
+          f"parameters (f32, {param_bytes(trainable) / 2**30:.2f} GiB), VAE "
+          f"frozen, 512x512, bf16 compute", flush=True)
+
+    # one batch's loss and gradient: kernels 4-6 vs plain attention
+    batch = next(prefetch_to_device(cli.synthetic_batches(args, aux), dev))
+    draws = stage3_draws(torch.Generator(device=dev).manual_seed(SEED), 2,
+                         (64, 64), device=dev)
+    vae_c = cast_tree(vae, dtype)
+
+    def grads(use_flash):
+        unet.cfg = dataclasses.replace(unet.cfg, use_flash=use_flash)
+        for m in trainable.values():
+            m.zero_grad(set_to_none=True)
+        loss = stage3_loss(trainable, vae_c, batch, draws,
+                           schedule=sd21_schedule(), compute_dtype=dtype)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {f"{k}.{n}": p.grad for k, m in trainable.items()
+                             for n, p in m.named_parameters()}
+
+    fa.reset_launches()
+    loss_k, g_k = grads(True)
+    counts = {n: c for n, c in fa.LAUNCHES.items() if c}
+    loss_p, g_p = grads(False)
+    unet.cfg = dataclasses.replace(unet.cfg, use_flash=True)
+    missing = [n for n, g in g_k.items()
+               if g is None or not bool(torch.isfinite(g).all())]
+    num = sum((g_k[n].float() - g_p[n].float()).square().sum() for n in g_p)
+    den = sum(g_p[n].float().square().sum() for n in g_p)
+    rel = (num.sqrt() / den.sqrt()).item()
+    print(f"[train-s3] one batch (2 x 512x512), fixed draws: loss kernels "
+          f"{loss_k:.6f} plain {loss_p:.6f}; gradient rel_l2 {rel:.3e} (bar "
+          f"{BAR_GRAD_REL_L2:g}); {len(g_k)} parameters, {len(missing)} "
+          f"without a finite gradient; launches {counts}", flush=True)
+    want = dict.fromkeys(("flash_fwd_lse", "flash_dq", "flash_dkv"),
+                         STAGE3_TRAIN_ATTN)
+    if missing:
+        fail(f"stage-3 parameters without a finite gradient: {missing[:5]}")
+    if not rel <= BAR_GRAD_REL_L2 or not math.isfinite(loss_k):
+        fail("stage-3 gradient: kernels disagree with plain attention")
+    if counts != want:
+        fail(f"stage-3 gradient: expected launches {want}, got {counts}")
+    for m in trainable.values():
+        m.zero_grad(set_to_none=True)
+    del batch, draws, vae_c, g_k, g_p
+
+    total = {}
+    counts, peak2, _ = _drive_training(
+        fa, run_training, loss_fn, trainable,
+        cli.synthetic_batches(args, aux), tcfg, dev, "train-s3", 4, 2,
+        {k: 4 * v for k, v in want.items()})
+    _add(total, counts)
+    args16 = _train_cli_args(cli, "--synthetic_data",
+                             "--gradient_checkpointing")
+    unet.cfg = dataclasses.replace(unet.cfg, remat=True)
+    counts, peak16, _ = _drive_training(
+        fa, run_training, loss_fn, trainable,
+        cli.synthetic_batches(args16, aux), tcfg, dev, "train-s3 b16 remat",
+        2, args16.train_batch_size,
+        {"flash_fwd_lse": 2 * 2 * STAGE3_TRAIN_ATTN,
+         "flash_dq": 2 * STAGE3_TRAIN_ATTN,
+         "flash_dkv": 2 * STAGE3_TRAIN_ATTN})
+    unet.cfg = dataclasses.replace(unet.cfg, remat=False)
+    _add(total, counts)
+    print(f"[train-s3] peak memory: batch 2 {peak2:.2f} GiB, batch 16 with "
+          f"remat {peak16:.2f} GiB", flush=True)
+    profile_window(run_training, loss_fn, trainable, cli, args, aux, tcfg,
+                   dev, "the stage-3 run_training, batch 2")
+    del trainable, vae, unet, loss_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_train_stage1(fa, dev):
+    """The stage-1 trainer at full width, as ``cli/stage1_train.main``
+    drives it (no output_dir): the full PriorConfig() (f32 master weights,
+    bf16 compute) at the CLI's batch 128, 4 steps of synthetic batches; then
+    a 2-layer full-width prior's loss and gradient (f32, TF32 off), card
+    against the CPU, within BAR_PRIOR_REL_L2: no kernel guards the prior.
+    Returns the launches (none: six tokens take plain attention)."""
+    import numpy as np
+    from pcdms_tpu_torch.cli import stage1_train as cli
+    from pcdms_tpu_torch.cli.common import (
+        compute_dtype_from_args, train_config_from_args,
+    )
+    from pcdms_tpu_torch.diffusion.schedules import prior_schedule
+    from pcdms_tpu_torch.models.prior_transformer import (
+        PriorConfig, PriorTransformer,
+    )
+    from pcdms_tpu_torch.train.loop import run_training
+    from pcdms_tpu_torch.train.stage1 import stage1_loss, stage1_loss_fn
+    from pcdms_tpu_torch.utils.tree import param_count
+
+    args = _train_cli_args(cli, "--synthetic_data")
+    cli.check_supported(args)
+    prior_cfg, trainable, _ = cli.build_models(args, dev)
+    n_params = param_count(trainable)
+    loss_fn = stage1_loss_fn(noise_offset=args.noise_offset,
+                             compute_dtype=compute_dtype_from_args(args))
+    print(f"[train-s1] PriorConfig() {n_params / 1e6:.1f}M parameters (f32), "
+          f"bf16 compute, batch {args.train_batch_size}", flush=True)
+    counts, _, _ = _drive_training(
+        fa, run_training, loss_fn, trainable,
+        cli.synthetic_batches(args, prior_cfg.embedding_dim),
+        train_config_from_args(args), dev, "train-s1", 4,
+        args.train_batch_size, {})
+    del trainable, loss_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.manual_seed(SEED + 51)
+    cpu_prior = PriorTransformer(dataclasses.replace(PriorConfig(),
+                                                     num_layers=2))
+    card_prior = copy.deepcopy(cpu_prior).to(dev)
+    rng = np.random.default_rng(SEED + 52)
+    batch = {k: torch.from_numpy(rng.standard_normal(
+        (8, 1024)).astype(np.float32)) for k in ("s_embed", "t_embed")}
+    batch.update({k: torch.from_numpy(rng.uniform(0, 1, (8, 36)).astype(
+        np.float32)) for k in ("s_pose", "t_pose")})
+    draws = {"noise": torch.from_numpy(rng.standard_normal(
+        (8, 1024)).astype(np.float32)),
+        "offset": torch.from_numpy(rng.standard_normal((8, 1)).astype(
+            np.float32)),
+        "timesteps": torch.from_numpy(rng.integers(0, 1000, 8))}
+
+    def loss_and_grad(prior, device):
+        loss = stage1_loss({"prior": prior},
+                           {k: v.to(device) for k, v in batch.items()},
+                           {k: v.to(device) for k, v in draws.items()},
+                           schedule=prior_schedule(),
+                           compute_dtype=torch.float32)
+        loss.backward()
+        return loss.item(), torch.cat([p.grad.reshape(-1).cpu()
+                                       for p in prior.parameters()])
+
+    loss_c, g_c = loss_and_grad(cpu_prior, "cpu")
+    loss_g, g_g = loss_and_grad(card_prior, dev)
+    rel = _rel_l2(g_g, g_c)
+    print(f"[train-s1] the prior cut to 2 layers at full width, f32, batch "
+          f"8: loss card {loss_g:.7f} CPU {loss_c:.7f}; gradient card vs "
+          f"CPU rel_l2 = {rel:.3e} (bar {BAR_PRIOR_REL_L2:g})", flush=True)
+    if (not torch.isfinite(g_g).all() or not rel <= BAR_PRIOR_REL_L2
+            or not abs(loss_g - loss_c) <= BAR_PRIOR_REL_L2 * abs(loss_c)):
+        fail("the stage-1 loss or gradient on the card disagrees with the "
+             "CPU")
+    del cpu_prior, card_prior
+    return counts
+
+
+def _gen_dir(root, names):
+    """Stage-2 outputs for the stage-3 trainer: a random 512x512 PNG per
+    pair, ``{src}_to_{tgt}.png``."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(SEED + 53)
+    gen_dir = os.path.join(root, "stage2_out")
+    os.makedirs(gen_dir)
+    for name in names:
+        Image.fromarray(rng.integers(0, 255, (512, 512, 3), dtype=np.uint8)
+                        ).save(os.path.join(gen_dir, name))
+    return gen_dir
+
+
+def phase_train_data(fa, dev):
+    """The three trainer CLIs' ``main`` at full width on the DeepFashion
+    layout of ``_batchtest_dataset`` (512x512, 2 pairs, batch 2, 2 steps,
+    random weights from the seed): stage 2 with DINOv2-giant and CLIP ViT-H
+    on the fly, stage 3 with DINOv2 and ``--gen_dir`` PNGs, stage 1 with
+    CLIP ViT-H; then each again with ``--cache_embeddings``. The caches'
+    rows against the on-the-fly encoder outputs (the first batch each run's
+    loss got) at the bf16 bar, the memory held at the last step with and
+    without the cache (the encoders freed), s per step. The stage-1 cached
+    run writes its full-width checkpoint (prior weights and AdamW moments,
+    f32) and a third run resumes it for one step: the restored parameters
+    are the saved ones bit for bit, and AdamW goes on from step 2. The
+    other runs' checkpoint writes at the end of ``main`` are skipped (10-12
+    GB each). Returns the launches."""
+    from pcdms_tpu_torch.cli import stage1_train, stage2_train, stage3_train
+    from pcdms_tpu_torch.train import checkpoint
+    from pcdms_tpu_torch.train import stage1, stage2, stage3
+    from pcdms_tpu_torch.utils.profiling import timed
+
+    clis = {"stage2": (stage2_train, stage2, "stage2_loss_fn"),
+            "stage3": (stage3_train, stage3, "stage3_loss_fn"),
+            "stage1": (stage1_train, stage1, "stage1_loss_fn")}
+    kernel_steps = {"stage2": 15, "stage3": STAGE3_TRAIN_ATTN, "stage1": 0}
+    embeds = {"stage2": ("dino_features", "clip_embed"),
+              "stage3": ("dino_features",), "stage1": ("s_embed", "t_embed")}
+    saves, written = [], []
+    orig_save = checkpoint.save_checkpoint
+
+    def save(directory, step, state, **kw):
+        saves.append(step)
+        if write_checkpoint:
+            path, seconds = timed(orig_save, directory, step, state,
+                                  sync_output=False, **kw)
+            written.append((path, os.path.getsize(path), seconds))
+
+    checkpoint.save_checkpoint = save
+    total = {}
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            names = _batchtest_dataset(root)
+            gen_dir = _gen_dir(root, names)
+            for stage, (cli, loss_mod, loss_name) in clis.items():
+                seen = {}
+                modes = ("on the fly", "cache") + (
+                    ("resume",) if stage == "stage1" else ())
+                for mode in modes:
+                    steps = 1 if mode == "resume" else 2
+                    argv = [
+                        "--random_init", "--json_path",
+                        os.path.join(root, "train_pairs.json"),
+                        "--image_root_path", root, "--output_dir",
+                        os.path.join(root, f"out_{stage}"), "--img_height",
+                        "512", "--img_width", "512", "--train_batch_size",
+                        "2", "--max_train_steps", str(2 + (mode == "resume")),
+                        "--seed", str(SEED), "--log_every", "1",
+                        "--lr_warmup_steps", "1"]
+                    if stage == "stage3":
+                        argv += ["--gen_dir", gen_dir]
+                    if mode != "on the fly":
+                        argv += ["--cache_embeddings",
+                                 os.path.join(root, "cache")]
+                    if mode == "resume":
+                        argv += ["--resume_from_checkpoint"]
+                    write_checkpoint = stage == "stage1" and mode == "cache"
+                    batches, held, first_params = [], [], []
+                    orig_fn = getattr(loss_mod, loss_name)
+
+                    def factory(*a, _orig=orig_fn, _b=batches, _h=held,
+                                _p=first_params if mode == "resume" else None,
+                                **k):
+                        fn = _orig(*a, **k)
+
+                        def loss_fn(models, batch, gen):
+                            _h.append((time.perf_counter(),
+                                       torch.cuda.memory_allocated()))
+                            if not _b:
+                                _b.append({n: batch[n].float().cpu()
+                                           for n in embeds[stage]})
+                            if _p is not None and not _p:
+                                # the parameters the resumed run starts
+                                # from, in TrainState.params order
+                                _p.extend(p.detach().cpu().clone()
+                                          for m in models.values()
+                                          for p in m.parameters()
+                                          if p.requires_grad)
+                            return fn(models, batch, gen)
+                        return loss_fn
+
+                    setattr(loss_mod, loss_name, factory)
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    torch.cuda.synchronize()
+                    fa.reset_launches()
+                    t0 = time.perf_counter()
+                    try:
+                        state = cli.main(argv)
+                    finally:
+                        setattr(loss_mod, loss_name, orig_fn)
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+                    counts = {n: c for n, c in fa.LAUNCHES.items() if c}
+                    peak = torch.cuda.max_memory_allocated() / 2**30
+                    last = held[-1][1] / 2**30
+                    seen[mode] = (batches[0], last)
+                    # the loss is read at every step (--log_every 1), so
+                    # the loss calls lie one whole step apart
+                    step_s = (f"step 1 {held[1][0] - held[0][0]:.3f} s (its "
+                              f"batch's data and encoders included)"
+                              if len(held) > 1 else "one step")
+                    print(f"[train-data] {stage}_train.main {mode}: "
+                          f"{state.step - (mode == 'resume') * 2} steps in "
+                          f"{seconds:.2f} s (build, encoders and data "
+                          f"included), {step_s}, peak {peak:.2f} GiB, "
+                          f"{last:.2f} GiB held at the last step; launches "
+                          f"{counts}", flush=True)
+                    want = {k: steps * kernel_steps[stage] for k in (
+                        "flash_fwd_lse", "flash_dq", "flash_dkv")
+                        if kernel_steps[stage]}
+                    if state.step != 2 + (mode == "resume") or not all(
+                            bool(torch.isfinite(p).all())
+                            for p in state.params):
+                        fail(f"{stage}_train.main {mode}: not {steps} "
+                             f"finite steps")
+                    if counts != want:
+                        fail(f"{stage}_train.main {mode}: expected launches "
+                             f"{want}, got {counts}")
+                    _add(total, counts)
+                    if write_checkpoint:
+                        saved = [p.detach().cpu().clone()
+                                 for p in state.params]
+                        path, size, save_s = written[-1]
+                        print(f"[train-data] {stage}_train.main {mode}: "
+                              f"{path.name} {size / 2**30:.2f} GiB written "
+                              f"in {save_s:.2f} s", flush=True)
+                    if mode == "resume":
+                        adam_step = int(state.optimizer.state[
+                            state.params[0]]["step"])
+                        same = len(saved) == len(first_params) and all(
+                            torch.equal(x, y)
+                            for x, y in zip(saved, first_params))
+                        print(f"[train-data] {stage}_train.main resumed "
+                              f"from step 2: parameters restored bit for "
+                              f"bit {same}, AdamW step {adam_step} after "
+                              f"one step", flush=True)
+                        if not same or adam_step != 3:
+                            fail(f"{stage}: the resumed run does not start "
+                                 f"from the saved checkpoint")
+                        del saved
+                    first_params.clear()
+                    del state
+                for key in embeds[stage]:
+                    got = seen["cache"][0][key]
+                    want_ = seen["on the fly"][0][key]
+                    mr, l2 = _max_rel(got, want_), _rel_l2(got, want_)
+                    print(f"[train-data] {stage} {key}: cache vs on the fly "
+                          f"err/max|want| {mr:.2e} (bar {BAR_REL:g}) rel_l2 "
+                          f"{l2:.2e}", flush=True)
+                    if not mr <= BAR_REL:
+                        fail(f"{stage}: the cache's {key} disagrees with the "
+                             f"encoder run on the fly")
+                freed = seen["on the fly"][1] - seen["cache"][1]
+                print(f"[train-data] {stage}: {freed:.2f} GiB less held "
+                      f"with the cache (the encoders freed)", flush=True)
+                if not freed > 1.0:
+                    fail(f"{stage}: the encoders were not freed after the "
+                         f"cache was built")
+    finally:
+        checkpoint.save_checkpoint = orig_save
+    if sorted(saves) != [2] * 6 + [3] or len(written) != 1:
+        fail(f"expected one final checkpoint per run, got {saves}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
 
 
 def phase_cli():
@@ -2795,8 +3349,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     records.update(phase_bwd_kernels(fb))
+    for name, recs in phase_bwd_stage3(fb).items():
+        records[name]["stage3_train_shapes"] = recs
     phase_unet_grad(fa, dev)
     launches.update(phase_train(fa, dev))
+    _add(launches, phase_train_stage3(fa, dev))
+    _add(launches, phase_train_stage1(fa, dev))
+    _add(launches, phase_train_data(fa, dev))
     phase_cli()
     phase_batchtest(fa)
     phase_protocol(fa)

@@ -1,7 +1,8 @@
 """Shared CLI plumbing (counterpart of ``pcdms_tpu/cli/common.py``): the
-reference's trainer flags, the ``TrainConfig`` they make, the compute dtype,
-the port's own copy of the tiny geometry (``--tiny_config``), and the batch
-test's latents, PNG writing and on-device best-of-N selection."""
+reference's trainer flags, the ``TrainConfig`` they make, the trainers'
+refusals, the compute dtype, the port's own copy of the tiny geometry
+(``--tiny_config``), and the batch test's latents, PNG writing and on-device
+best-of-N selection."""
 
 from __future__ import annotations
 
@@ -49,10 +50,12 @@ def add_common_train_flags(p: argparse.ArgumentParser):
     p.add_argument("--json_path", type=str, default=None)
     p.add_argument("--synthetic_data", action="store_true",
                    help="train on random tensors of the right shapes "
-                        "(the only data path ported so far)")
+                        "(smoke tests and throughput runs without a "
+                        "DeepFashion checkout)")
     p.add_argument("--image_root_path", type=str, default="")
     p.add_argument("--report_to", type=str, default=None,
-                   help="metrics sink (not ported yet)")
+                   help="'tensorboard': also write train_loss and "
+                        "examples_per_sec to <output_dir>/logs")
     p.add_argument("--zero1", action="store_true",
                    help="shard optimizer state (not ported yet)")
     p.add_argument("--use_ema", action="store_true",
@@ -65,13 +68,20 @@ def add_common_train_flags(p: argparse.ArgumentParser):
                    help="random-init all models (no local checkpoints)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of steps 3-6 here")
-    p.add_argument("--dataloader_num_workers", type=int, default=-1)
+    p.add_argument("--dataloader_num_workers", type=int, default=-1,
+                   help="host input-pipeline worker threads; 0 = fetch "
+                        "inline, -1 (default) = auto (min(8, cpu_count); 0 "
+                        "on one core). The batch stream is the same for "
+                        "any value")
     p.add_argument("--frozen_dir", type=str, default=None,
                    help="frozen-encoder bundle dir (train/frozen.py): load "
-                        "the VAE from it if it exists, else save the built "
-                        "one there")
+                        "the VAE / CLIP / DINOv2 from it if it exists, else "
+                        "save the built ones there")
     p.add_argument("--cache_embeddings", type=str, default=None,
-                   help="frozen-encoder embedding cache (not ported yet)")
+                   help="dir of the frozen-encoder embedding cache "
+                        "(train/embed_cache.py): encode each image once, "
+                        "with the zero-image dropout row, and train from "
+                        "the cache")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
 
@@ -93,6 +103,73 @@ def train_config_from_args(args):
         use_ema=args.use_ema,
         ema_decay=args.ema_decay,
     )
+
+
+def check_train_flags(args, pretrained_flags=()) -> None:
+    """The trainers' refusals and exits: ``--zero1`` and ``--dcn_slices >
+    1`` (not ported), a ``--report_to`` other than tensorboard, the
+    DeepFashion data path without ``--json_path``, and pretrained loading
+    without the files it reads, ``pretrained_flags``."""
+    if args.zero1 or args.dcn_slices > 1:
+        raise NotImplementedError(
+            "--zero1 and --dcn_slices > 1 need the DDP / ZeRO-1 port "
+            "(ROADMAP item 19b)")
+    if args.report_to not in (None, "tensorboard"):
+        raise NotImplementedError(f"--report_to {args.report_to}: only "
+                                  f"tensorboard is ported")
+    if not args.synthetic_data and not args.json_path:
+        raise SystemExit("--json_path required without --synthetic_data")
+    if args.random_init:
+        return
+    missing = [f"--{f}" for f in pretrained_flags if not getattr(args, f)]
+    if missing:
+        raise SystemExit(f"{', '.join(missing)} required without "
+                         f"--random_init")
+
+
+def frozen_loaders(args, makers):
+    """{name: function} for ``train/frozen.py::frozen_dir_or_build``: each
+    makes its module with ``makers[name]`` and, unless
+    ``--random_init``, loads its pretrained file (``compat/load.py``):
+    ``vae`` from the SD-2.1 dir, ``clip`` from ``--image_encoder_g_path``
+    (stage 2) or ``--image_encoder_path`` (stage 1), ``dino`` from
+    ``--image_encoder_p_path`` with its position embeddings resized to the
+    module's grid."""
+    def build(name, make):
+        module = make()
+        if args.random_init:
+            return module
+        from pcdms_tpu_torch.compat import load
+        if name == "vae":
+            sd = load.load_sd_vae(args.pretrained_model_name_or_path)
+        elif name == "clip":
+            sd = load.load_clip_vision(
+                getattr(args, "image_encoder_g_path", None)
+                or args.image_encoder_path)
+        else:
+            grid = module.cfg.image_size // module.cfg.patch_size
+            sd = load.load_dinov2(args.image_encoder_p_path,
+                                  target_grid=(grid, grid))
+        return load.load_into(module, sd, name)
+
+    return {name: (lambda n=name, m=make: build(n, m))
+            for name, make in makers.items()}
+
+
+def process_shard():
+    """(rank, world size) of this process: its share of the pair list."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def tensorboard_writer_from_args(args):
+    """``--report_to tensorboard``: a writer on ``<output_dir>/logs``."""
+    if args.report_to != "tensorboard":
+        return None
+    from pcdms_tpu_torch.train.loop import make_tensorboard_writer
+    return make_tensorboard_writer(args.output_dir + "/logs")
 
 
 def compute_dtype_from_args(args) -> torch.dtype:

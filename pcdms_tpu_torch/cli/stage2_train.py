@@ -2,18 +2,25 @@
 ``pcdms_tpu/cli/stage2_train.py``), flag-compatible with it. Runs on the
 CUDA card unless ``--device cpu`` is given.
 
-    python -m pcdms_tpu_torch.cli.stage2_train --random_init \\
-        --synthetic_data --output_dir out --img_height 512 --img_width 512 \\
-        --train_batch_size 2 --max_train_steps 100
+    python -m pcdms_tpu_torch.cli.stage2_train \\
+        --pretrained_model_name_or_path /path/to/sd21 \\
+        --image_encoder_p_path /path/to/dinov2-giant \\
+        --image_encoder_g_path /path/to/clip-vit-h \\
+        --json_path data.json --image_root_path /data --output_dir out \\
+        --img_height 512 --img_width 512 --train_batch_size 8
 
 Models: random from ``--seed`` (``--random_init``), or the UNet and VAE of
-the SD-2.1 dir ``--pretrained_model_name_or_path`` (``compat/load.py``):
-``conv_in`` grows from 4 to 9 input channels with zeros, and a UNet without
-a class embedding gets a seeded one, as the JAX CLI does; the projections
-are drawn from ``--seed``. The JAX CLI draws ``--tiny_config`` models at
-random whatever the flags; the port loads the dir at any geometry. Batches
-are synthetic. Flags that need unported parts raise
-``NotImplementedError`` naming their ROADMAP item.
+the SD-2.1 dir ``--pretrained_model_name_or_path`` and the DINOv2 / CLIP
+dirs (``compat/load.py``): ``conv_in`` grows from 4 to 9 input channels
+with zeros, and a UNet without a class embedding gets a seeded one, as the
+JAX CLI does; the projections are drawn from ``--seed``. The JAX CLI draws
+``--tiny_config`` models at random whatever the flags; the port loads the
+dirs at any geometry. Batches come from the DeepFashion pair list
+(``--json_path``, ``data/datasets.py::Stage2Dataset`` through
+``data/loader.py``) with DINOv2-giant and CLIP ViT-H run on the fly, or read
+from ``--cache_embeddings``; ``--synthetic_data`` trains on random batches.
+``--zero1`` and ``--dcn_slices > 1`` raise ``NotImplementedError`` (ROADMAP
+item 19b).
 """
 
 from __future__ import annotations
@@ -25,8 +32,9 @@ import numpy as np
 import torch
 
 from pcdms_tpu_torch.cli.common import (
-    add_common_train_flags, compute_dtype_from_args, setup_logging,
-    tiny_configs, train_config_from_args,
+    add_common_train_flags, check_train_flags, compute_dtype_from_args,
+    frozen_loaders, process_shard, setup_logging,
+    tensorboard_writer_from_args, tiny_configs, train_config_from_args,
 )
 from pcdms_tpu_torch.utils.device import resolve_device
 
@@ -37,11 +45,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     add_common_train_flags(p)
     p.add_argument("--image_encoder_p_path", type=str, default=None,
-                   help="local DINOv2-giant dir (read by the DeepFashion "
-                        "data path, not ported yet)")
+                   help="local DINOv2-giant dir")
     p.add_argument("--image_encoder_g_path", type=str, default=None,
-                   help="local CLIP ViT-H dir (read by the DeepFashion "
-                        "data path, not ported yet)")
+                   help="local CLIP ViT-H dir")
     p.add_argument("--imgp_drop_rate", type=float, default=0.1)
     p.add_argument("--imgg_drop_rate", type=float, default=0.1)
     p.add_argument("--log_every", type=int, default=50)
@@ -52,23 +58,13 @@ def parse_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Raise for flags whose code is not ported yet (ROADMAP.md section 1);
-    exit when pretrained loading has no SD-2.1 dir."""
+    """Raise for flags whose code is not ported yet; exit when the data path
+    has no pair list or pretrained loading lacks its files
+    (``cli/common.py::check_train_flags``)."""
+    flags = ["pretrained_model_name_or_path"]
     if not args.synthetic_data:
-        raise NotImplementedError(
-            "the DeepFashion data path of the trainer is not ported yet "
-            "(ROADMAP item 19b; the DINOv2 / CLIP encoders it feeds are, in "
-            "train/encoders.py): pass --synthetic_data")
-    if args.zero1 or args.dcn_slices > 1:
-        raise NotImplementedError(
-            "--zero1 and --dcn_slices > 1 need the DDP / ZeRO-1 port "
-            "(ROADMAP item 19b)")
-    if args.report_to is not None:
-        raise NotImplementedError("--report_to is not ported yet: metrics "
-                                  "log to stdout")
-    if not args.random_init and not args.pretrained_model_name_or_path:
-        raise SystemExit("--pretrained_model_name_or_path required without "
-                         "--random_init")
+        flags += ["image_encoder_p_path", "image_encoder_g_path"]
+    check_train_flags(args, flags)
 
 
 class ModelAux:
@@ -81,10 +77,11 @@ class ModelAux:
 
 
 def build_models(args, device):
-    """(unet_cfg, trainable {unet, image_proj, pose_proj}, frozen vae, aux)
-    in f32 on ``device``: random weights from ``args.seed``, the UNet and VAE
-    loaded from ``args.pretrained_model_name_or_path`` without
-    ``--random_init``."""
+    """(unet_cfg, trainable {unet, image_proj, pose_proj}, frozen vae, clip,
+    dino, aux) in f32 on ``device``: random weights from ``args.seed``, or
+    loaded from the pretrained dirs without ``--random_init``. The CLIP and
+    DINOv2 encoders are built only for the DeepFashion data path (None with
+    ``--synthetic_data``); the frozen models go through ``--frozen_dir``."""
     import dataclasses
 
     from pcdms_tpu_torch.models.projections import (
@@ -94,15 +91,20 @@ def build_models(args, device):
         UNet2DConditionModel, stage2_unet_config,
     )
     from pcdms_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from pcdms_tpu_torch.models.vit import (
+        VisionTransformer, clip_vit_h14_config, dinov2_giant_config,
+    )
     from pcdms_tpu_torch.train.frozen import frozen_dir_or_build
 
     if args.tiny_config:
         tiny = tiny_configs()
         unet_cfg, vae_cfg = tiny.unet2(with_class_embed=True), tiny.vae
+        clip_cfg, dino_cfg = tiny.clip, tiny.dino
         proj_kw, pose_kw = tiny.image_proj_kwargs, tiny.pose_proj_kwargs
         aux = ModelAux(tiny.dino_tokens, tiny.dino_dim, tiny.clip_dim)
     else:
         unet_cfg, vae_cfg = stage2_unet_config(), VAEConfig()
+        clip_cfg, dino_cfg = clip_vit_h14_config(), dinov2_giant_config()
         proj_kw, pose_kw, aux = {}, {}, ModelAux()
     if args.gradient_checkpointing:
         unet_cfg = dataclasses.replace(unet_cfg, remat=True)
@@ -121,15 +123,15 @@ def build_models(args, device):
             sd = _maybe_init_class_embedding(sd, unet_cfg, args.seed)
             load_into(trainable["unet"], sd, "unet")
 
-        def build_vae():
-            vae = AutoencoderKL(vae_cfg)
-            if root:
-                from pcdms_tpu_torch.compat.load import load_into, load_sd_vae
-                load_into(vae, load_sd_vae(root), "vae")
-            return vae
-
-        vae = frozen_dir_or_build(args.frozen_dir, {"vae": build_vae})["vae"]
-    return unet_cfg, trainable, vae.eval(), aux
+        makers = {"vae": lambda: AutoencoderKL(vae_cfg)}
+        if not args.synthetic_data:
+            makers.update(clip=lambda: VisionTransformer(clip_cfg),
+                          dino=lambda: VisionTransformer(dino_cfg))
+        frozen = frozen_dir_or_build(args.frozen_dir,
+                                     frozen_loaders(args, makers))
+    vae, clip, dino = (frozen.get(k) for k in ("vae", "clip", "dino"))
+    clip, dino = (None if m is None else m.eval() for m in (clip, dino))
+    return unet_cfg, trainable, vae.eval(), clip, dino, aux
 
 
 def _grow_conv_in(sd, cfg):
@@ -179,6 +181,86 @@ def synthetic_batches(args, aux=None):
         }
 
 
+def make_batches(args, clip, dino, aux=None,
+                 encoder_dtype: torch.dtype = torch.bfloat16):
+    """The trainer's batches: ``synthetic_batches``, or the DeepFashion data
+    path through the ``DataLoader`` with the DINOv2 features of the source
+    and the CLIP embedding of the target computed on the fly in
+    ``encoder_dtype``, or read from the ``--cache_embeddings`` caches
+    (``s2_dino_{W}x{H}``, f16, and ``s2_clip_{W}x{H}``). With the cache the
+    encoders are freed once it is built, before the first batch is
+    yielded."""
+    if args.synthetic_data:
+        yield from synthetic_batches(args, aux)
+        return
+    from pcdms_tpu_torch.data.datasets import PairList, Stage2Dataset
+    from pcdms_tpu_torch.data.loader import DataLoader
+    from pcdms_tpu_torch.train import encoders
+    from pcdms_tpu_torch.utils.tree import cast_tree
+
+    pairs = PairList(args.json_path, args.image_root_path).shard(
+        *process_shard())
+    use_cache = args.cache_embeddings is not None
+    size = (args.img_width, args.img_height)
+    dataset = Stage2Dataset(pairs, size=size,
+                            imgp_drop_rate=args.imgp_drop_rate,
+                            imgg_drop_rate=args.imgg_drop_rate,
+                            seed=args.seed, embed_refs=use_cache)
+    clip = cast_tree(clip, encoder_dtype)
+    dino = cast_tree(dino, encoder_dtype)
+    loader = DataLoader(dataset, args.train_batch_size,
+                        num_workers=args.dataloader_num_workers,
+                        seed=args.seed)
+
+    def dino_fn(px):
+        return encoders.dino_features(dino, px, encoder_dtype)
+
+    def clip_fn(px):
+        return encoders.clip_image_embed(clip, px, encoder_dtype)
+
+    if use_cache:
+        from pcdms_tpu_torch.data.preprocess import clip_preprocess, load_image
+        from pcdms_tpu_torch.train.embed_cache import build_or_load
+
+        def pre(p):
+            return clip_preprocess(load_image(p, size))
+
+        tag = f"{args.img_width}x{args.img_height}"
+        # DINOv2 feature maps are (257, 1536) per image: stored in f16
+        dino_cache = build_or_load(
+            args.cache_embeddings, f"s2_dino_{tag}", dino_fn, pre,
+            [pairs.image_path(i["source_image"]) for i in pairs.pairs],
+            batch_size=args.train_batch_size, store_dtype=np.float16)
+        clip_cache = build_or_load(
+            args.cache_embeddings, f"s2_clip_{tag}", clip_fn, pre,
+            [pairs.image_path(i["target_image"]) for i in pairs.pairs],
+            batch_size=args.train_batch_size)
+        # the encoders (CLIP-H and DINOv2-g) are needed only to build the
+        # caches: free them before the train step allocates its state
+        del clip, dino, dino_fn, clip_fn
+        torch.cuda.empty_cache()
+        for batch in loader:
+            yield {
+                "st_image": batch["st_image"],
+                "masked_image": batch["masked_image"],
+                "pose_image": batch["pose_image"],
+                "dino_features": dino_cache.lookup(batch["s_ref"],
+                                                   batch["s_drop"]),
+                "clip_embed": clip_cache.lookup(batch["t_ref"],
+                                                batch["t_drop"])[:, None, :],
+            }
+        return
+
+    for batch in loader:
+        yield {
+            "st_image": batch["st_image"],
+            "masked_image": batch["masked_image"],
+            "pose_image": batch["pose_image"],
+            "dino_features": dino_fn(batch["clip_s_img"]),
+            "clip_embed": clip_fn(batch["clip_t_img"])[:, None, :],
+        }
+
+
 def main(argv=None):
     """Train; returns the final ``TrainState``."""
     setup_logging()
@@ -188,20 +270,24 @@ def main(argv=None):
     tcfg = train_config_from_args(args)
     dtype = compute_dtype_from_args(args)
 
-    _, trainable, vae, aux = build_models(args, device)
+    _, trainable, vae, clip, dino, aux = build_models(args, device)
 
     from pcdms_tpu_torch.train.loop import run_training
     from pcdms_tpu_torch.train.stage2 import stage2_loss_fn
 
     loss_fn = stage2_loss_fn(vae, noise_offset=args.noise_offset,
                              compute_dtype=dtype)
-    return run_training(loss_fn, trainable, synthetic_batches(args, aux),
-                        tcfg, device=device, seed=args.seed,
-                        output_dir=args.output_dir,
+    batches = make_batches(args, clip, dino, aux)
+    # the generator owns the encoders now and frees them after a cache
+    # build; a reference kept here would pin them on the device
+    del clip, dino, vae
+    return run_training(loss_fn, trainable, batches, tcfg, device=device,
+                        seed=args.seed, output_dir=args.output_dir,
                         checkpointing_steps=args.checkpointing_steps,
                         log_every=args.log_every,
                         resume_from_checkpoint=args.resume_from_checkpoint,
-                        profile_dir=args.profile_dir)
+                        profile_dir=args.profile_dir,
+                        tensorboard_writer=tensorboard_writer_from_args(args))
 
 
 if __name__ == "__main__":

@@ -2,11 +2,12 @@
 
 One process drives one device. Logging, checkpoint cadence, resume and the
 SIGTERM / SIGINT stop follow the JAX package's loop. Host batches (dicts of
-numpy arrays or tensors) are copied to the device from pinned memory with
-non-blocking copies, one batch ahead of the step, standing in for
-``prefetch_to_device``. Each step draws its randomness from a generator
-seeded with (seed, step), so a resumed run draws what an uninterrupted one
-would.
+numpy arrays or tensors) reach the device through
+``data/loader.py::prefetch_to_device``: pinned memory, non-blocking copies,
+two batches ahead of the step. Each step draws its
+randomness from a generator seeded with (seed, step), so a resumed run
+draws what an uninterrupted one would. ``--report_to tensorboard`` logs the
+loss and the example rate through ``make_tensorboard_writer``.
 """
 
 from __future__ import annotations
@@ -14,16 +15,17 @@ from __future__ import annotations
 import itertools
 import logging
 import signal
-import time
-from pathlib import Path
 from typing import Callable, Iterator, Optional
 
-import numpy as np
 import torch
 
+from pcdms_tpu_torch.data.loader import prefetch_to_device
 from pcdms_tpu_torch.train import checkpoint as ckpt
 from pcdms_tpu_torch.train.common import (
     TrainConfig, init_train_state, make_train_step,
+)
+from pcdms_tpu_torch.utils.profiling import (
+    ThroughputMeter, start_trace, stop_trace,
 )
 
 logger = logging.getLogger("pcdms_tpu_torch.train")
@@ -35,30 +37,6 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return gen.manual_seed((seed << 32) + step)
 
 
-def _to_device(batch, device):
-    out = {}
-    for k, x in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(x)) \
-            if isinstance(x, np.ndarray) else x
-        if device.type == "cuda" and t.device.type == "cpu":
-            t = t.pin_memory()
-        out[k] = t.to(device, non_blocking=True)
-    return out
-
-
-def device_batches(batches: Iterator, device) -> Iterator:
-    """Yield each host batch on ``device``, the next one's copy enqueued
-    before the current one is handed out."""
-    pending = None
-    for batch in batches:
-        nxt = _to_device(batch, device)
-        if pending is not None:
-            yield pending
-        pending = nxt
-    if pending is not None:
-        yield pending
-
-
 def run_training(loss_fn: Callable, models, batches: Iterator,
                  cfg: TrainConfig, *, device=None, seed: int = 0,
                  output_dir: Optional[str] = None,
@@ -67,14 +45,18 @@ def run_training(loss_fn: Callable, models, batches: Iterator,
                  resume_from_checkpoint: bool = False,
                  max_train_steps: Optional[int] = None,
                  profile_dir: Optional[str] = None,
+                 tensorboard_writer=None,
                  handle_preemption: bool = True,
                  on_step: Optional[Callable] = None):
     """Run the train loop on ``models`` (a dict of modules on ``device``,
     updated in place); returns the final ``TrainState``.
 
     ``loss_fn(models, batch, generator) -> (loss, metrics)``. ``batches``
-    yields host batches. ``on_step(step, metrics)``, if given, is called
-    after every step. With ``handle_preemption``, SIGTERM / SIGINT stop the
+    yields host batches; the next two are copied to the device ahead of
+    the step. ``on_step(step, metrics)``, if given, is
+    called after every step. ``tensorboard_writer`` (``add_scalar(tag,
+    value, step)``) gets ``train_loss`` and ``examples_per_sec`` at every
+    log step. With ``handle_preemption``, SIGTERM / SIGINT stop the
     loop at the next step boundary and write a final checkpoint.
     ``profile_dir`` gets a ``torch.profiler`` trace of steps 3-6.
     """
@@ -86,7 +68,7 @@ def run_training(loss_fn: Callable, models, batches: Iterator,
     # draw the first batch before the optimizer state is allocated: a batch
     # generator that builds a cache and frees its encoders on first next()
     # must not share the device with the AdamW moments
-    batches = iter(batches)
+    batches = prefetch_to_device(batches, device)
     first_batch = next(batches, None)
 
     state = init_train_state(models, cfg)
@@ -114,28 +96,23 @@ def run_training(loss_fn: Callable, models, batches: Iterator,
 
     if first_batch is not None:
         batches = itertools.chain([first_batch], batches)
-    t_last = time.perf_counter()
-    examples_since_log = 0
+    meter = ThroughputMeter()
     step = start_step
     last_saved = start_step if start_step else None
     prof = None
     try:
-        for batch in device_batches(batches, device):
+        for batch in batches:
             if step >= max_steps or stop["signal"] is not None:
                 break
             if profile_dir and step == start_step + 3:
-                prof = torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    *([torch.profiler.ProfilerActivity.CUDA]
-                      if device.type == "cuda" else [])])
-                prof.start()
+                prof = start_trace(device.type == "cuda")
             if prof is not None and step == start_step + 6:
                 prof = _stop_profile(prof, profile_dir)
 
             metrics = step_fn(state, batch, step_generator(seed, step,
                                                            device))
             step += 1
-            examples_since_log += len(next(iter(batch.values())))
+            meter.update(len(next(iter(batch.values()))))
             if on_step is not None:
                 on_step(step, metrics)
 
@@ -143,12 +120,14 @@ def run_training(loss_fn: Callable, models, batches: Iterator,
                 # reading the loss waits for the step: the window below
                 # spans finished steps
                 loss = float(metrics["loss"])
-                dt = time.perf_counter() - t_last
-                ips = examples_since_log / max(dt, 1e-9)
+                ips = meter.rate()
                 logger.info("step %d loss %.5f | %.2f examples/s", step,
                             loss, ips)
-                t_last = time.perf_counter()
-                examples_since_log = 0
+                if tensorboard_writer is not None:
+                    tensorboard_writer.add_scalar("train_loss", loss, step)
+                    tensorboard_writer.add_scalar("examples_per_sec", ips,
+                                                  step)
+                meter.reset()
 
             if output_dir and step % checkpointing_steps == 0:
                 ckpt.save_checkpoint(output_dir, step, state)
@@ -167,6 +146,8 @@ def run_training(loss_fn: Callable, models, batches: Iterator,
             signal.signal(s, h)
         if prof is not None:
             prof.stop()
+        if tensorboard_writer is not None:
+            tensorboard_writer.flush()
     if stop["signal"] is not None:
         logger.warning("stopped by signal %d at step %d (checkpoint %s)",
                        stop["signal"], step,
@@ -175,10 +156,18 @@ def run_training(loss_fn: Callable, models, batches: Iterator,
 
 
 def _stop_profile(prof, profile_dir: str):
-    prof.stop()
-    path = Path(profile_dir)
-    path.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(path / "trace.json"))
-    logger.info("profile of steps 3-6 written to %s", path / "trace.json")
+    path = stop_trace(prof, profile_dir)
+    logger.info("profile of steps 3-6 written to %s", path)
     return None
 
+
+def make_tensorboard_writer(logging_dir: str):
+    """A ``torch.utils.tensorboard.SummaryWriter`` on ``logging_dir`` (the
+    reference's ``--report_to tensorboard``), or None with a warning when
+    tensorboard does not import: the metrics then go to the log only."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        logger.warning("tensorboard unavailable; metrics log to stdout only")
+        return None
+    return SummaryWriter(logging_dir)

@@ -1,5 +1,6 @@
-"""Dtype / device casting of modules and tensors (``cast_pytree``'s
-counterpart, ``pcdms_tpu/utils/tree.py``)."""
+"""Dtype / device casting of modules and tensors, and parameter counts
+(counterparts of ``cast_pytree``, ``param_count`` and ``param_bytes`` in
+``pcdms_tpu/utils/tree.py``)."""
 
 from __future__ import annotations
 
@@ -49,3 +50,25 @@ def as_tensor(x, device) -> Optional[torch.Tensor]:
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
     return x.to(device)
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.nn.Module):
+        yield from tree.parameters()
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def param_count(tree) -> int:
+    """Elements of every parameter (modules) or tensor in ``tree``."""
+    return sum(t.numel() for t in _tensors(tree))
+
+
+def param_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))

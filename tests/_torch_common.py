@@ -15,10 +15,11 @@ from pcdms_tpu.models.projections import (
 )
 from pcdms_tpu.models.unet2d import unet_init
 from pcdms_tpu.models.vae import vae_init
+from pcdms_tpu.models.vit import vit_init
 
 from pcdms_tpu_torch.compat.from_jax import (
     image_proj_state_dict, load_numpy_state_dict, pose_proj_state_dict,
-    prior_state_dict, unet_state_dict, vae_state_dict,
+    prior_state_dict, unet_state_dict, vae_state_dict, vit_state_dict,
 )
 from pcdms_tpu_torch.models.prior_transformer import (
     PriorConfig as TPriorConfig, PriorTransformer,
@@ -30,6 +31,9 @@ from pcdms_tpu_torch.models.unet2d import (
     UNet2DConditionModel, UNetConfig as TUNetConfig,
 )
 from pcdms_tpu_torch.models.vae import AutoencoderKL, VAEConfig as TVAEConfig
+from pcdms_tpu_torch.models.vit import (
+    ViTConfig as TViTConfig, VisionTransformer,
+)
 
 TOL = dict(atol=1e-4, rtol=1e-3)
 TINY = tiny_configs()
@@ -87,6 +91,27 @@ def prior_pair(cfg, seed: int):
     model = PriorTransformer(port_config(cfg, TPriorConfig))
     load_numpy_state_dict(model, prior_state_dict(params))
     return params, model.eval()
+
+
+def vit_pair(cfg, seed: int):
+    """(JAX params, port VisionTransformer) with the same non-zero random
+    weights."""
+    params = nonzero(vit_init(jax.random.PRNGKey(seed), cfg), seed)
+    model = VisionTransformer(port_config(cfg, TViTConfig))
+    load_numpy_state_dict(model, vit_state_dict(params, cfg))
+    return params, model.eval()
+
+
+def from_torch(module, convert, seed: int, scale: float = 0.05):
+    """(JAX params, ``module``): the module's torch init plus seeded noise
+    (no weight stays zero), carried to the JAX layout by ``convert`` (a
+    ``pcdms_tpu/compat/torch_convert.py`` function). No JAX init runs, which
+    keeps a test off the XLA compiles of the JAX initialisers."""
+    rng = np.random.default_rng(seed)
+    sd = {k: v.detach().float().numpy() + scale * rng.standard_normal(
+        v.shape).astype(np.float32) for k, v in module.state_dict().items()}
+    load_numpy_state_dict(module, sd)
+    return convert(sd), module.eval()
 
 
 def t(x):

@@ -870,6 +870,40 @@ def test_fused_conv_at_the_stage3_shapes(cuda, shape):
     _assert_conv_matches(got, want, torch.bfloat16)
 
 
+# kernels 4-6 at the stage-3 trainer's self-attentions, (B*H, L, L): 512x512
+# images at batch 2 (5 heads at 4096 tokens, 10 at 1024) and at the CLI's
+# default batch 16
+STAGE3_TRAIN = [(10, 4096, 4096), (20, 1024, 1024), (80, 4096, 4096),
+                (160, 1024, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,lq,lk", STAGE3_TRAIN)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_kernels_at_the_stage3_training_shapes(cuda, dtype, bh, lq,
+                                                        lk):
+    """The LSE forward, dq and dk/dv against their plain versions at the
+    shapes the stage-3 UNet gives them under autograd."""
+    q, k, v = _qkv(cuda, dtype, bh, lq, lk, seed=45)
+    do = _qkv(cuda, dtype, bh, lq, lq, seed=46)[0]
+    scale = 1.0 / math.sqrt(D)
+    fa.reset_launches()
+    out, lse2 = fb.flash_fwd_lse(q, k, v, scale)
+    grads = fb.flash_bwd(q, k, v, out, lse2, do, scale)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in fa.LAUNCHES.items() if c} == {
+        "flash_fwd_lse": 1, "flash_dq": 1, "flash_dkv": 1}
+    p_out, p_lse2 = fb.flash_fwd_lse_plain(q, k, v, scale)
+    assert _max_rel(lse2, p_lse2) <= 1e-4
+    assert _max_rel(out, p_out) <= (1e-2 if dtype == torch.bfloat16
+                                    else 2e-5)
+    del p_out
+    dsum = fb.row_dot(do, out)
+    p_grads = (fb.flash_dq_plain(q, k, v, lse2, do, dsum, scale),
+               *fb.flash_dkv_plain(q, k, v, lse2, do, dsum, scale))
+    _assert_grads_match(grads, p_grads, dtype)
+
+
 @pytest.fixture(scope="module")
 def stage3_unet():
     if not torch.cuda.is_available():

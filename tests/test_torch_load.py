@@ -658,7 +658,7 @@ def test_trainer_grows_conv_in_from_a_4_channel_unet(weights, tmp_path):
             "--train_batch_size", "2", "--lr_warmup_steps", "1"]
     args = stage2_train.parse_args(argv)
     stage2_train.check_supported(args)
-    cfg, trainable, vae, _ = stage2_train.build_models(args, "cpu")
+    cfg, trainable, vae, _, _, _ = stage2_train.build_models(args, "cpu")
     assert cfg.in_channels == 9 and cfg.class_embed_proj_dim == 16
     w = trainable["unet"].conv_in.weight.detach()
     assert w.shape[1] == 9

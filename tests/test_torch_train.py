@@ -354,13 +354,10 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path):
     assert state.step == 3 and ckpt.latest_step(tmp_path) == 3
 
 
-# what each refusal must name: only what is missing (the DINOv2 / CLIP
-# encoders and pretrained loading are ported; the trainer's DeepFashion data
-# path is not), and the exit of pretrained loading without its SD-2.1 dir
-_DATA_PATH = (NotImplementedError,
-              r"DeepFashion data path of the trainer is not ported yet "
-              r"\(ROADMAP item 19b; the DINOv2 / CLIP encoders it feeds are, "
-              r"in train/encoders.py\)")
+# what each refusal must name: the DeepFashion data path without its pair
+# list, pretrained loading without its SD-2.1 dir, the DDP / ZeRO-1 flags
+# (not ported), and a --report_to other than tensorboard
+_DATA_PATH = (SystemExit, "--json_path required without --synthetic_data")
 _REFUSALS = {
     (): _DATA_PATH,
     ("--random_init",): _DATA_PATH,
@@ -370,7 +367,7 @@ _REFUSALS = {
                                                        "ZeRO-1"),
     ("--random_init", "--synthetic_data", "--dcn_slices", "2"): (
         NotImplementedError, "ZeRO-1"),
-    ("--random_init", "--synthetic_data", "--report_to", "tensorboard"): (
+    ("--random_init", "--synthetic_data", "--report_to", "wandb"): (
         NotImplementedError, "--report_to"),
 }
 
