@@ -140,7 +140,23 @@ Phases, each reported on its own lines:
      (``cli/serve.py::build_deployment``): a ``ShapeRouter`` over two
      canvases sharing one set of bf16 modules, both engines launching at
      once. Its images/s is a smoke reading of 8 requests at 3 steps, not a
-     serving rate.
+     serving rate;
+ 13. data-parallel training (``phase_data_parallel``): two gloo ranks share
+     the card (NCCL takes one rank per device) and take 2 full-width
+     stage-2 steps with ZeRO-1 and remat at one row each, against a world
+     of 1 on the 2-row global batch with the same draws (the loss and the
+     gradient norm per step within 1e-2, step 0's reduced gradient within
+     rel L2 5e-3, each rank's optimizer state about half), then one step of
+     a world of 1 on NCCL; a smoke reading of time, not a multi-card speed;
+ 14. LCM distillation (``phase_lcm``): ``cli/lcm_distill.main`` at full
+     width (batch 2, bf16, remat, 4 steps, the profile of step 4), the
+     student's eps against the teacher's before the first update, 30
+     frozen, 30 LSE, 15 dq and 15 dk/dv launches a step, then 4 LCM steps
+     of ``stage2_generate`` from the student;
+ 15. data-parallel serving (``phase_serve_dp``): ``Stage2Service`` over
+     ``mesh=[cuda:0]`` and over ``mesh=[cuda:0, cuda:0]`` (two replicas at
+     bucket 2) against ``mesh=None``, bit for bit; then the images/s of a
+     burst on one replica against two, a shared-card reading.
 Launch counters are reset just before each path runs and read just after.
 
 The last three lines are the card's name and power limit (nvidia-smi), a
@@ -3315,6 +3331,463 @@ def phase_serve(fa, dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# data parallelism, LCM distillation and data-parallel serving
+# ---------------------------------------------------------------------------
+
+# the data-parallel phase: full-width stage-2 steps (512x1024 canvas, one
+# row per rank, remat, bf16 on f32 weights) of a world of 2 gloo ranks on
+# the one card against a world of 1 on the 2-row global batch with the same
+# draws. Both run bf16 and differ where batch 1 and batch 2 are tiled and
+# rounded differently: the loss and the gradient's global norm within 1e-2
+# (relative), the whole reduced gradient within a relative L2 of 5e-3.
+DP_STEPS, BAR_DP_REL, BAR_DP_GRAD_REL_L2 = 2, 1e-2, 5e-3
+# launches of kernels 4-6 in one full-width stage-2 step with remat
+DP_LAUNCHES = {"flash_fwd_lse": 30, "flash_dq": 15, "flash_dkv": 15}
+# the LCM phase: launches of kernels 1 and 4-6 in one distillation step
+# with remat (the teacher's CFG-doubled forward and the target's, 15 frozen
+# each; the student's forward and its recompute, 15 LSE each; its backward)
+LCM_STEPS = 4
+LCM_LAUNCHES = {"flash_frozen": 30, "flash_fwd_lse": 30, "flash_dq": 15,
+                "flash_dkv": 15}
+
+
+def _dp_train(mesh, rows, steps=DP_STEPS, zero1=False, probe=False,
+              grads_queue=None, on_probe=None):
+    """The stage-2 trainer's models, loss and synthetic batches at full
+    width (``rows`` global rows) on ``mesh`` (None: a world of 1). With
+    ``probe`` (on every rank: it is collective) first the reduced gradient
+    of step 0's batch and draws, held against the one that ``grads_queue``
+    gives (relative L2) when given, else handed to ``on_probe``, if any.
+    Then ``run_training`` for ``steps`` steps. Returns a record of the
+    run."""
+    from pcdms_tpu_torch.cli import stage2_train as cli
+    from pcdms_tpu_torch.cli.common import train_config_from_args
+    from pcdms_tpu_torch.data.loader import prefetch_to_device
+    from pcdms_tpu_torch.parallel.dryrun import optimizer_bytes
+    from pcdms_tpu_torch.parallel.mesh import all_reduce_mean
+    from pcdms_tpu_torch.train.loop import run_training, step_generator
+    from pcdms_tpu_torch.train.stage2 import stage2_loss_fn
+
+    world = 1 if mesh is None else mesh.world
+    args = cli.parse_args([
+        "--output_dir", "unused", "--random_init", "--synthetic_data",
+        "--img_height", "512", "--img_width", "512", "--train_batch_size",
+        str(rows // world), "--learning_rate", "1e-4", "--lr_warmup_steps",
+        "1", "--mixed_precision", "bf16", "--gradient_checkpointing",
+        "--seed", str(SEED)] + (["--zero1"] if zero1 else []))
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    _, trainable, vae, _, _, aux = cli.build_models(args, dev)
+    loss_fn = stage2_loss_fn(vae, compute_dtype=torch.bfloat16, mesh=mesh)
+    rec = {"rank": 0 if mesh is None else mesh.rank, "grad_rel_l2": None}
+    if probe:
+        batch = next(prefetch_to_device(cli.synthetic_batches(
+            args, aux, mesh), dev))
+        loss, _ = loss_fn(trainable, batch, step_generator(SEED, 0, dev))
+        loss.backward()
+        params = [p for m in trainable.values() for p in m.parameters()]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        all_reduce_mean(grads, mesh)
+        if grads_queue is not None:
+            diff2 = ref2 = 0.0
+            for g, r in zip(grads, grads_queue.get()):
+                diff2 += float(torch.sum(torch.square(g - r)))
+                ref2 += float(torch.sum(torch.square(r)))
+            rec["grad_rel_l2"] = math.sqrt(diff2 / ref2)
+        elif on_probe is not None:
+            on_probe([g.detach().clone() for g in grads])
+        for p in params:
+            p.grad = None
+        del grads, batch, loss, params
+    rows_out = []
+
+    def on_step(step, m):
+        rows_out.append((m["loss"].item(), m["grad_norm"].item(),
+                         time.perf_counter()))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = run_training(loss_fn, trainable, cli.synthetic_batches(
+        args, aux, mesh), train_config_from_args(args), mesh=mesh,
+        device=dev, seed=SEED, max_train_steps=steps, log_every=1000,
+        on_step=on_step)
+    torch.cuda.synchronize()
+    ends = [t0] + [r[2] for r in rows_out]
+    rec.update(loss=[r[0] for r in rows_out],
+               grad_norm=[r[1] for r in rows_out],
+               s_per_step=[b - a for a, b in zip(ends, ends[1:])],
+               zero1=state.zero1, opt_bytes=optimizer_bytes(state),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del state, trainable, vae, loss_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _dp_rank(rank, world, workdir, grads_queue):
+    """One gloo rank of ``phase_data_parallel`` on cuda:0; rank 0 holds its
+    reduced gradient of step 0 against the world of 1's, which
+    ``grads_queue`` hands over from the parent's memory on the card (CUDA
+    IPC)."""
+    import torch.distributed as dist
+
+    from pcdms_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(workdir, 'store')}",
+        rank=rank, world_size=world)
+    try:
+        mesh = make_mesh("cuda")
+        rec = _dp_train(mesh, world, zero1=True, probe=True,
+                        grads_queue=grads_queue if rank == 0 else None)
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_data_parallel(fa, dev):
+    """Data-parallel training at full width (``parallel/mesh.py``,
+    ``train/common.py`` over a mesh with ZeRO-1). Two gloo ranks share
+    cuda:0 (NCCL refuses two ranks on one device) and take 2 stage-2 steps
+    with ZeRO-1 at one row each; a world of 1 takes the same 2 steps on the
+    2-row global batch with the same draws. Per step the loss and the
+    reduced gradient's norm, and the whole reduced gradient of step 0, held
+    against the world of 1 (whose step-0 gradient rank 0 reads from this
+    process's memory on the card); each rank's peak memory and optimizer
+    bytes (about half of the world of 1's). Then one step of a world of 1
+    through the nccl backend with ZeRO-1, so that the NCCL code path runs
+    on the card. The ranks run while this process takes its world-1 steps
+    and the NCCL one, so every time here is a smoke reading: the processes
+    share one card, and gloo moves the gradients through the host. Returns
+    the launches of the world-1 runs in this process."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from pcdms_tpu_torch.parallel.mesh import make_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_name_and_limit()
+    shared = []                 # kept alive until the ranks are done
+    with tempfile.TemporaryDirectory() as tmp:
+        queue = mp.get_context("spawn").SimpleQueue()
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_dp_rank, args=(2, tmp, queue), nprocs=2,
+                                 start_method="spawn", join=False)
+
+        def share(grads):
+            shared.append(grads)
+            queue.put(grads)
+
+        fa.reset_launches()
+        one = _dp_train(None, 2, probe=True, on_probe=share)
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in fa.LAUNCHES.items() if c}
+        nccl, nccl_counts, backend = _dp_nccl_step(fa, make_mesh, dist)
+        while not ctx.join():
+            pass
+        spawn_s = time.perf_counter() - t0
+        shared.clear()
+        torch.cuda.ipc_collect()
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for rec in ranks:
+        print(f"[data_parallel] gloo rank {rec['rank']} of 2 on one card "
+              f"({card}; a shared-card smoke reading, not a multi-card "
+              f"speed), ZeRO-1 {rec['zero1']}: loss {rec['loss']} grad_norm "
+              f"{rec['grad_norm']} s/step "
+              f"{[round(s, 3) for s in rec['s_per_step']]}, peak "
+              f"{rec['peak_gib']:.2f} GiB, optimizer state "
+              f"{rec['opt_bytes'] / 2**30:.3f} GiB", flush=True)
+    print(f"[data_parallel] world of 1 on the 2-row batch ({card}): loss "
+          f"{one['loss']} grad_norm {one['grad_norm']} s/step "
+          f"{[round(s, 3) for s in one['s_per_step']]}, peak "
+          f"{one['peak_gib']:.2f} GiB (with the 3.5 GB step-0 gradient it "
+          f"keeps for rank 0), optimizer state "
+          f"{one['opt_bytes'] / 2**30:.3f} GiB; step-0 reduced gradient, "
+          f"world 2 vs 1: rel L2 {ranks[0]['grad_rel_l2']:.3e}; the two "
+          f"ranks' processes took {spawn_s:.1f} s beside it; launches "
+          f"{counts}", flush=True)
+    want = {k: v * (DP_STEPS + 1) for k, v in DP_LAUNCHES.items()}
+    if counts != want:
+        fail(f"data parallel: expected world-1 launches {want}, got "
+             f"{counts}")
+    for rec in ranks:
+        for key in ("loss", "grad_norm"):
+            got, ref = rec[key], one[key]
+            if len(got) != DP_STEPS or not all(
+                    math.isfinite(g) and abs(g - w) <= BAR_DP_REL * abs(w)
+                    for g, w in zip(got, ref)):
+                fail(f"data parallel: rank {rec['rank']} {key} {got} vs "
+                     f"world 1 {ref} beyond rel {BAR_DP_REL}")
+        if not rec["zero1"] or not (
+                0.4 * one["opt_bytes"] <= rec["opt_bytes"]
+                <= 0.6 * one["opt_bytes"]):
+            fail(f"data parallel: rank {rec['rank']} holds "
+                 f"{rec['opt_bytes']} optimizer bytes, not about half of "
+                 f"{one['opt_bytes']}")
+    if sum(r["opt_bytes"] for r in ranks) != one["opt_bytes"]:
+        fail("data parallel: the ZeRO-1 shards do not add up to the state")
+    if not ranks[0]["grad_rel_l2"] <= BAR_DP_GRAD_REL_L2:
+        fail(f"data parallel: reduced gradient rel L2 "
+             f"{ranks[0]['grad_rel_l2']:.3e} > {BAR_DP_GRAD_REL_L2}")
+
+    print(f"[data_parallel] one step of a world of 1 on {backend} with "
+          f"ZeRO-1 {nccl['zero1']}: loss {nccl['loss']} grad_norm "
+          f"{nccl['grad_norm']} (world-1 step 1: {one['loss'][0]}), "
+          f"{nccl['s_per_step'][0]:.3f} s; launches {nccl_counts}",
+          flush=True)
+    if (backend != "nccl" or not nccl["zero1"] or nccl_counts != DP_LAUNCHES
+            or abs(nccl["loss"][0] - one["loss"][0])
+            > BAR_DP_REL * abs(one["loss"][0])):
+        fail("data parallel: the NCCL step did not match the world-1 step")
+    return _add(counts, nccl_counts)
+
+
+def _dp_nccl_step(fa, make_mesh, dist):
+    """One full-width step of a world of 1 whose all-reduces and ZeRO-1
+    run on NCCL: (record, launches, backend)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh("cuda")
+            fa.reset_launches()
+            rec = _dp_train(mesh, 2, steps=1, zero1=True)
+            torch.cuda.synchronize()
+            counts = {n: c for n, c in fa.LAUNCHES.items() if c}
+            return rec, counts, dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_lcm(fa, dev):
+    """LCM distillation at full width through ``cli/lcm_distill.main``
+    (random teacher from the seed, synthetic batches, 512x1024 canvas,
+    batch 2, bf16 on f32 weights, remat, 4 steps, the profile window of
+    its ``--profile_dir``: step 4). Before the first update the student's
+    eps against the teacher's conditional eps (the student starts as the
+    teacher, its w-projection at zero); per step 30 frozen launches (the
+    teacher's CFG-doubled forward and the target's), 30 LSE (the student
+    and its recompute) and 15 of each backward kernel; seconds per step, the
+    device-busy share of the window, peak memory. Then 4 LCM steps of
+    ``stage2_generate`` from the distilled student. Returns the launches of
+    the training run."""
+    import numpy as np
+
+    from pcdms_tpu_torch.cli import lcm_distill as lcm_cli
+    from pcdms_tpu_torch.nn.layers import guidance_scale_embedding
+    from pcdms_tpu_torch.pipelines.stage2_inpaint import stage2_generate
+    from pcdms_tpu_torch.train import checkpoint, loop
+    from pcdms_tpu_torch.utils.tree import cast_tree
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_name_and_limit()
+    kept, rows = {}, []
+    build = lcm_cli.build_models
+
+    def build_and_check(args, device):
+        teacher, student, vae, clip, dino, aux = build(args, device)
+        gen = torch.Generator(device=device).manual_seed(SEED + 90)
+        b, bf = 2, torch.bfloat16
+        x = torch.randn((b, 64, 128, 9), generator=gen, device=device)
+        ctx = torch.randn((b, 258, 1024), generator=gen, device=device)
+        cl = torch.randn((b, 1024), generator=gen, device=device)
+        pose = torch.randn((b, 64, 128, 320), generator=gen, device=device)
+        ts = torch.tensor([999, 259], device=device)
+        w = guidance_scale_embedding(torch.tensor([1.5, 3.7], device=device),
+                                     args.time_cond_proj_dim).to(bf)
+        with torch.no_grad():
+            want = cast_tree(teacher["unet"], bf)(
+                x.to(bf), ts, ctx.to(bf), class_labels=cl.to(bf),
+                pose_cond=pose.to(bf)).float()
+            got = cast_tree(student["unet"], bf)(
+                x.to(bf), ts, ctx.to(bf), class_labels=cl.to(bf),
+                pose_cond=pose.to(bf), timestep_cond=w).float()
+        kept["eps_rel_l2"] = _rel_l2(got, want)
+        kept["vae"] = vae
+        del got, want, x, ctx, pose
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        return teacher, student, vae, clip, dino, aux
+
+    run = loop.run_training
+
+    def timed_run(*a, **kw):
+        def on_step(step, m):
+            rows.append((m["loss"].item(), time.perf_counter()))
+        kept["t0"] = time.perf_counter()
+        return run(*a, on_step=on_step, **kw)
+
+    # the final checkpoint (the student and its moments, 10.4 GB) is noted,
+    # not written: phase_train_data writes and resumes one at full width
+    saves, save = [], checkpoint.save_checkpoint
+    checkpoint.save_checkpoint = lambda d, step, *a, **kw: saves.append(step)
+    lcm_cli.build_models, loop.run_training = build_and_check, timed_run
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            state = lcm_cli.main([
+                "--output_dir", os.path.join(tmp, "out"), "--random_init",
+                "--synthetic_data", "--img_height", "512", "--img_width",
+                "512", "--train_batch_size", "2", "--max_train_steps",
+                str(LCM_STEPS), "--checkpointing_steps", "100000",
+                "--learning_rate", "1e-4", "--lr_warmup_steps", "1",
+                "--mixed_precision", "bf16", "--gradient_checkpointing",
+                "--seed", str(SEED), "--profile_dir",
+                os.path.join(tmp, "prof"), "--log_every", "1000"])
+            torch.cuda.synchronize()
+            counts = {n: c for n, c in fa.LAUNCHES.items() if c}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            with open(os.path.join(tmp, "prof", "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+    finally:
+        lcm_cli.build_models, loop.run_training = build, run
+        checkpoint.save_checkpoint = save
+    by_name, busy, window, n_kernels = _kernel_times(events)
+    ends = [kept["t0"]] + [r[1] for r in rows]
+    times = [b - a for a, b in zip(ends, ends[1:])]
+    losses = [r[0] for r in rows]
+    print(f"[lcm] student vs teacher eps before the first update (w 1.5 / "
+          f"3.7, bf16): rel L2 {kept['eps_rel_l2']:.3e}", flush=True)
+    print(f"[lcm] cli/lcm_distill.main at full width ({card}): 512x1024, "
+          f"batch 2, bf16, remat, {LCM_STEPS} steps: losses "
+          f"{[round(x, 6) for x in losses]}, s/step "
+          f"{[round(t, 3) for t in times]} (step 4 under the profiler), "
+          f"peak {peak:.2f} GiB; profile window of step 4: {n_kernels} "
+          f"kernels, {window:.1f} ms, device busy {busy / window:.1%}; "
+          f"launches {counts}", flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[lcm]   {us / 1e3:9.2f} ms  {name[:100]}", flush=True)
+    if not kept["eps_rel_l2"] <= BAR_UNET_REL_L2:
+        fail(f"lcm: the student's eps is not the teacher's "
+             f"({kept['eps_rel_l2']:.3e})")
+    want = {k: v * LCM_STEPS for k, v in LCM_LAUNCHES.items()}
+    if counts != want:
+        fail(f"lcm: expected launches {want}, got {counts}")
+    if len(losses) != LCM_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"lcm: expected {LCM_STEPS} finite losses, got {losses}")
+    if saves != [LCM_STEPS]:
+        fail(f"lcm: expected one checkpoint at step {LCM_STEPS}, got {saves}")
+
+    # 4 LCM steps from the distilled student (no CFG doubling)
+    models = dict(state.models, vae=kept.pop("vae"))
+    rng = np.random.default_rng(SEED + 91)
+    req = _serve_request(rng)
+    t0 = time.perf_counter()
+    img = stage2_generate(
+        models, req["vae_image"][None], req["st_pose"][None],
+        req["dino_features"][None], req["embed"][None, None],
+        torch.Generator(device=dev).manual_seed(SEED), num_steps=4,
+        scheduler="lcm", guidance_scale=2.0, device=dev)
+    torch.cuda.synchronize()
+    print(f"[lcm] stage2_generate with the distilled student, LCM 4 steps: "
+          f"{img.shape} in {time.perf_counter() - t0:.2f} s, finite "
+          f"{bool(torch.isfinite(img).all())}", flush=True)
+    if tuple(img.shape) != (1, 512, 1024, 3) or not torch.isfinite(img).all():
+        fail("lcm: the distilled student's sample is not a finite image")
+    del state, models, img
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _burst(svc, reqs):
+    """Images per second of ``svc`` for ``reqs`` submitted at once."""
+    t0 = time.perf_counter()
+    futs = [svc.submit(**r) for r in reqs]
+    for f in futs:
+        f.result(300)
+    return len(reqs) / (time.perf_counter() - t0)
+
+
+def phase_serve_dp(fa, dev):
+    """Data-parallel serving at 512x1024, UniPC 3 steps:
+    ``Stage2Service(mesh=[cuda:0])`` (one replica, the modules shared)
+    against ``mesh=None``, buckets 1 / 2, each of 3 requests the same bits;
+    then ``mesh=[cuda:0, cuda:0]`` at bucket 2 (two replicas sharing the
+    card and the modules: the row split and the join run), each request
+    against ``mesh=None`` at bucket 1, the same bits. Last, images/s for a
+    burst of 6 requests, one replica at bucket 1 against two at bucket 2:
+    one card does the same rows either way, so this reads the cost of the
+    split and the join, not a multi-card speed. Returns the launches."""
+    import numpy as np
+
+    from pcdms_tpu_torch.serve.stage2 import Stage2Service
+
+    steps = 3
+    models = build_models(dev)
+    rng = np.random.default_rng(SEED + 95)
+    reqs = [dict(_serve_request(rng), seed=i) for i in range(3)]
+    outs = {}
+    fa.reset_launches()
+    for label, mesh, buckets in (("mesh=None", None, (1, 2)),
+                                 ("mesh=[cuda:0]", [dev], (1, 2)),
+                                 ("mesh=[cuda:0, cuda:0]", [dev, dev], (2,))):
+        with Stage2Service(models, num_steps=steps, buckets=buckets,
+                           mesh=mesh) as svc:
+            t0 = time.perf_counter()
+            outs[label] = [svc.submit(**r).result(300) for r in reqs]
+            secs = (time.perf_counter() - t0) / len(reqs)
+        print(f"[serve_dp] Stage2Service {label}, buckets {buckets}: "
+              f"{secs:.2f} s per request (one at a time, UniPC {steps})",
+              flush=True)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in fa.LAUNCHES.items() if c}
+    want_outs = outs.pop("mesh=None")
+    same = {k: all(np.array_equal(a, b) for a, b in zip(v, want_outs))
+            for k, v in outs.items()}
+    print(f"[serve_dp] against mesh=None, 3 requests: the same bits "
+          f"{same}; launches {counts}", flush=True)
+    if not all(same.values()):
+        fail("serve_dp: the data-parallel service changed an output")
+    # mesh=None and [cuda:0]: one forward set per request and step; two
+    # replicas: one each, the second on the bucket's padding row
+    want = {"flash_frozen": FORWARD_LAUNCHES["flash_frozen"] * steps * 4
+            * len(reqs)}
+    if counts != want:
+        fail(f"serve_dp: expected launches {want}, got {counts}")
+    burst = [dict(_serve_request(rng), seed=10 + i) for i in range(6)]
+    rates = {}
+    for label, mesh, buckets in (("one replica, bucket 1", [dev], (1,)),
+                                 ("two replicas, bucket 2", [dev, dev],
+                                  (2,))):
+        with Stage2Service(models, num_steps=steps, buckets=buckets,
+                           mesh=mesh) as svc:
+            svc.submit(**burst[0]).result(300)
+            rates[label] = _burst(svc, burst)
+    print(f"[serve_dp] a burst of 6 requests on one card "
+          f"({card_name_and_limit()}; a shared-card reading, not a "
+          f"multi-card speed): images/s "
+          f"{ {k: round(v, 3) for k, v in rates.items()} }", flush=True)
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _timed(phase, *args):
+    """Run one phase; print its seconds (host clock, the card waited for)."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    torch.cuda.synchronize()
+    print(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3331,36 +3804,39 @@ def main() -> int:
           f"on {device_name}; TF32 off for matmul and cuDNN (reference side)",
           flush=True)
     t0 = time.perf_counter()
-    phase_build()
-    records = phase_kernels(fa, fb)
-    phase_clip(fa, dev)
-    records["fused_gn_silu_conv"] = phase_fused_conv(fc)
-    for name, recs in phase_stage3_kernels(fa, fc).items():
+    _timed(phase_build)
+    records = _timed(phase_kernels, fa, fb)
+    _timed(phase_clip, fa, dev)
+    records["fused_gn_silu_conv"] = _timed(phase_fused_conv, fc)
+    for name, recs in _timed(phase_stage3_kernels, fa, fc).items():
         records[name]["stage3_shapes"] = recs
     models = build_models(dev)
-    phase_unet(fa, models, dev)
-    launches = phase_pipeline(fa, models, dev)
+    _timed(phase_unet, fa, models, dev)
+    launches = _timed(phase_pipeline, fa, models, dev)
     s3_models = build_stage3_models(dev)
-    _add(launches, phase_stage3(fa, s3_models, dev))
-    prior = phase_stage1(dev)
-    _add(launches, phase_cascade(fa, prior, models, s3_models, dev))
-    _add(launches, phase_sampler_options(fa, models, s3_models, dev))
+    _add(launches, _timed(phase_stage3, fa, s3_models, dev))
+    prior = _timed(phase_stage1, dev)
+    _add(launches, _timed(phase_cascade, fa, prior, models, s3_models, dev))
+    _add(launches, _timed(phase_sampler_options, fa, models, s3_models, dev))
     del models, s3_models, prior
     gc.collect()
     torch.cuda.empty_cache()
-    records.update(phase_bwd_kernels(fb))
-    for name, recs in phase_bwd_stage3(fb).items():
+    records.update(_timed(phase_bwd_kernels, fb))
+    for name, recs in _timed(phase_bwd_stage3, fb).items():
         records[name]["stage3_train_shapes"] = recs
-    phase_unet_grad(fa, dev)
-    launches.update(phase_train(fa, dev))
-    _add(launches, phase_train_stage3(fa, dev))
-    _add(launches, phase_train_stage1(fa, dev))
-    _add(launches, phase_train_data(fa, dev))
-    phase_cli()
-    phase_batchtest(fa)
-    phase_protocol(fa)
-    _add(launches, phase_weights(fa, dev))
-    _add(launches, phase_serve(fa, dev))
+    _timed(phase_unet_grad, fa, dev)
+    launches.update(_timed(phase_train, fa, dev))
+    _add(launches, _timed(phase_train_stage3, fa, dev))
+    _add(launches, _timed(phase_train_stage1, fa, dev))
+    _add(launches, _timed(phase_train_data, fa, dev))
+    _timed(phase_cli)
+    _timed(phase_batchtest, fa)
+    _timed(phase_protocol, fa)
+    _add(launches, _timed(phase_weights, fa, dev))
+    _add(launches, _timed(phase_serve, fa, dev))
+    _add(launches, _timed(phase_data_parallel, fa, dev))
+    _add(launches, _timed(phase_lcm, fa, dev))
+    _add(launches, _timed(phase_serve_dp, fa, dev))
     for kernel in KERNELS:
         if not launches.get(kernel):
             fail(f"kernel {kernel} was not launched on its path")

@@ -1,8 +1,8 @@
 """Shared CLI plumbing (counterpart of ``pcdms_tpu/cli/common.py``): the
 reference's trainer flags, the ``TrainConfig`` they make, the trainers'
-refusals, the compute dtype, the port's own copy of the tiny geometry
-(``--tiny_config``), and the batch test's latents, PNG writing and on-device
-best-of-N selection."""
+exits, the data-parallel mesh, the compute dtype, the port's own copy of the
+tiny geometry (``--tiny_config``), and the batch test's latents, PNG
+writing and on-device best-of-N selection."""
 
 from __future__ import annotations
 
@@ -55,15 +55,19 @@ def add_common_train_flags(p: argparse.ArgumentParser):
     p.add_argument("--image_root_path", type=str, default="")
     p.add_argument("--report_to", type=str, default=None,
                    help="'tensorboard': also write train_loss and "
-                        "examples_per_sec to <output_dir>/logs")
+                        "examples_per_sec to <output_dir>/logs; any other "
+                        "value logs to stdout only")
     p.add_argument("--zero1", action="store_true",
-                   help="shard optimizer state (not ported yet)")
+                   help="shard the AdamW moments over the ranks of a slice "
+                        "(ZeRO-1; several ranks under torchrun)")
     p.add_argument("--use_ema", action="store_true",
                    help="track an EMA of the trainable params, "
                         "checkpointed and exported by load_trained_params")
     p.add_argument("--ema_decay", type=float, default=0.9999)
     p.add_argument("--dcn_slices", type=int, default=1,
-                   help="multi-slice training (not ported yet; must be 1)")
+                   help="slices of consecutive ranks: ZeRO-1 shards stay "
+                        "inside a slice, the gradient all-reduce spans the "
+                        "world (the world must divide into them)")
     p.add_argument("--random_init", action="store_true",
                    help="random-init all models (no local checkpoints)")
     p.add_argument("--profile_dir", type=str, default=None,
@@ -83,7 +87,8 @@ def add_common_train_flags(p: argparse.ArgumentParser):
                         "with the zero-image dropout row, and train from "
                         "the cache")
     p.add_argument("--device", type=str, default="cuda",
-                   help="'cuda' (default; raises without a card) or 'cpu'")
+                   help="'cuda' (default; raises without a card; the rank's "
+                        "own card under torchrun) or 'cpu' (gloo)")
 
 
 def train_config_from_args(args):
@@ -100,23 +105,16 @@ def train_config_from_args(args):
         lr_scheduler=args.lr_scheduler,
         gradient_accumulation_steps=args.gradient_accumulation_steps,
         noise_offset=args.noise_offset,
+        zero1=args.zero1,
         use_ema=args.use_ema,
         ema_decay=args.ema_decay,
     )
 
 
 def check_train_flags(args, pretrained_flags=()) -> None:
-    """The trainers' refusals and exits: ``--zero1`` and ``--dcn_slices >
-    1`` (not ported), a ``--report_to`` other than tensorboard, the
-    DeepFashion data path without ``--json_path``, and pretrained loading
-    without the files it reads, ``pretrained_flags``."""
-    if args.zero1 or args.dcn_slices > 1:
-        raise NotImplementedError(
-            "--zero1 and --dcn_slices > 1 need the DDP / ZeRO-1 port "
-            "(ROADMAP item 19b)")
-    if args.report_to not in (None, "tensorboard"):
-        raise NotImplementedError(f"--report_to {args.report_to}: only "
-                                  f"tensorboard is ported")
+    """The trainers' exits: the DeepFashion data path without
+    ``--json_path``, and pretrained loading without the files it reads,
+    ``pretrained_flags``."""
     if not args.synthetic_data and not args.json_path:
         raise SystemExit("--json_path required without --synthetic_data")
     if args.random_init:
@@ -156,12 +154,16 @@ def frozen_loaders(args, makers):
             for name, make in makers.items()}
 
 
-def process_shard():
+def process_shard(mesh=None):
     """(rank, world size) of this process: its share of the pair list."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    return (0, 1) if mesh is None else (mesh.rank, mesh.world)
+
+
+def global_indices(start: int, n: int, mesh=None) -> list:
+    """The pair-list indices of items ``start .. start + n`` of this rank's
+    share (``PairList.shard(rank, world)`` takes every world-th pair)."""
+    rank, world = process_shard(mesh)
+    return [rank + world * (start + j) for j in range(n)]
 
 
 def tensorboard_writer_from_args(args):

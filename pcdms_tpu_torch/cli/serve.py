@@ -28,7 +28,8 @@ ShapeRouter, ``serve/router.py``):
         --tiny_config --canvas 64 64 --canvas 64 128 --device cpu
 Requests are routed by their ``vae_image`` canvas; unknown shapes get
 HTTP 400. All engines share one set of modules (weights do not depend on
-the resolution).
+the resolution). ``--data_parallel`` splits each batch over every visible
+card, one replica of the modules per card (``serve/stage2.py``).
 """
 
 from __future__ import annotations
@@ -73,8 +74,9 @@ def parse_args(argv=None):
     p.add_argument("--simple_variant", action="store_true")
     p.add_argument("--buckets", type=int, nargs="+", default=[1, 2, 4, 8])
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard each batch over several cards (not ported "
-                        "yet: ROADMAP item 19b)")
+                   help="split each batch over every visible card, one "
+                        "model replica per card (buckets must be multiples "
+                        "of the card count)")
     p.add_argument("--max_delay_ms", type=float, default=5.0)
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
@@ -192,11 +194,12 @@ def load_service_params(args):
     return params
 
 
-def _refuse_data_parallel(args):
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel needs parallel/mesh.py, which is not ported yet "
-            "(ROADMAP item 19b)")
+def visible_devices(args) -> list:
+    """``--data_parallel``'s mesh: every visible card, or the CPU."""
+    device = resolve_device(args.device)
+    if device.type != "cuda":
+        return [device]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def build_service(args, height=None, width=None, params=None):
@@ -205,7 +208,6 @@ def build_service(args, height=None, width=None, params=None):
     omitted, they are built here."""
     from pcdms_tpu_torch.serve.stage2 import CascadeService, Stage2Service
 
-    _refuse_data_parallel(args)
     height = args.img_height if height is None else height
     width = args.img_width if width is None else width
     cfg = _service_configs(args, height)
@@ -220,6 +222,7 @@ def build_service(args, height=None, width=None, params=None):
                   buckets=tuple(args.buckets),
                   max_delay_ms=args.max_delay_ms,
                   warmup=not args.no_warmup, device=args.device,
+                  mesh=visible_devices(args) if args.data_parallel else None,
                   **cfg["dino_kw"])
     if args.model == "stage2":
         return Stage2Service(params["s2"],
@@ -231,7 +234,6 @@ def build_service(args, height=None, width=None, params=None):
 
 def build_deployment(args):
     """One service, or N per-canvas services behind a ShapeRouter."""
-    _refuse_data_parallel(args)
     if not args.canvas:
         return build_service(args)
     params = load_service_params(args)

@@ -31,11 +31,12 @@ import numpy as np
 import torch
 
 from pcdms_tpu_torch.cli.common import (
-    build_cli_models, check_weight_flags, queue_readback, setup_logging,
-    tiny_configs, wait_readback,
+    build_cli_models, check_weight_flags, global_indices,
+    process_shard, queue_readback, setup_logging, tiny_configs,
+    wait_readback,
 )
 from pcdms_tpu_torch.data.datasets import pair_stem
-from pcdms_tpu_torch.utils.device import resolve_device
+from pcdms_tpu_torch.parallel.mesh import make_mesh, sum_over_world
 
 logger = logging.getLogger("pcdms_tpu_torch.stage1_batchtest")
 
@@ -111,7 +112,8 @@ def main(argv=None):
     setup_logging()
     args = parse_args(argv)
     check_supported(args)
-    device = resolve_device(args.device)
+    mesh = make_mesh(args.device)
+    device = mesh.device
     os.makedirs(args.save_path, exist_ok=True)
 
     from pcdms_tpu_torch.data.datasets import PairList
@@ -121,7 +123,8 @@ def main(argv=None):
     from pcdms_tpu_torch.pose.keypoints import read_pose_txt
     from pcdms_tpu_torch.train.encoders import clip_image_embed
 
-    pairs = PairList(args.json_path, args.image_root_path).shard(0, 1)
+    pairs = PairList(args.json_path, args.image_root_path).shard(
+        *process_shard(mesh))
     models, clip = build_models(args, device)
     items, bs, written, sims = pairs.pairs, args.batch_size, [], []
     t0 = time.time()
@@ -155,7 +158,7 @@ def main(argv=None):
             pred = stage1_generate(
                 models, s_embed, s_pose, t_pose,
                 generator=torch.Generator(device=device).manual_seed(
-                    args.seed + start),
+                    args.seed + global_indices(start, 1, mesh)[0]),
                 num_steps=args.num_inference_steps,
                 guidance_scale=args.guidance_scale, device=device)
             batch = (chunk, queue_readback(pred), queue_readback(t_embed),
@@ -166,11 +169,14 @@ def main(argv=None):
 
     if pending is not None:
         finish(pending)
-    mean_sim = float(np.mean(sims))
+    # the world's mean, written once
+    total = sum_over_world([float(np.sum(sims)), float(len(sims))], mesh)
+    mean_sim = total[0] / total[1]
     logger.info("mean cosine similarity: %.5f (%.1fs)", mean_sim,
                 time.time() - t0)
-    with open(os.path.join(args.save_path, "a_results.txt"), "a") as f:
-        f.write(f"{args.weights_name}  {mean_sim}\n")
+    if mesh.is_main:
+        with open(os.path.join(args.save_path, "a_results.txt"), "a") as f:
+            f.write(f"{args.weights_name}  {mean_sim}\n")
     return written
 
 

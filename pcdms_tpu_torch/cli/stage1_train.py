@@ -30,7 +30,7 @@ from pcdms_tpu_torch.cli.common import (
     frozen_loaders, process_shard, setup_logging,
     tensorboard_writer_from_args, tiny_configs, train_config_from_args,
 )
-from pcdms_tpu_torch.utils.device import resolve_device
+from pcdms_tpu_torch.parallel.mesh import make_hybrid_mesh
 
 logger = logging.getLogger("pcdms_tpu_torch.stage1_train")
 
@@ -55,8 +55,8 @@ def parse_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Raise for flags whose code is not ported yet; exit when the data path
-    lacks its pair list or, without ``--random_init``, CLIP's dir."""
+    """Exit when the data path lacks its pair list or, without
+    ``--random_init``, CLIP's dir."""
     check_train_flags(args, [] if args.synthetic_data
                       else ["image_encoder_path"])
 
@@ -93,28 +93,32 @@ def build_models(args, device):
     return prior_cfg, {"prior": prior}, clip
 
 
-def synthetic_batches(args, embed_dim=1024):
+def synthetic_batches(args, embed_dim=1024, mesh=None):
     """Random batches of the right shapes, from numpy seeded with
-    ``args.seed`` (the same values as the JAX CLI's)."""
+    ``args.seed`` (the same values as the JAX CLI's). Over a ``mesh`` the
+    stream is the global batch of ``world * --train_batch_size`` rows and
+    each rank yields its own rows."""
+    from pcdms_tpu_torch.parallel.mesh import shard_batch
     rng = np.random.default_rng(args.seed)
-    b = args.train_batch_size
+    b = (1 if mesh is None else mesh.world) * args.train_batch_size
     while True:
-        yield {
+        yield shard_batch({
             "s_embed": rng.standard_normal((b, embed_dim), dtype=np.float32),
             "t_embed": rng.standard_normal((b, embed_dim), dtype=np.float32),
             "s_pose": rng.random((b, 36), dtype=np.float32),
             "t_pose": rng.random((b, 36), dtype=np.float32),
-        }
+        }, mesh)
 
 
 def make_batches(args, clip, embed_dim=1024,
-                 encoder_dtype: torch.dtype = torch.bfloat16):
+                 encoder_dtype: torch.dtype = torch.bfloat16, mesh=None):
     """The trainer's batches: ``synthetic_batches``, or the DeepFashion data
     path with both images' CLIP embeddings computed on the fly in
     ``encoder_dtype`` or read from ``--cache_embeddings``. With the cache,
-    CLIP is freed once it is built, before the first batch is yielded."""
+    CLIP is freed once it is built, before the first batch is yielded.
+    Over a ``mesh`` each rank reads its share of the pair list."""
     if args.synthetic_data:
-        yield from synthetic_batches(args, embed_dim)
+        yield from synthetic_batches(args, embed_dim, mesh)
         return
     from pcdms_tpu_torch.data.datasets import PairList, Stage1Dataset
     from pcdms_tpu_torch.data.loader import DataLoader
@@ -123,7 +127,7 @@ def make_batches(args, clip, embed_dim=1024,
     from pcdms_tpu_torch.utils.tree import cast_tree
 
     pairs = PairList(args.json_path, args.image_root_path).shard(
-        *process_shard())
+        *process_shard(mesh))
     size = (args.img_width, args.img_height)
     use_cache = args.cache_embeddings is not None
     dataset = Stage1Dataset(pairs, size=size,
@@ -173,7 +177,8 @@ def main(argv=None):
     setup_logging()
     args = parse_args(argv)
     check_supported(args)
-    device = resolve_device(args.device)
+    mesh = make_hybrid_mesh(args.dcn_slices, args.device)
+    device = mesh.device
     tcfg = train_config_from_args(args)
     dtype = compute_dtype_from_args(args)
 
@@ -183,10 +188,11 @@ def main(argv=None):
     from pcdms_tpu_torch.train.stage1 import stage1_loss_fn
 
     loss_fn = stage1_loss_fn(noise_offset=args.noise_offset,
-                             compute_dtype=dtype)
-    batches = make_batches(args, clip, embed_dim=prior_cfg.embedding_dim)
+                             compute_dtype=dtype, mesh=mesh)
+    batches = make_batches(args, clip, embed_dim=prior_cfg.embedding_dim,
+                           mesh=mesh)
     del clip             # the generator owns CLIP now (see stage 2)
-    return run_training(loss_fn, trainable, batches, tcfg, device=device,
+    return run_training(loss_fn, trainable, batches, tcfg, mesh=mesh,
                         seed=args.seed, output_dir=args.output_dir,
                         checkpointing_steps=args.checkpointing_steps,
                         log_every=args.log_every,

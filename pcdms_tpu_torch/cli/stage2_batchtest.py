@@ -22,7 +22,9 @@ checkpoint; ``--pretrained_model_name_or_path``, SD-2.1's VAE;
 ViT-H for train mode; ``compat/load.py``), ``--random_init`` (from
 ``--seed``), or a port training run's checkpoint (``--train_ckpt_dir``)
 with the frozen-encoder bundle it used (``--frozen_dir``: vae, dino, and
-clip for train mode). One process drives one card: there is no mesh.
+clip for train mode). One process drives one card; under ``torchrun
+--nproc_per_node N`` each rank takes every N-th pair (``parallel/mesh.py``)
+and writes its own pairs' PNGs, the same files a single process writes.
 """
 
 from __future__ import annotations
@@ -36,12 +38,13 @@ import numpy as np
 import torch
 
 from pcdms_tpu_torch.cli.common import (
-    build_cli_models, check_weight_flags, device_select_best, device_uint8,
-    per_item_latents, pretrained_vae_dino, queue_readback, save_images,
-    setup_logging, tiny_configs, wait_readback,
+    build_cli_models, check_weight_flags, device_select_best,
+    device_uint8, global_indices, per_item_latents, pretrained_vae_dino,
+    process_shard, queue_readback, save_images, setup_logging, tiny_configs,
+    wait_readback,
 )
 from pcdms_tpu_torch.data.datasets import pair_stem
-from pcdms_tpu_torch.utils.device import resolve_device
+from pcdms_tpu_torch.parallel.mesh import make_mesh
 
 logger = logging.getLogger("pcdms_tpu_torch.stage2_batchtest")
 
@@ -191,7 +194,8 @@ def main(argv=None):
     setup_logging()
     args = parse_args(argv)
     check_supported(args)
-    device = resolve_device(args.device)
+    mesh = make_mesh(args.device)
+    device = mesh.device
     os.makedirs(args.save_path, exist_ok=True)
 
     from pcdms_tpu_torch.data.datasets import PairList
@@ -203,7 +207,8 @@ def main(argv=None):
         clip_image_embed, dino_features,
     )
 
-    pairs = PairList(args.json_path, args.image_root_path).shard(0, 1)
+    pairs = PairList(args.json_path, args.image_root_path).shard(
+        *process_shard(mesh))
     train_mode = os.path.basename(args.json_path).startswith("train")
     if train_mode:
         logger.info("train-mode conditioning: GT CLIP embeddings")
@@ -266,14 +271,16 @@ def main(argv=None):
                                  "--simple_variant (or a train-mode json)")
 
             n = len(chunk)
+            # keyed by the pairs' global indices: a rank of a world of N
+            # draws what one process draws for the same pairs
+            index = global_indices(start, n, mesh)
             latents = per_item_latents(
-                args.seed, range(start, start + n),
-                args.num_images_per_prompt,
+                args.seed, index, args.num_images_per_prompt,
                 (args.img_height // 8, args.img_width // 4, 4))
             images = stage2_generate(
                 models, canvas, pose_canvas, feats, embeds,
                 generator=torch.Generator(device=device).manual_seed(
-                    args.seed + start),
+                    args.seed + index[0]),
                 latents=latents, num_steps=args.num_inference_steps,
                 guidance_scale=args.guidance_scale,
                 scheduler=args.scheduler,

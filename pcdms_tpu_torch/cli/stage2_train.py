@@ -19,8 +19,10 @@ dirs at any geometry. Batches come from the DeepFashion pair list
 (``--json_path``, ``data/datasets.py::Stage2Dataset`` through
 ``data/loader.py``) with DINOv2-giant and CLIP ViT-H run on the fly, or read
 from ``--cache_embeddings``; ``--synthetic_data`` trains on random batches.
-``--zero1`` and ``--dcn_slices > 1`` raise ``NotImplementedError`` (ROADMAP
-item 19b).
+Under ``torchrun --nproc_per_node N`` each rank trains on its own card
+with ``--train_batch_size`` rows and the gradients are averaged over the
+world (``parallel/mesh.py``); ``--zero1`` shards the AdamW moments over a
+slice's ranks and ``--dcn_slices`` splits the world into slices.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from pcdms_tpu_torch.cli.common import (
     frozen_loaders, process_shard, setup_logging,
     tensorboard_writer_from_args, tiny_configs, train_config_from_args,
 )
-from pcdms_tpu_torch.utils.device import resolve_device
+from pcdms_tpu_torch.parallel.mesh import make_hybrid_mesh
 
 logger = logging.getLogger("pcdms_tpu_torch.stage2_train")
 
@@ -58,9 +60,8 @@ def parse_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Raise for flags whose code is not ported yet; exit when the data path
-    has no pair list or pretrained loading lacks its files
-    (``cli/common.py::check_train_flags``)."""
+    """Exit when the data path has no pair list or pretrained loading lacks
+    its files (``cli/common.py::check_train_flags``)."""
     flags = ["pretrained_model_name_or_path"]
     if not args.synthetic_data:
         flags += ["image_encoder_p_path", "image_encoder_g_path"]
@@ -161,14 +162,19 @@ def _maybe_init_class_embedding(sd, cfg, seed):
     return sd
 
 
-def synthetic_batches(args, aux=None):
+def synthetic_batches(args, aux=None, mesh=None):
     """Random batches of the right shapes, from numpy seeded with
-    ``args.seed`` (the same values as the JAX CLI's)."""
+    ``args.seed`` (the same values as the JAX CLI's). Over a ``mesh`` the
+    stream is the global batch of ``world * --train_batch_size`` rows and
+    each rank yields its own rows."""
+    from pcdms_tpu_torch.parallel.mesh import shard_batch
     aux = aux or ModelAux()
     rng = np.random.default_rng(args.seed)
-    b, h, w = args.train_batch_size, args.img_height, 2 * args.img_width
+    world = 1 if mesh is None else mesh.world
+    b, h, w = (world * args.train_batch_size, args.img_height,
+               2 * args.img_width)
     while True:
-        yield {
+        yield shard_batch({
             "st_image": rng.uniform(-1, 1, (b, h, w, 3)).astype(np.float32),
             "masked_image": rng.uniform(-1, 1, (b, h, w, 3)).astype(
                 np.float32),
@@ -178,20 +184,20 @@ def synthetic_batches(args, aux=None):
                 (b, aux.dino_tokens, aux.dino_dim), dtype=np.float32),
             "clip_embed": rng.standard_normal(
                 (b, 1, aux.clip_dim), dtype=np.float32),
-        }
+        }, mesh)
 
 
 def make_batches(args, clip, dino, aux=None,
-                 encoder_dtype: torch.dtype = torch.bfloat16):
+                 encoder_dtype: torch.dtype = torch.bfloat16, mesh=None):
     """The trainer's batches: ``synthetic_batches``, or the DeepFashion data
     path through the ``DataLoader`` with the DINOv2 features of the source
     and the CLIP embedding of the target computed on the fly in
     ``encoder_dtype``, or read from the ``--cache_embeddings`` caches
     (``s2_dino_{W}x{H}``, f16, and ``s2_clip_{W}x{H}``). With the cache the
     encoders are freed once it is built, before the first batch is
-    yielded."""
+    yielded. Over a ``mesh`` each rank reads its share of the pair list."""
     if args.synthetic_data:
-        yield from synthetic_batches(args, aux)
+        yield from synthetic_batches(args, aux, mesh)
         return
     from pcdms_tpu_torch.data.datasets import PairList, Stage2Dataset
     from pcdms_tpu_torch.data.loader import DataLoader
@@ -199,7 +205,7 @@ def make_batches(args, clip, dino, aux=None,
     from pcdms_tpu_torch.utils.tree import cast_tree
 
     pairs = PairList(args.json_path, args.image_root_path).shard(
-        *process_shard())
+        *process_shard(mesh))
     use_cache = args.cache_embeddings is not None
     size = (args.img_width, args.img_height)
     dataset = Stage2Dataset(pairs, size=size,
@@ -266,7 +272,8 @@ def main(argv=None):
     setup_logging()
     args = parse_args(argv)
     check_supported(args)
-    device = resolve_device(args.device)
+    mesh = make_hybrid_mesh(args.dcn_slices, args.device)
+    device = mesh.device
     tcfg = train_config_from_args(args)
     dtype = compute_dtype_from_args(args)
 
@@ -276,12 +283,12 @@ def main(argv=None):
     from pcdms_tpu_torch.train.stage2 import stage2_loss_fn
 
     loss_fn = stage2_loss_fn(vae, noise_offset=args.noise_offset,
-                             compute_dtype=dtype)
-    batches = make_batches(args, clip, dino, aux)
+                             compute_dtype=dtype, mesh=mesh)
+    batches = make_batches(args, clip, dino, aux, mesh=mesh)
     # the generator owns the encoders now and frees them after a cache
     # build; a reference kept here would pin them on the device
     del clip, dino, vae
-    return run_training(loss_fn, trainable, batches, tcfg, device=device,
+    return run_training(loss_fn, trainable, batches, tcfg, mesh=mesh,
                         seed=args.seed, output_dir=args.output_dir,
                         checkpointing_steps=args.checkpointing_steps,
                         log_every=args.log_every,

@@ -31,13 +31,14 @@ import numpy as np
 import torch
 
 from pcdms_tpu_torch.cli.common import (
-    build_cli_models, check_weight_flags, device_select_best, device_uint8,
-    per_item_latents, pretrained_vae_dino, queue_readback, save_images,
-    setup_logging, tiny_configs, wait_readback,
+    build_cli_models, check_weight_flags, device_select_best,
+    device_uint8, global_indices, per_item_latents, pretrained_vae_dino,
+    process_shard, queue_readback, save_images, setup_logging, tiny_configs,
+    wait_readback,
 )
 from pcdms_tpu_torch.cli.stage2_batchtest import best_of_n_ssim
 from pcdms_tpu_torch.data.datasets import pair_stem
-from pcdms_tpu_torch.utils.device import resolve_device
+from pcdms_tpu_torch.parallel.mesh import make_mesh
 
 logger = logging.getLogger("pcdms_tpu_torch.stage3_batchtest")
 
@@ -137,7 +138,8 @@ def main(argv=None):
     setup_logging()
     args = parse_args(argv)
     check_supported(args)
-    device = resolve_device(args.device)
+    mesh = make_mesh(args.device)
+    device = mesh.device
     os.makedirs(args.save_path, exist_ok=True)
 
     from pcdms_tpu_torch.data.datasets import PairList, Stage3Dataset
@@ -147,7 +149,8 @@ def main(argv=None):
     from pcdms_tpu_torch.pipelines.stage3_refine import stage3_generate
     from pcdms_tpu_torch.train.encoders import dino_features
 
-    pairs = PairList(args.json_path, args.image_root_path).shard(0, 1)
+    pairs = PairList(args.json_path, args.image_root_path).shard(
+        *process_shard(mesh))
     size = (args.img_width, args.img_height)
     helper = Stage3Dataset(pairs, args.gen_dir, size=size)
     models, dino = build_models(args, device)
@@ -192,14 +195,14 @@ def main(argv=None):
                                        size)) for i in chunk])
         with torch.inference_mode():
             feats = dino_features(dino, s_pix)
+            index = global_indices(start, n, mesh)
             latents = per_item_latents(
-                args.seed, range(start, start + n),
-                args.num_images_per_prompt,
+                args.seed, index, args.num_images_per_prompt,
                 (args.img_height // 8, args.img_width // 8, 4))
             images = stage3_generate(
                 models, host_gen, feats,
                 generator=torch.Generator(device=device).manual_seed(
-                    args.seed + start),
+                    args.seed + index[0]),
                 latents=latents, num_steps=args.num_inference_steps,
                 guidance_scale=args.guidance_scale,
                 scheduler=args.scheduler,

@@ -34,7 +34,7 @@ from pcdms_tpu_torch.cli.common import (
     tensorboard_writer_from_args, tiny_configs, train_config_from_args,
 )
 from pcdms_tpu_torch.cli.stage2_train import ModelAux, _grow_conv_in
-from pcdms_tpu_torch.utils.device import resolve_device
+from pcdms_tpu_torch.parallel.mesh import make_hybrid_mesh
 
 logger = logging.getLogger("pcdms_tpu_torch.stage3_train")
 
@@ -56,9 +56,8 @@ def parse_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Raise for flags whose code is not ported yet; exit when the data path
-    lacks its pair list or ``--gen_dir``, or pretrained loading its
-    files."""
+    """Exit when the data path lacks its pair list or ``--gen_dir``, or
+    pretrained loading its files."""
     flags = ["pretrained_model_name_or_path"]
     if not args.synthetic_data:
         flags.append("image_encoder_p_path")
@@ -114,31 +113,36 @@ def build_models(args, device):
             None if dino is None else dino.eval(), aux)
 
 
-def synthetic_batches(args, aux=None):
+def synthetic_batches(args, aux=None, mesh=None):
     """Random batches of the right shapes, from numpy seeded with
-    ``args.seed`` (the same values as the JAX CLI's)."""
+    ``args.seed`` (the same values as the JAX CLI's). Over a ``mesh`` the
+    stream is the global batch of ``world * --train_batch_size`` rows and
+    each rank yields its own rows."""
+    from pcdms_tpu_torch.parallel.mesh import shard_batch
     aux = aux or ModelAux()
     rng = np.random.default_rng(args.seed)
-    b, h, w = args.train_batch_size, args.img_height, args.img_width
+    world = 1 if mesh is None else mesh.world
+    b, h, w = world * args.train_batch_size, args.img_height, args.img_width
     while True:
-        yield {
+        yield shard_batch({
             "target_image": rng.uniform(-1, 1, (b, h, w, 3)).astype(
                 np.float32),
             "gen_image": rng.uniform(-1, 1, (b, h, w, 3)).astype(
                 np.float32),
             "dino_features": rng.standard_normal(
                 (b, aux.dino_tokens, aux.dino_dim), dtype=np.float32),
-        }
+        }, mesh)
 
 
 def make_batches(args, dino, aux=None,
-                 encoder_dtype: torch.dtype = torch.bfloat16):
+                 encoder_dtype: torch.dtype = torch.bfloat16, mesh=None):
     """The trainer's batches: ``synthetic_batches``, or the DeepFashion data
     path with the source's DINOv2 features computed on the fly in
     ``encoder_dtype`` or read from ``--cache_embeddings``. With the cache,
-    DINOv2 is freed once it is built, before the first batch is yielded."""
+    DINOv2 is freed once it is built, before the first batch is yielded.
+    Over a ``mesh`` each rank reads its share of the pair list."""
     if args.synthetic_data:
-        yield from synthetic_batches(args, aux)
+        yield from synthetic_batches(args, aux, mesh)
         return
     from pcdms_tpu_torch.data.datasets import PairList, Stage3Dataset
     from pcdms_tpu_torch.data.loader import DataLoader
@@ -146,7 +150,7 @@ def make_batches(args, dino, aux=None,
     from pcdms_tpu_torch.utils.tree import cast_tree
 
     pairs = PairList(args.json_path, args.image_root_path).shard(
-        *process_shard())
+        *process_shard(mesh))
     use_cache = args.cache_embeddings is not None
     size = (args.img_width, args.img_height)
     dataset = Stage3Dataset(pairs, args.gen_dir, size=size,
@@ -188,7 +192,8 @@ def main(argv=None):
     setup_logging()
     args = parse_args(argv)
     check_supported(args)
-    device = resolve_device(args.device)
+    mesh = make_hybrid_mesh(args.dcn_slices, args.device)
+    device = mesh.device
     tcfg = train_config_from_args(args)
     dtype = compute_dtype_from_args(args)
 
@@ -198,10 +203,10 @@ def main(argv=None):
     from pcdms_tpu_torch.train.stage3 import stage3_loss_fn
 
     loss_fn = stage3_loss_fn(vae, noise_offset=args.noise_offset,
-                             compute_dtype=dtype)
-    batches = make_batches(args, dino, aux)
+                             compute_dtype=dtype, mesh=mesh)
+    batches = make_batches(args, dino, aux, mesh=mesh)
     del dino, vae        # the generator owns DINOv2 now (see stage 2)
-    return run_training(loss_fn, trainable, batches, tcfg, device=device,
+    return run_training(loss_fn, trainable, batches, tcfg, mesh=mesh,
                         seed=args.seed, output_dir=args.output_dir,
                         checkpointing_steps=args.checkpointing_steps,
                         log_every=args.log_every,

@@ -38,13 +38,25 @@ cascade's predicted embedding to a Stage2Service with the same seed
 reproduces the cascade's stage-2 image, up to the rounding of its batch
 bucket.
 
-``mesh=`` is kept in the signatures; multi-card serving needs
-``parallel/mesh.py``, which is not ported (ROADMAP item 19b).
+``mesh=`` serves data-parallel: a list of devices that this one process
+drives (``mesh=None`` is ``[device]``), one replica of the modules on each.
+A device that already holds a module uses it; elsewhere the module is
+copied there once, and every service of the process shares that copy.
+Each bucket is split evenly over the replicas, so every bucket must be a
+multiple of the device count; a request's rows never leave their replica,
+and its output is what one device gives at the replica's share of the
+bucket. The engine's one host thread dispatches every replica's share in
+turn, and the devices run them concurrently: a host thread per replica
+served fewer images/s on one H100 shared by two replicas, the threads
+contending for the GIL.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import contextlib
+import copy
+import weakref
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -70,11 +82,64 @@ def _check_scheduler(scheduler: str) -> str:
     return scheduler
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (data-parallel serving over several cards) needs "
-            "parallel/mesh.py, which is not ported yet (ROADMAP item 19b)")
+class _DataParallel:
+    """The engine's batch function over ``devices`` (the JAX service's
+    ``_mesh_wrap``): ``make_batch_fn(replicas, device)`` per device, where
+    ``replicas`` are ``model_sets`` on that device (``_replica``), each
+    given its equal share of the bucket's rows in order; the outputs are
+    joined on the first device."""
+
+    def __init__(self, make_batch_fn: Callable, model_sets, devices,
+                 buckets):
+        bad = [b for b in buckets if b % len(devices)]
+        if bad:
+            raise ValueError(f"buckets {bad} not divisible by the mesh's "
+                             f"{len(devices)} devices")
+        self.devices = devices
+        self.replicas = [[_replica(m, d) for m in model_sets]
+                         for d in devices]
+        self.fns = [make_batch_fn(r, d)
+                    for r, d in zip(self.replicas, devices)]
+
+    def __call__(self, batch):
+        per = len(next(iter(batch.values()))) // len(self.fns)
+        outs = []
+        for i, (fn, dev) in enumerate(zip(self.fns, self.devices)):
+            with (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                outs.append(fn({k: v[i * per:(i + 1) * per]
+                                for k, v in batch.items()}))
+        if len(outs) == 1:
+            return outs[0]
+        first = self.devices[0]
+        if isinstance(outs[0], dict):
+            return {k: torch.cat([o[k].to(first) for o in outs])
+                    for k in outs[0]}
+        return torch.cat([o.to(first) for o in outs])
+
+
+# module -> {device: its copy there}, shared by every service of the process
+_COPIES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _replica(models: Optional[Models], device) -> Optional[Models]:
+    """``models`` on ``device``: each module itself where it is there
+    already, else its one copy there (made on first use; serving never
+    changes a module's weights)."""
+    if models is None:
+        return None
+
+    def on(m):
+        p = next(iter(m.state_dict().values()), None)
+        if p is None or (p.device.type == device.type and (
+                device.index is None or p.device.index == device.index)):
+            return m
+        copies = _COPIES.setdefault(m, {})
+        if str(device) not in copies:
+            copies[str(device)] = copy.deepcopy(m).to(device)
+        return copies[str(device)]
+
+    return {k: on(m) for k, m in models.items()}
 
 
 def _request_latents(seed: int, lh: int, lw: int,
@@ -124,8 +189,7 @@ class Stage2Service:
                  warmup: bool = False,
                  device=None):
         scheduler = _check_scheduler(scheduler)
-        _check_mesh(mesh)
-        dev = resolve_device(device)
+        devices = [resolve_device(d) for d in (mesh or [device])]
         self.height, self.width = height, width
         self.lh, self.lw = height // 8, (2 * width) // 8
         self.simple_variant = simple_variant
@@ -133,21 +197,26 @@ class Stage2Service:
         self._embed_dim = embed_dim
         self._models = models
 
-        def batch_fn(batch):
-            embed = None if simple_variant else batch["embed"][:, None, :]
-            return stage2_generate(
-                self._models, batch["vae_image"], batch["st_pose"],
-                batch["dino"], embed, latents=batch["latents"],
-                num_steps=num_steps, guidance_scale=guidance_scale,
-                scheduler=scheduler, num_samples=1,
-                compute_dtype=compute_dtype,
-                encoder_cache_interval=encoder_cache_interval,
-                deterministic_vae=True, device=dev)
+        def make_batch_fn(replicas, d):
+            replica, = replicas
 
-        self.engine = InferenceEngine(batch_fn, buckets=buckets,
-                                      max_delay_ms=max_delay_ms,
-                                      queue_size=queue_size,
-                                      name="stage2")
+            def batch_fn(batch):
+                embed = None if simple_variant else batch["embed"][:, None, :]
+                return stage2_generate(
+                    replica, batch["vae_image"], batch["st_pose"],
+                    batch["dino"], embed, latents=batch["latents"],
+                    num_steps=num_steps, guidance_scale=guidance_scale,
+                    scheduler=scheduler, num_samples=1,
+                    compute_dtype=compute_dtype,
+                    encoder_cache_interval=encoder_cache_interval,
+                    deterministic_vae=True, device=d)
+
+            return batch_fn
+
+        self._dp = _DataParallel(make_batch_fn, [models], devices, buckets)
+        self.engine = InferenceEngine(
+            self._dp, buckets=buckets, max_delay_ms=max_delay_ms,
+            queue_size=queue_size, name="stage2")
         if warmup:
             self.engine.warmup(self._example())
 
@@ -229,35 +298,41 @@ class CascadeService:
                  warmup: bool = False,
                  device=None):
         scheduler = _check_scheduler(scheduler)
-        _check_mesh(mesh)
-        dev = resolve_device(device)
+        devices = [resolve_device(d) for d in (mesh or [device])]
         self.height, self.width = height, width
         self._dino_shape = (dino_tokens, dino_dim)
         self._embed_dim = embed_dim
         lh, lw2 = height // 8, (2 * width) // 8
 
-        def batch_fn(batch):
-            # host-Philox initial latents from the per-row seeds: the same
-            # derivation as Stage2Service's, so seeds are portable
-            seeds = np.asarray(batch["seed"]).reshape(-1)
-            s2_lat = np.stack(
-                [_request_latents(s, lh, lw2) for s in seeds])
-            s3_lat = np.stack(
-                [_request_latents(s, lh, lw2 // 2, stage=3) for s in seeds])
-            return cascade_generate(
-                stage1_models, stage2_models, stage3_models,
-                batch["s_embed"], batch["s_pose"], batch["t_pose"],
-                batch["vae_image"], batch["st_pose"], batch["dino"],
-                seeds=seeds, s2_latents=s2_lat, s3_latents=s3_lat,
-                prior_steps=steps, inpaint_steps=steps, refine_steps=steps,
-                guidance_scale=guidance_scale, scheduler=scheduler,
-                compute_dtype=compute_dtype,
-                encoder_cache_interval=encoder_cache_interval, device=dev)
+        def make_batch_fn(replicas, d):
+            s1, s2, s3 = replicas
 
-        self.engine = InferenceEngine(batch_fn, buckets=buckets,
-                                      max_delay_ms=max_delay_ms,
-                                      queue_size=queue_size,
-                                      name="cascade")
+            def batch_fn(batch):
+                # host-Philox initial latents from the per-row seeds: the
+                # same derivation as Stage2Service's, so seeds are portable
+                seeds = np.asarray(batch["seed"]).reshape(-1)
+                s2_lat = np.stack(
+                    [_request_latents(s, lh, lw2) for s in seeds])
+                s3_lat = np.stack([_request_latents(s, lh, lw2 // 2, stage=3)
+                                   for s in seeds])
+                return cascade_generate(
+                    s1, s2, s3,
+                    batch["s_embed"], batch["s_pose"], batch["t_pose"],
+                    batch["vae_image"], batch["st_pose"], batch["dino"],
+                    seeds=seeds, s2_latents=s2_lat, s3_latents=s3_lat,
+                    prior_steps=steps, inpaint_steps=steps,
+                    refine_steps=steps, guidance_scale=guidance_scale,
+                    scheduler=scheduler, compute_dtype=compute_dtype,
+                    encoder_cache_interval=encoder_cache_interval, device=d)
+
+            return batch_fn
+
+        self._dp = _DataParallel(
+            make_batch_fn, [stage1_models, stage2_models, stage3_models],
+            devices, buckets)
+        self.engine = InferenceEngine(
+            self._dp, buckets=buckets, max_delay_ms=max_delay_ms,
+            queue_size=queue_size, name="cascade")
         if warmup:
             self.engine.warmup(self._example())
 

@@ -7,6 +7,12 @@ the accumulated gradient and the EMA shadow (``TrainState.state_dict``)
 plus the epoch. It is written to a temporary file and renamed, so a reader
 sees a whole checkpoint or none; the newest ``max_to_keep`` are kept. The
 port does not read the JAX package's orbax checkpoints.
+
+Over a mesh, saving is collective: every rank gathers ZeRO-1's optimizer
+shards (``TrainState.optimizer_state``), rank 0 writes, and all wait at a
+barrier. The file holds the whole optimizer state as ``torch.optim.AdamW``
+keeps it, so a run resumes from it at any world size, with ZeRO-1 or
+without, as the JAX package's orbax restore reshards.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from pathlib import Path
 from typing import List, Optional
 
 import torch
+
+from pcdms_tpu_torch.parallel.mesh import barrier
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -39,16 +47,19 @@ def latest_step(directory) -> Optional[int]:
 
 
 def save_checkpoint(directory, step: int, state, epoch: int = 0,
-                    max_to_keep: int = 5) -> Path:
-    """Write ``state`` (a ``TrainState``) as the checkpoint of ``step``."""
+                    max_to_keep: int = 5, mesh=None) -> Path:
+    """Write ``state`` (a ``TrainState``) as the checkpoint of ``step``; over
+    a ``mesh`` every rank calls this and rank 0 writes."""
     path = checkpoint_path(directory, step)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
     payload = dict(state.state_dict(), epoch=epoch)
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    for old in _steps(directory)[:-max_to_keep]:
-        checkpoint_path(directory, old).unlink(missing_ok=True)
+    if mesh is None or mesh.is_main:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        for old in _steps(directory)[:-max_to_keep]:
+            checkpoint_path(directory, old).unlink(missing_ok=True)
+    barrier(mesh)
     return path
 
 

@@ -1,7 +1,7 @@
-"""Shared training harness (counterpart of ``pcdms_tpu/train/common.py``,
-without its mesh and ZeRO-1 parts): AdamW after global-norm clipping,
-gradient accumulation, the learning-rate schedules and an EMA of the
-trainable parameters.
+"""Shared training harness (counterpart of ``pcdms_tpu/train/common.py``):
+AdamW after global-norm clipping, gradient accumulation, the learning-rate
+schedules, an EMA of the trainable parameters, and data parallelism over a
+``parallel/mesh.py::Mesh`` with ZeRO-1.
 
 The update follows optax's (``optax.chain(clip_by_global_norm, adamw)``,
 wrapped in ``optax.MultiSteps`` when accumulating) where torch's stock
@@ -20,15 +20,26 @@ pieces differ:
 eps outside the square root, bias correction). The EMA blends only on real
 updates, with the diffusers ramp min(decay, (1 + t) / (10 + t)) over t
 completed updates.
+
+Over a mesh, every micro-step's gradients (and the loss and metrics) are
+averaged over the whole world before anything reads them, so each rank sees
+the global batch's gradient as the JAX step does; parameters that got no
+gradient count as zeros there too. With ``TrainConfig.zero1`` each rank of a
+slice keeps the AdamW moments of about ``1 / slice size`` of the parameters
+(``ZeroRedundancyOptimizer`` over the slice's group), updates those and
+broadcasts them; clipping, the schedule and the EMA act on the full,
+replicated tensors as before.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
+
+from pcdms_tpu_torch.parallel.mesh import Mesh, all_reduce_mean
 
 Models = Dict[str, torch.nn.Module]
 
@@ -46,6 +57,7 @@ class TrainConfig:
     lr_scheduler: str = "constant_with_warmup"   # reference default
     gradient_accumulation_steps: int = 1
     noise_offset: float = 0.1
+    zero1: bool = False                           # shard optimizer state
     use_ema: bool = False
     ema_decay: float = 0.9999
 
@@ -95,26 +107,46 @@ class TrainState:
 
     ``models`` maps a name to a module (stage 2: ``unet``, ``image_proj``,
     ``pose_proj``); every parameter that requires grad is trained. The
-    modules are updated in place.
+    modules are updated in place. With ``cfg.zero1`` on a mesh with a group,
+    the optimizer is a ``ZeroRedundancyOptimizer`` over the slice's ranks.
     """
 
-    def __init__(self, models: Models, cfg: TrainConfig):
+    def __init__(self, models: Models, cfg: TrainConfig,
+                 mesh: Optional[Mesh] = None):
         self.models = models
         self.named = [(f"{m}.{n}", p) for m, mod in models.items()
                       for n, p in mod.named_parameters() if p.requires_grad]
         self.params = [p for _, p in self.named]
-        self.optimizer = torch.optim.AdamW(
-            self.params, lr=0.0, betas=(cfg.adam_beta1, cfg.adam_beta2),
-            eps=cfg.adam_epsilon, weight_decay=cfg.adam_weight_decay)
+        kw = dict(lr=0.0, betas=(cfg.adam_beta1, cfg.adam_beta2),
+                  eps=cfg.adam_epsilon, weight_decay=cfg.adam_weight_decay)
+        self.zero1 = bool(cfg.zero1 and mesh is not None
+                          and mesh.slice_group is not None)
+        if self.zero1:
+            from torch.distributed.optim import ZeroRedundancyOptimizer
+            self.optimizer = ZeroRedundancyOptimizer(
+                self.params, optimizer_class=torch.optim.AdamW,
+                process_group=mesh.slice_group, **kw)
+        else:
+            self.optimizer = torch.optim.AdamW(self.params, **kw)
         self.step = 0          # micro-steps taken
         self.acc = None        # running-mean gradient under accumulation
         self.ema = ({n: p.detach().clone() for n, p in self.named}
                     if cfg.use_ema else None)
 
+    def optimizer_state(self) -> dict:
+        """The whole optimizer state, as ``torch.optim.AdamW`` keeps it. Under
+        ZeRO-1 every rank of the slice must call this (it gathers the shards
+        on the slice's first rank); the other ranks get None."""
+        if not self.zero1:
+            return self.optimizer.state_dict()
+        self.optimizer.consolidate_state_dict(to=0)
+        return (self.optimizer.state_dict()
+                if self.optimizer.rank == 0 else None)
+
     def state_dict(self) -> dict:
         return {
             "models": {k: m.state_dict() for k, m in self.models.items()},
-            "optimizer": self.optimizer.state_dict(),
+            "optimizer": self.optimizer_state(),
             "step": self.step,
             "acc": self.acc,
             "ema": self.ema,
@@ -129,8 +161,9 @@ class TrainState:
         self.ema = sd["ema"]
 
 
-def init_train_state(models: Models, cfg: TrainConfig) -> TrainState:
-    return TrainState(models, cfg)
+def init_train_state(models: Models, cfg: TrainConfig,
+                     mesh: Optional[Mesh] = None) -> TrainState:
+    return TrainState(models, cfg, mesh)
 
 
 def by_model(flat: Dict[str, torch.Tensor]
@@ -150,11 +183,13 @@ def ema_params(state: TrainState) -> Dict[str, Dict[str, torch.Tensor]]:
         n: p.detach() for n, p in state.named})
 
 
-def make_train_step(loss_fn: Callable, cfg: TrainConfig):
+def make_train_step(loss_fn: Callable, cfg: TrainConfig,
+                    mesh: Optional[Mesh] = None):
     """loss_fn(models, batch, generator) -> (loss, metrics). Returns
     step_fn(state, batch, generator) -> metrics, which takes one micro-step
     and updates ``state`` in place; ``metrics`` holds the loss and the
-    global norm of this micro-batch's gradient before clipping."""
+    global norm of this micro-batch's gradient before clipping. Over a
+    ``mesh`` the gradients, the loss and the metrics are the world's mean."""
     schedule = make_lr_schedule(cfg)
     k = cfg.gradient_accumulation_steps
 
@@ -165,8 +200,14 @@ def make_train_step(loss_fn: Callable, cfg: TrainConfig):
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in state.params]
-        metrics = dict(metrics)
-        metrics["loss"] = loss.detach()
+        metrics = dict(metrics, loss=loss.detach())
+        if mesh is not None and mesh.group is not None:
+            names = sorted(metrics)
+            scalars = torch.stack([torch.as_tensor(
+                metrics[k], dtype=torch.float32, device=grads[0].device)
+                for k in names])
+            all_reduce_mean(grads + [scalars], mesh)
+            metrics.update(zip(names, scalars.unbind()))
         metrics["grad_norm"] = global_norm(grads)
 
         mini = state.step % k

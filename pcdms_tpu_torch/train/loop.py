@@ -1,13 +1,19 @@
 """The training loop (counterpart of ``pcdms_tpu/train/loop.py``).
 
-One process drives one device. Logging, checkpoint cadence, resume and the
-SIGTERM / SIGINT stop follow the JAX package's loop. Host batches (dicts of
-numpy arrays or tensors) reach the device through
-``data/loader.py::prefetch_to_device``: pinned memory, non-blocking copies,
-two batches ahead of the step. Each step draws its
-randomness from a generator seeded with (seed, step), so a resumed run
-draws what an uninterrupted one would. ``--report_to tensorboard`` logs the
-loss and the example rate through ``make_tensorboard_writer``.
+One process drives one device; over a ``parallel/mesh.py::Mesh`` each rank
+runs this loop on its own rows of the global batch. Logging, checkpoint
+cadence, resume and the SIGTERM / SIGINT stop follow the JAX package's
+loop. Host batches (dicts of numpy arrays or tensors) reach the device
+through ``data/loader.py::prefetch_to_device``: pinned memory, non-blocking
+copies, two batches ahead of the step. Each step draws its randomness from
+a generator seeded with (seed, step), so a resumed run
+draws what an uninterrupted one would; the loss functions draw for the
+global batch and keep their rows, so a run does not depend on the world
+size. ``--report_to tensorboard`` logs the loss and the example rate
+through ``make_tensorboard_writer``; over a mesh, rank 0 logs, the example
+rate counts the world's examples, a signal on any rank stops every rank at
+the same step, and the checkpoint is written by rank 0 after ZeRO-1's
+shards are gathered.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Callable, Iterator, Optional
 import torch
 
 from pcdms_tpu_torch.data.loader import prefetch_to_device
+from pcdms_tpu_torch.parallel.mesh import Mesh, any_rank
 from pcdms_tpu_torch.train import checkpoint as ckpt
 from pcdms_tpu_torch.train.common import (
     TrainConfig, init_train_state, make_train_step,
@@ -38,7 +45,8 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def run_training(loss_fn: Callable, models, batches: Iterator,
-                 cfg: TrainConfig, *, device=None, seed: int = 0,
+                 cfg: TrainConfig, *, device=None,
+                 mesh: Optional[Mesh] = None, seed: int = 0,
                  output_dir: Optional[str] = None,
                  checkpointing_steps: int = 5000,
                  log_every: int = 50,
@@ -58,11 +66,17 @@ def run_training(loss_fn: Callable, models, batches: Iterator,
     value, step)``) gets ``train_loss`` and ``examples_per_sec`` at every
     log step. With ``handle_preemption``, SIGTERM / SIGINT stop the
     loop at the next step boundary and write a final checkpoint.
-    ``profile_dir`` gets a ``torch.profiler`` trace of steps 3-6.
+    ``profile_dir`` gets a ``torch.profiler`` trace of steps 3-6. With a
+    ``mesh``, ``batches`` yields this rank's rows and the models sit on
+    ``mesh.device``.
     """
-    if device is None:
+    if mesh is not None:
+        device = mesh.device
+    elif device is None:
         device = next(next(iter(models.values())).parameters()).device
     device = torch.device(device)
+    main = mesh is None or mesh.is_main
+    world = 1 if mesh is None else mesh.world
     max_steps = max_train_steps or cfg.max_train_steps
 
     # draw the first batch before the optimizer state is allocated: a batch
@@ -71,14 +85,14 @@ def run_training(loss_fn: Callable, models, batches: Iterator,
     batches = prefetch_to_device(batches, device)
     first_batch = next(batches, None)
 
-    state = init_train_state(models, cfg)
+    state = init_train_state(models, cfg, mesh)
     start_step = 0
     if resume_from_checkpoint and output_dir:
         if ckpt.latest_step(output_dir) is not None:
             state, _, start_step = ckpt.restore_checkpoint(output_dir, state)
             logger.info("resumed from %s at step %d", output_dir, start_step)
 
-    step_fn = make_train_step(loss_fn, cfg)
+    step_fn = make_train_step(loss_fn, cfg, mesh)
 
     stop = {"signal": None}
     prev_handlers = {}
@@ -102,9 +116,11 @@ def run_training(loss_fn: Callable, models, batches: Iterator,
     prof = None
     try:
         for batch in batches:
-            if step >= max_steps or stop["signal"] is not None:
+            # the checkpoint is collective: every rank stops at one step
+            if step >= max_steps or any_rank(stop["signal"] is not None,
+                                             mesh):
                 break
-            if profile_dir and step == start_step + 3:
+            if profile_dir and main and step == start_step + 3:
                 prof = start_trace(device.type == "cuda")
             if prof is not None and step == start_step + 6:
                 prof = _stop_profile(prof, profile_dir)
@@ -112,11 +128,11 @@ def run_training(loss_fn: Callable, models, batches: Iterator,
             metrics = step_fn(state, batch, step_generator(seed, step,
                                                            device))
             step += 1
-            meter.update(len(next(iter(batch.values()))))
+            meter.update(len(next(iter(batch.values()))) * world)
             if on_step is not None:
                 on_step(step, metrics)
 
-            if step % log_every == 0 or step == start_step + 1:
+            if main and (step % log_every == 0 or step == start_step + 1):
                 # reading the loss waits for the step: the window below
                 # spans finished steps
                 loss = float(metrics["loss"])
@@ -130,7 +146,7 @@ def run_training(loss_fn: Callable, models, batches: Iterator,
                 meter.reset()
 
             if output_dir and step % checkpointing_steps == 0:
-                ckpt.save_checkpoint(output_dir, step, state)
+                ckpt.save_checkpoint(output_dir, step, state, mesh=mesh)
                 last_saved = step
                 logger.info("checkpoint saved at step %d", step)
         if prof is not None:
@@ -139,7 +155,7 @@ def run_training(loss_fn: Callable, models, batches: Iterator,
         if output_dir and step != last_saved:
             # the cadence may have saved this very step already; this save
             # also covers a stop by signal (handlers still installed)
-            ckpt.save_checkpoint(output_dir, step, state)
+            ckpt.save_checkpoint(output_dir, step, state, mesh=mesh)
             last_saved = step
     finally:
         for s, h in prev_handlers.items():

@@ -26,6 +26,7 @@ from pcdms_tpu_torch.diffusion.ddpm import (
 )
 from pcdms_tpu_torch.diffusion.schedules import NoiseSchedule, prior_schedule
 from pcdms_tpu_torch.models.prior_transformer import prior_normalize_embeds
+from pcdms_tpu_torch.parallel.mesh import draw_rows
 
 Draws = Dict[str, torch.Tensor]
 
@@ -65,16 +66,18 @@ def stage1_loss(models, batch, draws: Draws, *, schedule: NoiseSchedule,
 
 
 def stage1_loss_fn(noise_offset: float = 0.1,
-                   compute_dtype: torch.dtype = torch.float32):
+                   compute_dtype: torch.dtype = torch.float32, mesh=None):
     """loss_fn(models, batch, generator) -> (loss, {}) for
-    ``make_train_step``: draws from ``generator`` on the batch's device,
-    then ``stage1_loss``."""
+    ``make_train_step``: draws from ``generator`` on the batch's device
+    (this rank's rows of the global batch's draws over ``mesh``), then
+    ``stage1_loss``."""
     schedule = prior_schedule()
 
     def loss_fn(models, batch, generator):
         emb = batch["t_embed"]
-        draws = stage1_draws(generator, emb.shape[0], emb.shape[1],
-                             schedule.num_train_timesteps, emb.device)
+        draws = draw_rows(lambda n: stage1_draws(
+            generator, n, emb.shape[1], schedule.num_train_timesteps,
+            emb.device), emb.shape[0], mesh)
         loss = stage1_loss(models, batch, draws, schedule=schedule,
                            noise_offset=noise_offset,
                            compute_dtype=compute_dtype)

@@ -28,6 +28,7 @@ from pcdms_tpu_torch.diffusion.ddpm import (
     ddpm_add_noise, ddpm_velocity, offset_shape, sample_timesteps,
 )
 from pcdms_tpu_torch.diffusion.schedules import NoiseSchedule, sd21_schedule
+from pcdms_tpu_torch.parallel.mesh import draw_rows
 from pcdms_tpu_torch.pipelines.stage2_inpaint import build_half_mask
 from pcdms_tpu_torch.utils.tree import cast_tree
 
@@ -103,19 +104,20 @@ def stage2_loss(models, vae, batch, draws: Draws, *,
 
 def stage2_loss_fn(vae, noise_offset: float = 0.1,
                    prediction_type: str = "epsilon",
-                   compute_dtype: torch.dtype = torch.bfloat16):
+                   compute_dtype: torch.dtype = torch.bfloat16, mesh=None):
     """loss_fn(models, batch, generator) -> (loss, {}) for
-    ``make_train_step``: draws from ``generator`` on the batch's device,
-    then ``stage2_loss``. The VAE is cast to the compute dtype once (the
+    ``make_train_step``: draws from ``generator`` on the batch's device
+    (this rank's rows of the global batch's draws over ``mesh``), then
+    ``stage2_loss``. The VAE is cast to the compute dtype once (the
     caller's module is left as it is)."""
     schedule = sd21_schedule(prediction_type)
     vae = cast_tree(vae, compute_dtype)
 
     def loss_fn(models, batch, generator):
         st = batch["st_image"]
-        draws = stage2_draws(generator, st.shape[0],
-                             (st.shape[1] // 8, st.shape[2] // 8),
-                             schedule.num_train_timesteps, st.device)
+        draws = draw_rows(lambda n: stage2_draws(
+            generator, n, (st.shape[1] // 8, st.shape[2] // 8),
+            schedule.num_train_timesteps, st.device), st.shape[0], mesh)
         loss = stage2_loss(models, vae, batch, draws, schedule=schedule,
                            noise_offset=noise_offset,
                            compute_dtype=compute_dtype)

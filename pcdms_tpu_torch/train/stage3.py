@@ -22,6 +22,7 @@ import torch
 
 from pcdms_tpu_torch.diffusion.ddpm import ddpm_add_noise, ddpm_velocity
 from pcdms_tpu_torch.diffusion.schedules import NoiseSchedule, sd21_schedule
+from pcdms_tpu_torch.parallel.mesh import draw_rows
 from pcdms_tpu_torch.train.stage2 import Draws, _encode, stage2_draws
 from pcdms_tpu_torch.utils.tree import cast_tree
 
@@ -71,18 +72,19 @@ def stage3_loss(models, vae, batch, draws: Draws, *,
 
 def stage3_loss_fn(vae, noise_offset: float = 0.1,
                    prediction_type: str = "epsilon",
-                   compute_dtype: torch.dtype = torch.bfloat16):
+                   compute_dtype: torch.dtype = torch.bfloat16, mesh=None):
     """loss_fn(models, batch, generator) -> (loss, {}) for
-    ``make_train_step``: draws from ``generator`` on the batch's device,
-    then ``stage3_loss``. The VAE is cast to the compute dtype once."""
+    ``make_train_step``: draws from ``generator`` on the batch's device
+    (this rank's rows of the global batch's draws over ``mesh``), then
+    ``stage3_loss``. The VAE is cast to the compute dtype once."""
     schedule = sd21_schedule(prediction_type)
     vae = cast_tree(vae, compute_dtype)
 
     def loss_fn(models, batch, generator):
         img = batch["target_image"]
-        draws = stage3_draws(generator, img.shape[0],
-                             (img.shape[1] // 8, img.shape[2] // 8),
-                             schedule.num_train_timesteps, img.device)
+        draws = draw_rows(lambda n: stage3_draws(
+            generator, n, (img.shape[1] // 8, img.shape[2] // 8),
+            schedule.num_train_timesteps, img.device), img.shape[0], mesh)
         loss = stage3_loss(models, vae, batch, draws, schedule=schedule,
                            noise_offset=noise_offset,
                            compute_dtype=compute_dtype)

@@ -2,6 +2,7 @@
 parameter pytrees made non-zero everywhere, and the port's modules built
 from them through ``pcdms_tpu_torch.compat.from_jax``."""
 
+import contextlib
 import dataclasses
 
 import jax
@@ -148,3 +149,16 @@ def stage2_models(unet_cfg, seed):
     jp, tp = pose_proj_pair(seed + 3, **TINY.pose_proj_kwargs)
     return ({"unet": ju, "image_proj": ji, "pose_proj": jp}, jv,
             {"unet": tu, "image_proj": ti, "pose_proj": tp}, tv)
+
+
+@contextlib.contextmanager
+def one_thread():
+    """Run tiny models on one intra-op thread: on them torch's default of a
+    thread per core spends more CPU waiting than computing, which the other
+    test workers pay for."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)

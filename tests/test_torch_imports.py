@@ -52,3 +52,12 @@ def test_no_library_attention_or_compile(path):
     tree = ast.parse(path.read_text(), str(path))
     called = set(_called_names(tree))
     assert not called & {"scaled_dot_product_attention", "torch.compile"}
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_refusal_names_item_19b(path):
+    """Data parallelism (ROADMAP item 19b) is ported: no module refuses a
+    flag, an argument or a path by naming it as missing."""
+    text = path.read_text()
+    assert "item 19b" not in text and "19b)" not in text

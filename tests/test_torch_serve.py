@@ -7,8 +7,9 @@ against packed in bucket 4), input validation and the refused samplers,
 ``ShapeRouter``, HTTP end to end (400 for an unknown shape, the body limit,
 504 on a timeout), ``build_service`` / ``build_deployment`` for both
 models, ``CascadeService``'s determinism and seed portability to
-``Stage2Service``, and ``mesh=`` / ``--data_parallel`` refused. Every wait
-is bounded, and every engine and server stops in ``finally``."""
+``Stage2Service``, and ``mesh=`` / ``--data_parallel`` (the ``mesh=None``
+arrays, replicas shared across canvases). Every wait is bounded, and every
+engine and server stops in ``finally``."""
 
 import http.client
 import json
@@ -407,15 +408,59 @@ def test_nondeterministic_scheduler_rejected(models, scheduler):
         CascadeService(None, None, None, scheduler=scheduler, device="cpu")
 
 
-def test_mesh_refused(models):
-    """Data-parallel serving needs the mesh port (ROADMAP item 19b)."""
-    with pytest.raises(NotImplementedError, match="item 19b"):
-        make_service(models, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 19b"):
-        CascadeService(None, None, None, mesh=object(), device="cpu")
-    from pcdms_tpu_torch.cli.serve import build_deployment
-    with pytest.raises(NotImplementedError, match="item 19b"):
-        build_deployment(_cli_args("--data_parallel"))
+def test_mesh_and_data_parallel_build(models):
+    """``mesh=`` (a list of devices, one replica each) answers each request
+    with the array ``mesh=None`` gives at the replica's share of the
+    bucket; buckets the devices do not divide raise the JAX service's
+    ValueError; ``--data_parallel`` builds over the visible devices."""
+    reqs = [request_inputs(i) for i in range(3)]
+    with make_service(models, buckets=(1,)) as single, \
+            make_service(models, mesh=["cpu", "cpu"], buckets=(2,)) as dp:
+        want = [single.submit(**r).result(WAIT) for r in reqs]
+        got = [dp.submit(**r).result(WAIT) for r in reqs]
+        assert dp.stats()["batches"] == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    with pytest.raises(ValueError, match=r"buckets \[1\] not divisible"):
+        make_service(models, mesh=["cpu", "cpu"], buckets=(1, 2))
+    with pytest.raises(ValueError, match="not divisible by the mesh's 2"):
+        CascadeService(None, None, None, mesh=["cpu", "cpu"],
+                       buckets=(1, 2), device="cpu")
+    from pcdms_tpu_torch.cli.serve import build_deployment, visible_devices
+    args = _cli_args("--data_parallel")
+    assert visible_devices(args) == [torch.device("cpu")]
+    svc = build_deployment(args)
+    try:
+        assert svc.submit(**reqs[0]).result(WAIT).shape == want[0].shape
+    finally:
+        svc.close()
+
+
+def test_data_parallel_replicas_shared(models, monkeypatch):
+    """Under ``--data_parallel`` the services of every canvas run on one set
+    of replicas: a module is copied once to a device that lacks it, and
+    every service shares that copy."""
+    from pcdms_tpu_torch.cli import serve as serve_cli
+    from pcdms_tpu_torch.serve.stage2 import _replica
+    monkeypatch.setattr(serve_cli, "visible_devices",
+                        lambda args: [torch.device("cpu")] * 2)
+    dep = serve_cli.build_deployment(_cli_args(
+        "--data_parallel", "--buckets", "2", "--canvas", "64", "64",
+        "--canvas", "64", "128"))
+    try:
+        a, b = dep._by_canvas.values()
+        assert len(a._dp.replicas) == len(b._dp.replicas) == 2
+        for (reps,) in a._dp.replicas + b._dp.replicas:
+            assert reps.keys() == a._models.keys()
+            for k, m in reps.items():
+                assert m is a._models[k]
+    finally:
+        dep.close()
+    meta = torch.device("meta")
+    first, again = _replica(models[1], meta), _replica(models[1], meta)
+    for k, m in models[1].items():
+        assert first[k] is again[k] and first[k] is not m
+        assert next(first[k].parameters()).device == meta
 
 
 def test_device_defaults_to_cuda(models):

@@ -50,7 +50,7 @@ from pcdms_tpu_torch.train.frozen import (
 from pcdms_tpu_torch.train.loop import run_training
 from pcdms_tpu_torch.train.stage2 import stage2_loss_fn
 
-from _torch_common import TOL, n, stage2_batch, t
+from _torch_common import TOL, n, one_thread, stage2_batch, t
 
 PORT_TINY = tiny_configs()
 
@@ -354,28 +354,38 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path):
     assert state.step == 3 and ckpt.latest_step(tmp_path) == 3
 
 
-# what each refusal must name: the DeepFashion data path without its pair
-# list, pretrained loading without its SD-2.1 dir, the DDP / ZeRO-1 flags
-# (not ported), and a --report_to other than tensorboard
+# what each case must do: the DeepFashion data path without its pair list
+# and pretrained loading without its SD-2.1 dir exit; --zero1 trains at a
+# world of 1 and checkpoints (None), --dcn_slices 2 needs a world that
+# divides into 2 slices, and a --report_to other than tensorboard trains,
+# logging to stdout, as the JAX CLI does
 _DATA_PATH = (SystemExit, "--json_path required without --synthetic_data")
+_TRAINS = None
+_TINY_RUN = ["--tiny_config", "--img_height", "64", "--img_width", "64",
+             "--train_batch_size", "2", "--max_train_steps", "1"]
 _REFUSALS = {
     (): _DATA_PATH,
     ("--random_init",): _DATA_PATH,
     ("--synthetic_data",): (SystemExit, "--pretrained_model_name_or_path "
                                         "required without --random_init"),
-    ("--random_init", "--synthetic_data", "--zero1"): (NotImplementedError,
-                                                       "ZeRO-1"),
+    ("--random_init", "--synthetic_data", "--zero1"): _TRAINS,
     ("--random_init", "--synthetic_data", "--dcn_slices", "2"): (
-        NotImplementedError, "ZeRO-1"),
-    ("--random_init", "--synthetic_data", "--report_to", "wandb"): (
-        NotImplementedError, "--report_to"),
+        ValueError, "1 devices do not divide into 2 slices"),
+    ("--random_init", "--synthetic_data", "--report_to", "wandb"): _TRAINS,
 }
 
 
 @pytest.mark.parametrize("extra", [list(k) for k in _REFUSALS])
 def test_cli_refuses_unported_flags(tmp_path, extra):
     from pcdms_tpu_torch.cli.stage2_train import main
+    argv = ["--output_dir", str(tmp_path), "--device", "cpu"] + extra
+    if _REFUSALS[tuple(extra)] is _TRAINS:
+        with one_thread():
+            state = main(argv + _TINY_RUN)
+        assert state.step == 1 and ckpt.latest_step(tmp_path) == 1
+        assert not (tmp_path / "logs").exists()
+        return
     exc, match = _REFUSALS[tuple(extra)]
     with pytest.raises(exc, match=match) as refused:
-        main(["--output_dir", str(tmp_path), "--device", "cpu"] + extra)
+        main(argv)
     assert "items 11" not in str(refused.value)

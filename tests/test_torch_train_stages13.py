@@ -60,7 +60,7 @@ from pcdms_tpu_torch.train.stage1 import stage1_loss
 from pcdms_tpu_torch.train.stage3 import stage3_loss
 
 from _torch_common import (
-    TINY, TOL, from_torch, n, port_config, t, vit_pair,
+    TINY, TOL, from_torch, n, one_thread, port_config, t, vit_pair,
 )
 from test_datasets import fake_df  # noqa: F401  (the shared fixture)
 
@@ -495,14 +495,23 @@ _NEW_REFUSALS = [
 @pytest.mark.parametrize("extra", [list(e) for e in _NEW_REFUSALS])
 @pytest.mark.parametrize("stage", [1, 3])
 def test_new_clis_refuse(tmp_path, stage, extra):
-    """The DDP / ZeRO-1 flags raise naming item 19b; the data path exits
-    without a pair list."""
+    """--zero1 trains at a world of 1 and checkpoints; --dcn_slices 2 needs
+    a world that divides into 2 slices (ValueError, as the JAX package
+    raises with one device); the data path exits without a pair list."""
+    argv = ["--output_dir", str(tmp_path), "--device", "cpu",
+            "--tiny_config"] + extra
+    if "--zero1" in extra:
+        with one_thread():
+            state = CLIS[stage].main(argv + [
+                "--img_height", "64", "--img_width", "64",
+                "--train_batch_size", "2", "--max_train_steps", "1"])
+        assert state.step == 1 and ckpt.latest_step(tmp_path) == 1
+        return
     exc, match = ((SystemExit, "--json_path required without "
                    "--synthetic_data") if "--synthetic_data" not in extra
-                  else (NotImplementedError, "ROADMAP item 19b"))
+                  else (ValueError, "1 devices do not divide into 2 slices"))
     with pytest.raises(exc, match=match):
-        CLIS[stage].main(["--output_dir", str(tmp_path), "--device", "cpu",
-                          "--tiny_config"] + extra)
+        CLIS[stage].main(argv)
 
 
 def test_stage3_cli_needs_gen_dir(tmp_path):
