@@ -156,7 +156,20 @@ Phases, each reported on its own lines:
  15. data-parallel serving (``phase_serve_dp``): ``Stage2Service`` over
      ``mesh=[cuda:0]`` and over ``mesh=[cuda:0, cuda:0]`` (two replicas at
      bucket 2) against ``mesh=None``, bit for bit; then the images/s of a
-     burst on one replica against two, a shared-card reading.
+     burst on one replica against two, a shared-card reading;
+ 16. the metrics protocol (``phase_metrics``, before phase 10, which then
+     scores its stage-3 PNGs with the same weight files): seeded
+     full-width FID InceptionV3 and LPIPS-Alex saved in their published
+     layouts, the card's pool3 features and LPIPS values against the CPU's
+     (8 images, f32, TF32 off), images/s of both networks by CUDA events,
+     and ``cli/calculate_metrics.main`` at --resolution 256 and 512 on 256
+     synthetic generated / GT pairs and 256 FID reference images, with the
+     host seconds of sqrtm and of the reconstruction metrics per pair;
+ 17. the learning proof (``phase_learning_proof``):
+     ``cli/learning_proof.main(["--quick", "--assert_improves"])`` on the
+     card, the VAE and the three trainers from scratch at the tiny
+     configurations; it fails unless every stage beats its 1-step init by
+     the JAX package's thresholds.
 Launch counters are reset just before each path runs and read just after.
 
 The last three lines are the card's name and power limit (nvidia-smi), a
@@ -169,6 +182,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import dataclasses
 import gc
@@ -185,6 +199,7 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 SEED = 0
 # (B*H, Lq, Lk) of the UNet self-attention at a 512x1024 canvas, one pair
 # CFG-doubled: 64x128, 32x64 and 16x32 latent tokens with 5 / 10 / 20 heads
@@ -2879,14 +2894,17 @@ def phase_sampler_options(fa, models, s3_models, dev):
     return total
 
 
-def phase_protocol(fa):
+def phase_protocol(fa, metric_weights):
     """The reference protocol chained through the disk at full width with
     --random_init, on 2 synthetic 512x512 pairs: ``cli/stage1_batchtest``
     (CLIP ViT-H and the prior, 20 steps) writes the .npy embeddings,
     ``cli/stage2_batchtest --prior_embeds_dir`` reads them (UniPC 20, best
     of 4), ``cli/stage3_batchtest --gen_dir`` refines stage 2's PNGs (UniPC
     20, best of 4) with host selection and with --device_select (the same
-    files but for SSIM ties). Seconds per pair and peak GiB per CLI."""
+    files but for SSIM ties), and ``cli/calculate_metrics`` scores the
+    host-selected PNGs against their GT at --resolution 512 with
+    ``phase_metrics``'s weight files. Seconds per pair and peak GiB per
+    CLI."""
     import numpy as np
     from PIL import Image
 
@@ -2963,6 +2981,14 @@ def phase_protocol(fa):
                          f"512x512 non-constant PNG per pair")
                 files[label] = [open(p, "rb").read() for p in written]
             _check_selection("protocol", files["host"], files["dev"], gaps)
+            gt = os.path.join(root, "train_all_png")
+            run_metrics_cli(
+                ["--fid_real_path", gt, "--test_path", gt,
+                 "--generated_path", dirs["host"], "--resolution", "512",
+                 "--save_name", os.path.join(root, "protocol"),
+                 "--inception_weights", metric_weights["inception"],
+                 "--lpips_weights", metric_weights["lpips"]],
+                "protocol: stage 3's PNGs against their GT")
     finally:
         stage3_batchtest.best_of_n_ssim = best_of_n
 
@@ -3778,6 +3804,268 @@ def phase_serve_dp(fa, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the metrics protocol and the learning proof (fifteenth slice)
+# ---------------------------------------------------------------------------
+
+# card vs CPU, f32 with TF32 off: pool3 features (relative L2) and LPIPS
+# values (relative): the two differ only in the order of f32 sums
+BAR_METRIC_NETS = 1e-4
+# the synthetic protocol run: generated / GT pairs and FID reference images
+METRIC_PAIRS = 256
+
+
+def _conv_flops(model, *inputs):
+    """2 x MACs of every ``nn.Conv2d`` in one forward of ``model``."""
+    total = [0]
+
+    def count(m, _, out):
+        total[0] += (2 * m.in_channels // m.groups * m.kernel_size[0]
+                     * m.kernel_size[1] * out.numel())
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        model(*inputs)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def _metric_weights(root, dev):
+    """Seeded full-width FID InceptionV3 (pt_inception layout: conv and
+    BatchNorm per unit, He-scaled so the features keep a spread) and
+    LPIPS-Alex (the lpips package's ``net.slice{i}.{j}`` / ``lin{i}``
+    names), saved with ``torch.save`` under ``root``; -> their paths."""
+    from pcdms_tpu_torch.eval import inception, lpips
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    sd = {}
+    for prefix, (cin, cout, k, _, _) in inception.UNITS.items():
+        sd[f"{prefix}.conv.weight"] = randn(cout, cin, *k) * math.sqrt(
+            2.0 / (cin * k[0] * k[1]))
+        sd[f"{prefix}.bn.weight"] = 0.5 + rand(cout)
+        sd[f"{prefix}.bn.bias"] = 0.1 * randn(cout)
+        sd[f"{prefix}.bn.running_mean"] = 0.1 * randn(cout)
+        sd[f"{prefix}.bn.running_var"] = 0.5 + rand(cout)
+    paths = {"inception": os.path.join(root, "pt_inception.pth"),
+             "lpips": os.path.join(root, "alex.pth")}
+    torch.save({k: v.cpu() for k, v in sd.items()}, paths["inception"])
+    sd = {}
+    for i, ((cin, cout, k, _, _), fi, si) in enumerate(zip(
+            lpips.ALEX, lpips.FEATURE_INDEX, lpips.SLICE_INDEX)):
+        sd[f"net.slice{si}.{fi}.weight"] = randn(cout, cin, k, k) / math.sqrt(
+            cin * k * k)
+        sd[f"net.slice{si}.{fi}.bias"] = 0.1 * randn(cout)
+        sd[f"lin{i}.model.1.weight"] = rand(1, cout, 1, 1)
+    torch.save({k: v.cpu() for k, v in sd.items()}, paths["lpips"])
+    return paths
+
+
+def _metric_images(root, dev, n=METRIC_PAIRS):
+    """``n`` GT images (``gt/t{i}.png``), their noisy generations in the
+    '_to_' naming (``gen/g{i}_to_t{i}.png``) and ``n`` FID reference
+    images (``train/r{i}.png``), 512x352: smooth colour fields with noise,
+    made on the card."""
+    import numpy as np
+    from PIL import Image
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    dirs = {k: os.path.join(root, k) for k in ("gt", "gen", "train")}
+    for d in dirs.values():
+        os.makedirs(d)
+
+    def fields():
+        low = torch.rand((n, 3, 8, 6), generator=g, device=dev)
+        x = torch.nn.functional.interpolate(low, size=(512, 352),
+                                            mode="bicubic")
+        x = 255 * x + 12 * torch.randn(x.shape, generator=g, device=dev)
+        return x.clamp(0, 255)
+
+    gt, ref = fields(), fields()
+    gen = (gt + 24 * torch.randn(gt.shape, generator=g, device=dev)).clamp(
+        0, 255)
+    jobs = []
+    for name, batch in (("gt", gt), ("gen", gen), ("train", ref)):
+        arr = batch.round().to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
+        for i, img in enumerate(arr):
+            stem = {"gt": f"t{i:03d}", "gen": f"g{i:03d}_to_t{i:03d}",
+                    "train": f"r{i:03d}"}[name]
+            jobs.append((np.ascontiguousarray(img),
+                         os.path.join(dirs[name], f"{stem}.png")))
+    # PIL's encoder releases the GIL: one thread per core
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+        list(pool.map(lambda job: Image.fromarray(job[0]).save(
+            job[1], compress_level=1), jobs))
+    return dirs
+
+
+class _HostTimer:
+    """Wraps ``owner.name`` to add each call's host seconds to
+    ``self.seconds``; ``restore()`` puts the original back."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
+        self.fn = getattr(owner, name)
+        self.seconds, self.calls = 0.0, 0
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return self.fn(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+
+        setattr(owner, name, timed)
+
+    def restore(self):
+        setattr(self.owner, self.name, self.fn)
+
+
+def run_metrics_cli(argv, label):
+    """``cli/calculate_metrics.main(argv)`` with the host seconds of its
+    ``scipy.linalg.sqrtm`` calls and of ``ReconstructionMetrics`` timed and
+    the card's peak memory read; checks the results line; -> results."""
+    import numpy as np
+    import scipy.linalg
+    from pcdms_tpu_torch.cli import calculate_metrics
+    from pcdms_tpu_torch.eval.metrics import ReconstructionMetrics
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sqrtm = _HostTimer(scipy.linalg, "sqrtm")
+    rec = _HostTimer(ReconstructionMetrics, "calculate_from_disk")
+    t0 = time.perf_counter()
+    try:
+        results = calculate_metrics.main(argv)
+    finally:
+        sqrtm.restore()
+        rec.restore()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    save = argv[argv.index("--save_name") + 1]
+    with open(f"{save}_results.txt") as f:
+        line = f.read().strip().splitlines()[-1]
+    gen = argv[argv.index("--generated_path") + 1]
+    pairs = sum("_to_" in f for f in os.listdir(gen))
+    print(f"[metrics] {label}: {wall:.2f} s in main, {pairs} pairs; sqrtm "
+          f"{sqrtm.calls} call(s) {sqrtm.seconds:.2f} s on the host; "
+          f"ReconstructionMetrics {rec.seconds / pairs:.4f} s per pair; "
+          f"peak {peak:.2f} GiB; {results}", flush=True)
+    expected = {"fid", "lpips", "psnr", "ssim", "ssim_256", "mae", "l1"}
+    if (not expected <= set(results) or line != f"{gen} {results}"
+            or not all(np.isfinite(v) for v in results.values())
+            or results["fid"] < 0 or results["lpips"] < 0
+            or not -1 <= results["ssim"] <= 1):
+        fail(f"calculate_metrics ({label}): expected finite fid, lpips and "
+             f"reconstruction metrics on the results line, got {line!r}")
+    return results
+
+
+def phase_metrics(dev, weights_dir):
+    """The metrics protocol on the card (``cli/calculate_metrics.main``) at
+    --resolution 256 and 512 on 256 synthetic generated / GT pairs and 256
+    FID reference images: two FID batches of 128 per directory, four LPIPS
+    batches of 64. InceptionV3 and LPIPS images/s by CUDA events, the
+    card's pool3 features and LPIPS values against the CPU's on 8 images.
+    -> the weight files (``phase_protocol`` scores its PNGs with them)."""
+    import numpy as np
+    from pcdms_tpu_torch.eval.inception import load_inception
+    from pcdms_tpu_torch.eval.lpips import load_lpips
+
+    weights = _metric_weights(weights_dir, dev)
+    inc, inc_cpu = (load_inception(weights["inception"], d)
+                    for d in (dev, "cpu"))
+    lp, lp_cpu = (load_lpips(weights["lpips"], d) for d in (dev, "cpu"))
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.rand((8, 512, 352, 3), generator=g)
+    y = torch.rand((8, 512, 352, 3), generator=g)
+    with torch.no_grad():
+        feats, feats_cpu = inc(x.to(dev)).cpu(), inc_cpu(x)
+        dist, dist_cpu = lp(x.to(dev), y.to(dev)).cpu(), lp_cpu(x, y)
+    err_inc = _rel_l2(feats, feats_cpu)
+    err_lp = float(((dist - dist_cpu).abs() / dist_cpu.abs()).max())
+    spread = float(feats_cpu.std(0).mean() / feats_cpu.abs().mean())
+    print(f"[metrics] card vs CPU on 8 images at 512x352, f32 with TF32 off: "
+          f"pool3 rel L2 {err_inc:.2e} (features' spread over images "
+          f"{spread:.2e} of their mean), LPIPS max rel {err_lp:.2e}",
+          flush=True)
+    if not (err_inc <= BAR_METRIC_NETS and err_lp <= BAR_METRIC_NETS):
+        fail(f"metric networks: card vs CPU beyond {BAR_METRIC_NETS}")
+    del inc_cpu, lp_cpu
+    rates = []
+    with torch.no_grad():
+        for h, w in ((256, 176), (512, 352)):
+            a = torch.rand((128, h, w, 3), device=dev)
+            b = torch.rand((64, h, w, 3), device=dev)
+            for name, fn, n, flops in (
+                    ("inception", lambda: inc(a), 128,
+                     _conv_flops(inc, a[:1])),
+                    ("lpips", lambda: lp(a[:64], b), 64,
+                     _conv_flops(lp, a[:1], b[:1]))):
+                ms = cuda_ms(fn, iters=5)
+                rates.append(f"{name} {h}x{w} {n / ms * 1e3:.1f}/s "
+                             f"({flops / 1e9:.2f} GFLOP each, "
+                             f"{n * flops / ms / 1e9:.1f} TFLOP/s = "
+                             f"{n * flops / ms / 1e9 / PEAK_F32_FLOPS * 1e12:.1%}"
+                             f" of the f32 peak)")
+    print("[metrics] on the card (CUDA events; InceptionV3 images at batch "
+          "128, LPIPS pairs at 64; conv flops counted from the shapes): "
+          + "; ".join(rates), flush=True)
+    del inc, lp
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        dirs = _metric_images(root, dev)
+        print(f"[metrics] wrote {3 * METRIC_PAIRS} 512x352 PNGs in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for res in (256, 512):
+            argv = ["--fid_real_path", dirs["train"], "--test_path",
+                    dirs["gt"], "--generated_path", dirs["gen"],
+                    "--resolution", str(res), "--save_name",
+                    os.path.join(root, f"m{res}"),
+                    "--inception_weights", weights["inception"],
+                    "--lpips_weights", weights["lpips"]]
+            run_metrics_cli(argv, f"--resolution {res}")
+            flag = "176_256" if res == 256 else "352_512"
+            for d in ("train", "gen"):
+                with np.load(os.path.join(dirs[d],
+                                          f"{flag}_statistics.npz")) as f:
+                    if (f["mu"].shape != (2048,)
+                            or f["sigma"].shape != (2048, 2048)):
+                        fail(f"FID statistics of {d} at {flag}: shapes "
+                             f"{f['mu'].shape}, {f['sigma'].shape}")
+    return weights
+
+
+def phase_learning_proof():
+    """``cli/learning_proof.main(["--quick", "--assert_improves"])`` on the
+    card: the three trainers and the VAE from scratch at the tiny
+    configurations on the synthetic world, each stage's batch test, scored
+    by the protocol; it raises unless every threshold holds."""
+    from pcdms_tpu_torch.cli import learning_proof
+    with tempfile.TemporaryDirectory() as root:
+        res = learning_proof.main(["--root", root, "--quick",
+                                   "--assert_improves"])
+    keys = ("ssim", "psnr", "l1")
+    print(f"[learning_proof] seconds {res['seconds']}; wall "
+          f"{res['wall_s']} s", flush=True)
+    print(f"[learning_proof] VAE ceiling "
+          f"{res['vae_recon_ssim_ceiling']:.4f}; stage-1 cosine "
+          f"{res['stage1_cosine_init']:.4f} -> "
+          f"{res['stage1_cosine_trained']:.4f}; "
+          + "; ".join(f"stage-{s} " + " / ".join(
+              f"{k} {res[f'stage{s}_init'][k]:.4f} -> "
+              f"{res[f'stage{s}_trained'][k]:.4f}" for k in keys)
+                      for s in (2, 3)), flush=True)
+
+
 def _timed(phase, *args):
     """Run one phase; print its seconds (host clock, the card waited for)."""
     t0 = time.perf_counter()
@@ -3831,12 +4119,15 @@ def main() -> int:
     _add(launches, _timed(phase_train_data, fa, dev))
     _timed(phase_cli)
     _timed(phase_batchtest, fa)
-    _timed(phase_protocol, fa)
+    with tempfile.TemporaryDirectory() as weights_dir:
+        metric_weights = _timed(phase_metrics, dev, weights_dir)
+        _timed(phase_protocol, fa, metric_weights)
     _add(launches, _timed(phase_weights, fa, dev))
     _add(launches, _timed(phase_serve, fa, dev))
     _add(launches, _timed(phase_data_parallel, fa, dev))
     _add(launches, _timed(phase_lcm, fa, dev))
     _add(launches, _timed(phase_serve_dp, fa, dev))
+    _timed(phase_learning_proof)
     for kernel in KERNELS:
         if not launches.get(kernel):
             fail(f"kernel {kernel} was not launched on its path")

@@ -251,3 +251,27 @@ def load_numpy_state_dict(module: torch.nn.Module, sd: StateDict):
             device=ref.device, dtype=ref.dtype)
         for k, v in sd.items()}, strict=True)
     return module
+
+
+def inception_from_jax(p):
+    """The JAX FID InceptionV3 tree (``convert_inception``'s: folded-BN
+    HWIO kernels and biases per unit, blocks as {branch: unit}) -> the
+    port's ``eval/inception.py::InceptionV3`` on the CPU, in eval mode."""
+    from pcdms_tpu_torch.eval.inception import UNITS, InceptionV3
+    sd: StateDict = {}
+    for prefix in UNITS:
+        block, _, branch = prefix.partition(".")
+        _conv(sd, prefix, p[block][branch] if branch else p[block])
+    return load_numpy_state_dict(InceptionV3(), sd).eval()
+
+
+def lpips_from_jax(p):
+    """The JAX LPIPS tree (``convert_lpips``'s: ``net``, five HWIO convs;
+    ``lins``, five (C,) heads) -> the port's ``eval/lpips.py::LPIPS`` on
+    the CPU, in eval mode."""
+    from pcdms_tpu_torch.eval.lpips import LPIPS
+    sd: StateDict = {}
+    for i, (conv, lin) in enumerate(zip(p["net"], p["lins"])):
+        _conv(sd, f"convs.{i}", conv)
+        sd[f"lins.{i}"] = np.asarray(lin)
+    return load_numpy_state_dict(LPIPS(), sd).eval()

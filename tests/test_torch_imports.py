@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``pcdms_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, Flax, Optax or the JAX package, and the
-package never calls ``scaled_dot_product_attention`` or ``torch.compile``
-(library kernels are not ports of the repository's kernels)."""
+``chip_smoke.py``) imports JAX, Flax, Optax, the JAX package or cv2 (the
+card's machine has no OpenCV: the port draws with ``pose/raster.py`` and
+resizes with PyTorch), and the package never calls
+``scaled_dot_product_attention`` or ``torch.compile`` (library kernels are
+not ports of the repository's kernels)."""
 
 import ast
 from pathlib import Path
@@ -11,7 +13,13 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "pcdms_tpu_torch"
 FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pcdms_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pcdms_tpu", "cv2")
+# the modules of the metrics protocol and the learning proof, which take the
+# JAX package's cv2 code paths over
+CV2_FREE = ("eval/metrics.py", "eval/inception.py", "eval/lpips.py",
+            "cli/calculate_metrics.py", "cli/learning_proof.py",
+            "pose/raster.py", "pose/skeleton.py", "data/synthetic.py",
+            "data/native.py")
 
 
 def _imports(tree):
@@ -36,6 +44,7 @@ def _called_names(tree):
 
 def test_files_found():
     assert len(FILES) > 15 and all(p.exists() for p in FILES)
+    assert {PACKAGE / m for m in CV2_FREE} <= set(FILES)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
