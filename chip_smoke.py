@@ -165,6 +165,20 @@ Phases, each reported on its own lines:
      and ``cli/calculate_metrics.main`` at --resolution 256 and 512 on 256
      synthetic generated / GT pairs and 256 FID reference images, with the
      host seconds of sqrtm and of the reconstruction metrics per pair;
+ 16b. the DWPose extraction path (``phase_dwpose``, after phase 10):
+     seeded random YOLOX-l and RTMPose-l saved as mm checkpoints and loaded
+     by ``DWposeTorch.from_torch``, run with both TF32 switches on around
+     the port's own f32 scope; both networks card vs CPU through
+     ``DWposeTorch._forward`` (rel L2 <= 1e-4: YOLOX-l's raw outputs at a
+     640 letterbox, RTMPose-l's SimCC logits at 384x288); ``detect_persons``
+     on 16 synthetic 512x512 person images (network images/s by CUDA events
+     at batch 1 and 16, the call by the host clock, the host's share, the
+     boxes); ``__call__`` with the detection pinned to 1 and 4 boxes an
+     image (persons/s, the host's share), the whole call card vs CPU on one
+     image, bit for bit where every SimCC top-two margin on the CPU exceeds
+     1e-3; ``cli/extract_pose.main`` on 8 images (an 18-line ``.txt`` and
+     a 512x512 ``_pose.jpg`` each, s an image). No kernel of the repository
+     lies on this path;
  17. the learning proof (``phase_learning_proof``):
      ``cli/learning_proof.main(["--quick", "--assert_improves"])`` on the
      card, the VAE and the three trainers from scratch at the tiny
@@ -183,6 +197,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -190,6 +205,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3816,15 +3832,21 @@ METRIC_PAIRS = 256
 
 
 def _conv_flops(model, *inputs):
-    """2 x MACs of every ``nn.Conv2d`` in one forward of ``model``."""
+    """2 x MACs of every ``nn.Conv2d`` and ``nn.Linear`` in one forward of
+    ``model``."""
     total = [0]
 
-    def count(m, _, out):
+    def conv(m, _, out):
         total[0] += (2 * m.in_channels // m.groups * m.kernel_size[0]
                      * m.kernel_size[1] * out.numel())
 
-    hooks = [m.register_forward_hook(count) for m in model.modules()
-             if isinstance(m, torch.nn.Conv2d)]
+    def linear(m, _, out):
+        total[0] += 2 * m.in_features * out.numel()
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, torch.nn.Conv2d)
+                                     else linear)
+             for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
     with torch.no_grad():
         model(*inputs)
     for h in hooks:
@@ -4044,6 +4066,304 @@ def phase_metrics(dev, weights_dir):
     return weights
 
 
+# the DWPose networks, card vs CPU (relative L2): both f32 with TF32 off
+# inside DWposeTorch._forward, so they differ only in the order of f32 sums (InceptionV3's pool3 reads
+# about 6e-7 under the same policy in phase_metrics)
+BAR_DWPOSE_NETS = 1e-4
+DWPOSE_IMAGES = 16            # synthetic 512x512 person images
+DWPOSE_CLI_IMAGES = 8
+# a keypoint is held card vs CPU bit for bit where no SimCC argmax can flip:
+# its top-two logits apart by more than this on the CPU on both axes (the
+# bar of tests/test_torch_dwpose.py)
+DWPOSE_MARGIN = 1e-3
+
+
+@contextlib.contextmanager
+def _tf32_on():
+    """Both of PyTorch's TF32 switches on (cuDNN's is on in a fresh
+    process), so that what runs in f32 inside does so by the port's own
+    precision scope; the settings before are restored after."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def _dwpose_checkpoints(root):
+    """Seeded YOLOX-l and RTMPose-l (PyTorch's default init) with random
+    BatchNorm statistics (mean ~ N(0, 0.3), var ~ U(0.5, 1.5)), saved under
+    ``root`` as mm checkpoints ({"state_dict": ..., "meta": ...});
+    -> {name: (path, parameter count)}."""
+    from pcdms_tpu_torch.pose.detectors.rtmpose import RTMPose
+    from pcdms_tpu_torch.pose.detectors.yolox import YOLOX
+    torch.manual_seed(SEED)
+    g = torch.Generator().manual_seed(SEED)
+    out = {}
+    for name, cls in (("yolox_l", YOLOX), ("dwpose_l", RTMPose)):
+        model = cls()
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.running_mean.normal_(0, 0.3, generator=g)
+                    m.running_var.uniform_(0.5, 1.5, generator=g)
+        path = os.path.join(root, f"{name}.pth")
+        torch.save({"state_dict": model.state_dict(),
+                    "meta": {"seed": SEED}}, path)
+        out[name] = (path, sum(p.numel() for p in model.parameters()))
+    return out
+
+
+def _person_boxes(kp, size, n):
+    """``n`` boxes (xyxy, pixels) around the normalised joints ``kp`` of a
+    ``size`` px image: the joints' bounds grown by 10 %, then shifted."""
+    lo, hi = kp.min(0) * size, kp.max(0) * size
+    pad = 0.1 * (hi - lo) + 4
+    box = [*(lo - pad), *(hi + pad)]
+    return [[v + 9 * i * (1 if j % 2 else -1) for j, v in enumerate(box)]
+            for i in range(n)]
+
+
+class _NetTimer:
+    """Wraps ``det._forward`` to record CUDA events around each network
+    call; ``ms()`` waits for the card and sums them."""
+
+    def __init__(self, det):
+        self.det, self.events = det, []
+        forward = det._forward
+
+        def timed(net, image):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = forward(net, image)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        det._forward = timed
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+    def restore(self):
+        del self.det._forward
+
+
+def phase_dwpose(dev):
+    """The DWPose extraction path on the card (``pose/dwpose.py::
+    DWposeTorch``, ``cli/extract_pose.main``) with seeded random YOLOX-l
+    and RTMPose-l saved as mm checkpoints, run with both TF32 switches on
+    so that the port's own f32 scope is what is tested: the networks card
+    vs CPU, the detector on 16 synthetic 512x512 person images
+    letterboxed to 640, the pose half with the detection pinned to 1 and 4
+    boxes an image, the CLI on 8 images."""
+    import numpy as np
+    from PIL import Image
+    from pcdms_tpu_torch.cli import extract_pose
+    from pcdms_tpu_torch.data.synthetic import generate_dataset
+    from pcdms_tpu_torch.pose import dwpose, imgproc
+    from pcdms_tpu_torch.pose.keypoints import read_pose_txt
+
+    card = card_name_and_limit()
+    with _tf32_on(), tempfile.TemporaryDirectory() as root:
+        ckpts = _dwpose_checkpoints(root)
+        det = dwpose.DWposeTorch.from_torch(ckpts["yolox_l"][0],
+                                            ckpts["dwpose_l"][0])
+        cpu = dwpose.DWposeTorch.from_torch(ckpts["yolox_l"][0],
+                                            ckpts["dwpose_l"][0],
+                                            device="cpu")
+        world = os.path.join(root, "world")
+        generate_dataset(world, n_identities=DWPOSE_IMAGES // 8, n_poses=8,
+                         size=512, seed=SEED)
+        stems = sorted(n[:-4] for n in os.listdir(
+            os.path.join(world, "train_all_png")))
+        images, kps = [], []
+        for stem in stems:
+            with Image.open(os.path.join(world, "train_all_png",
+                                         f"{stem}.png")) as im:
+                images.append(np.asarray(im.convert("RGB")))
+            kps.append(read_pose_txt(os.path.join(
+                world, "normalized_pose_txt", f"{stem}.txt")).reshape(18, 2))
+        if len(images) != DWPOSE_IMAGES:
+            fail(f"dwpose: {len(images)} synthetic images, expected "
+                 f"{DWPOSE_IMAGES}")
+
+        # pose/imgproc.py's cv2 replicas give the same bits on the card
+        box = _person_boxes(kps[0], 512, 1)[0]
+        image = torch.from_numpy(images[0].copy())
+        canvas, _ = dwpose._letterbox(imgproc.swap_rb(image), det.det_size)
+        crop, _ = dwpose._pose_crop(image, box)
+        if not (torch.equal(dwpose._letterbox(imgproc.swap_rb(
+                image.to(dev)), det.det_size)[0].cpu(), canvas)
+                and torch.equal(dwpose._pose_crop(image.to(dev), box)[0]
+                                .cpu(), crop)):
+            fail("dwpose: the letterbox or the crop made on the card differs "
+                 "from the CPU's")
+        flops = {
+            "yolox": _conv_flops(det.det, dwpose._nchw(canvas.to(dev))),
+            "rtmpose": _conv_flops(det.pose, dwpose._nchw(crop.to(dev)))}
+        print(f"[dwpose] {card}: YOLOX-l {ckpts['yolox_l'][1] / 1e6:.2f}M "
+              f"parameters, {flops['yolox'] / 1e9:.1f} GFLOP a "
+              f"{det.det_size}x{det.det_size} "
+              f"letterbox; RTMPose-l {ckpts['dwpose_l'][1] / 1e6:.2f}M, "
+              f"{flops['rtmpose'] / 1e9:.2f} GFLOP a 384x288 crop (2 x "
+              "MACs of the convs and linears)", flush=True)
+        errs = {"yolox": _rel_l2(det._forward(det.det, canvas.to(dev)).cpu(),
+                                 cpu._forward(cpu.det, canvas))}
+        for axis, got, want in zip("xy", det._forward(det.pose, crop.to(dev)),
+                                   cpu._forward(cpu.pose, crop)):
+            errs[f"simcc_{axis}"] = _rel_l2(got.cpu(), want)
+        if not (torch.backends.cudnn.allow_tf32
+                and torch.backends.cuda.matmul.allow_tf32):
+            fail("dwpose: DWposeTorch._forward did not restore the caller's "
+                 "TF32 settings")
+        print(f"[dwpose] {card}: letterbox and crop on the card equal to the "
+              "CPU's; card vs CPU through DWposeTorch._forward, TF32 on "
+              "outside it: rel L2 "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()),
+              flush=True)
+        if not all(v <= BAR_DWPOSE_NETS for v in errs.values()):
+            fail(f"dwpose networks: card vs CPU beyond {BAR_DWPOSE_NETS}")
+
+        # the detector: every image through detect_persons
+        net_ms = cuda_ms(lambda: det._forward(det.det, canvas.to(dev)),
+                         iters=DWPOSE_IMAGES)
+        batch = dwpose._nchw(canvas.to(dev)).expand(DWPOSE_IMAGES, -1, -1,
+                                                   -1).contiguous()
+        with torch.no_grad(), dwpose.f32_forward():
+            batch_ms = cuda_ms(lambda: det.det(batch), iters=3, warmup=1)
+        decode = _HostTimer(dwpose, "decode_yolox")
+        timer = _NetTimer(det)
+        n_boxes = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            for img in images:
+                boxes, scores = det.detect_persons(img)
+                n_boxes += len(boxes)
+                if not (np.isfinite(boxes).all()
+                        and len(boxes) == len(scores)):
+                    fail("dwpose: the detector's boxes are not finite")
+        finally:
+            decode.restore()
+        wall = time.perf_counter() - t0
+        call_net = timer.ms()
+        timer.restore()
+        print(f"[dwpose] {card}: detector on {DWPOSE_IMAGES} 512x512 images "
+              f"letterboxed to {det.det_size}: network {net_ms:.2f} ms an "
+              f"image by CUDA "
+              f"events ({1e3 / net_ms:.1f} images/s, "
+              f"{flops['yolox'] / net_ms / 1e9:.1f} TFLOP/s = "
+              f"{flops['yolox'] / net_ms / 1e9 / PEAK_F32_FLOPS * 1e12:.1%} "
+              f"of the f32 peak), {batch_ms / DWPOSE_IMAGES:.2f} ms at batch "
+              f"{DWPOSE_IMAGES} ({DWPOSE_IMAGES * 1e3 / batch_ms:.1f} "
+              f"images/s); detect_persons {wall / DWPOSE_IMAGES * 1e3:.2f} ms "
+              f"a call by the host clock ({DWPOSE_IMAGES / wall:.1f} "
+              f"images/s), of which the network "
+              f"{call_net / DWPOSE_IMAGES:.2f} ms: the rest (upload, "
+              f"letterbox, copy back, decode and NMS "
+              f"{decode.seconds / DWPOSE_IMAGES * 1e3:.2f} ms) "
+              f"{1 - call_net / 1e3 / wall:.1%} of the call; {n_boxes} boxes "
+              "(random weights)", flush=True)
+
+        # the pose half: the detection pinned, crop, RTMPose-l, SimCC
+        # decode, COCO -> OpenPose, the render with hands
+        for per_image in (1, 4):
+            timer = _NetTimer(det)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for img, kp in zip(images, kps):
+                boxes = np.array(_person_boxes(kp, 512, per_image))
+                det.detect_persons = lambda _, b=boxes: (
+                    b, np.full(len(b), 0.9))
+                render, kpts, scores = det(img)
+                if not (render.shape == (512, 512, 3)
+                        and kpts.shape == (per_image, 18, 2)
+                        and np.isfinite(kpts).all()
+                        and np.isfinite(scores).all()):
+                    fail(f"dwpose: __call__ with {per_image} pinned boxes "
+                         f"gave {render.shape}, {kpts.shape}")
+            wall = time.perf_counter() - t0
+            pose_net = timer.ms()
+            timer.restore()
+            persons = per_image * DWPOSE_IMAGES
+            print(f"[dwpose] {card}: __call__ with {per_image} pinned "
+                  f"box(es) an image: {persons / wall:.1f} persons/s, "
+                  f"{wall / DWPOSE_IMAGES * 1e3:.1f} ms an image by the host "
+                  f"clock; RTMPose-l {pose_net / persons:.2f} ms a person by "
+                  f"CUDA events, the host {1 - pose_net / 1e3 / wall:.1%} of "
+                  "the call", flush=True)
+        # the whole call, card against CPU, on one image with 4 boxes: each
+        # keypoint with a SimCC margin above DWPOSE_MARGIN is equal, and
+        # where all 4 x 133 are, so are the keypoints and the render
+        boxes = np.array(_person_boxes(kps[0], 512, 4))
+        held = flips = 0
+        for box in boxes:
+            top2 = torch.stack([logits[0].topk(2, -1).values for logits in
+                                cpu._forward(cpu.pose, dwpose._pose_crop(
+                                    torch.from_numpy(images[0].copy()),
+                                    box)[0])])
+            keep = ((top2[..., 0] - top2[..., 1]) > DWPOSE_MARGIN).all(0)
+            same = (det.estimate_pose(images[0], box)[0]
+                    == cpu.estimate_pose(images[0], box)[0]).all(-1)
+            if not same[keep.numpy()].all():
+                fail("dwpose: the card's keypoints differ from the CPU's "
+                     f"where the SimCC margin exceeds {DWPOSE_MARGIN}")
+            held += int(keep.sum())
+            flips += int((~same).sum())
+        outs = []
+        for d in (det, cpu):
+            d.detect_persons = lambda _, b=boxes: (b, np.full(len(b), 0.9))
+            outs.append(d(images[0]))
+        if flips == 0 and not (np.array_equal(outs[0][0], outs[1][0])
+                               and np.array_equal(outs[0][1], outs[1][1])):
+            fail("dwpose: the card's render or keypoints differ from the "
+                 "CPU's on the same image and boxes")
+        print(f"[dwpose] {card}: card vs CPU with 4 pinned boxes: "
+              f"{held} of {4 * 133} keypoints with a SimCC margin above "
+              f"{DWPOSE_MARGIN} equal; {flips} argmax flip(s) in all; "
+              + ("__call__'s OpenPose keypoints and render equal bit for bit"
+                 if flips == 0 else "__call__'s keypoints and render not "
+                 "held, since a flip within the margin changes them"),
+              flush=True)
+        del det.detect_persons, cpu
+
+        # the CLI on 8 images, the detector not pinned
+        cli_images = os.path.join(root, "cli_images")
+        os.makedirs(cli_images)
+        for stem in stems[:DWPOSE_CLI_IMAGES]:
+            shutil.copy(os.path.join(world, "train_all_png", f"{stem}.png"),
+                        cli_images)
+        out_txt, out_pose = (os.path.join(root, d) for d in ("txt", "pose"))
+        t0 = time.perf_counter()
+        written = extract_pose.main([
+            "--image_dir", cli_images, "--out_txt_dir", out_txt,
+            "--out_pose_dir", out_pose, "--det_ckpt", ckpts["yolox_l"][0],
+            "--pose_ckpt", ckpts["dwpose_l"][0], "--image_resolution",
+            "512"])
+        wall = time.perf_counter() - t0
+        if written != stems[:DWPOSE_CLI_IMAGES]:
+            fail(f"extract_pose wrote {written}")
+        for stem in written:
+            with open(os.path.join(out_txt, f"{stem}.txt")) as f:
+                lines = f.read().splitlines()
+            with Image.open(os.path.join(out_pose, f"{stem}_pose.jpg")) as im:
+                size = im.size
+            if len(lines) != 18 or size != (512, 512):
+                fail(f"extract_pose: {stem}: {len(lines)} lines, {size}")
+        print(f"[dwpose] {card}: cli/extract_pose.main on "
+              f"{DWPOSE_CLI_IMAGES} images (--det_ckpt / --pose_ckpt, "
+              f"--image_resolution 512): {wall:.2f} s in main, "
+              f"{wall / DWPOSE_CLI_IMAGES:.3f} s an image with the "
+              "checkpoints' load", flush=True)
+
+
 def phase_learning_proof():
     """``cli/learning_proof.main(["--quick", "--assert_improves"])`` on the
     card: the three trainers and the VAE from scratch at the tiny
@@ -4122,6 +4442,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as weights_dir:
         metric_weights = _timed(phase_metrics, dev, weights_dir)
         _timed(phase_protocol, fa, metric_weights)
+    _timed(phase_dwpose, dev)
     _add(launches, _timed(phase_weights, fa, dev))
     _add(launches, _timed(phase_serve, fa, dev))
     _add(launches, _timed(phase_data_parallel, fa, dev))

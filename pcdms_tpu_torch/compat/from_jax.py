@@ -1,6 +1,7 @@
 """JAX parameter pytrees -> the port's modules.
 
-The inverse of ``pcdms_tpu/compat/torch_convert.py``: turns the JAX
+The inverse of ``pcdms_tpu/compat/torch_convert.py`` (and of the DWPose
+networks' ``convert_yolox`` / ``convert_rtmpose``): turns the JAX
 package's parameter pytrees (leaves as numpy arrays) into diffusers-named
 state dicts for ``UNet2DConditionModel``, ``AutoencoderKL``,
 ``ImageProjModel``, ``PoseCondEmbedding``, ``PriorTransformer`` (the
@@ -275,3 +276,90 @@ def lpips_from_jax(p):
         _conv(sd, f"convs.{i}", conv)
         sd[f"lins.{i}"] = np.asarray(lin)
     return load_numpy_state_dict(LPIPS(), sd).eval()
+
+
+def _yolox_csp(sd, prefix, p):
+    for name in ("main_conv", "short_conv", "final_conv"):
+        _conv(sd, f"{prefix}.{name}.conv", p[name])
+    for i, blk in enumerate(p["blocks"]):
+        _conv(sd, f"{prefix}.blocks.{i}.conv1.conv", blk["conv1"])
+        _conv(sd, f"{prefix}.blocks.{i}.conv2.conv", blk["conv2"])
+
+
+def _cspnext_csp(sd, prefix, p):
+    for name in ("main_conv", "short_conv", "final_conv"):
+        _conv(sd, f"{prefix}.{name}.conv", p[name])
+    _conv(sd, f"{prefix}.attention.fc", p["attention"])
+    for i, blk in enumerate(p["blocks"]):
+        _conv(sd, f"{prefix}.blocks.{i}.conv1.conv", blk["conv1"])
+        # depthwise HWIO (5, 5, 1, C) -> (C, 1, 5, 5)
+        _conv(sd, f"{prefix}.blocks.{i}.conv2.depthwise_conv.conv",
+              blk["conv2_dw"])
+        _conv(sd, f"{prefix}.blocks.{i}.conv2.pointwise_conv.conv",
+              blk["conv2_pw"])
+
+
+def _mm_stages(sd, p, arch, csp):
+    """The stride-2 conv, SPP and CSP layer of each backbone stage."""
+    for si, (*_, use_spp) in enumerate(arch, 1):
+        stage = p[f"stage{si}"]
+        _conv(sd, f"backbone.stage{si}.0.conv", stage["conv"])
+        if use_spp:
+            for name in ("conv1", "conv2"):
+                _conv(sd, f"backbone.stage{si}.1.{name}.conv",
+                      stage["spp"][name])
+        csp(sd, f"backbone.stage{si}.{2 if use_spp else 1}", stage["csp"])
+
+
+def yolox_from_jax(p):
+    """The JAX YOLOX-l tree (``convert_yolox``'s: BatchNorm folded, HWIO
+    kernels and biases) -> the port's folded ``pose/detectors/yolox.py::
+    YOLOX`` on the CPU, in eval mode."""
+    from pcdms_tpu_torch.pose.detectors.common import fold_bn
+    from pcdms_tpu_torch.pose.detectors.yolox import DARKNET_ARCH, YOLOX
+    sd: StateDict = {}
+    _conv(sd, "backbone.stem.conv.conv", p["backbone"]["stem"])
+    _mm_stages(sd, p["backbone"], DARKNET_ARCH, _yolox_csp)
+    neck = p["neck"]
+    for i in range(2):
+        _conv(sd, f"neck.reduce_layers.{i}.conv", neck[f"reduce{i}"])
+        _yolox_csp(sd, f"neck.top_down_blocks.{i}", neck[f"top_down{i}"])
+        _conv(sd, f"neck.downsamples.{i}.conv", neck[f"down{i}"])
+        _yolox_csp(sd, f"neck.bottom_up_blocks.{i}", neck[f"bottom_up{i}"])
+    for i in range(3):
+        _conv(sd, f"neck.out_convs.{i}.conv", neck[f"out{i}"])
+    for lvl in range(3):
+        lp = p["head"][f"lvl{lvl}"]
+        for kind in ("cls", "reg"):
+            for i, c in enumerate(lp[f"{kind}_convs"]):
+                _conv(sd, f"bbox_head.multi_level_{kind}_convs.{lvl}.{i}.conv",
+                      c)
+        for kind in ("cls", "reg", "obj"):
+            _conv(sd, f"bbox_head.multi_level_conv_{kind}.{lvl}",
+                  lp[f"conv_{kind}"])
+    return load_numpy_state_dict(fold_bn(YOLOX()), sd).eval()
+
+
+def rtmpose_from_jax(p):
+    """The JAX RTMPose-l tree (``convert_rtmpose``'s: BatchNorm folded, HWIO
+    kernels, the linears stored (in, out)) -> the port's folded
+    ``pose/detectors/rtmpose.py::RTMPose`` on the CPU, in eval mode."""
+    from pcdms_tpu_torch.pose.detectors.common import fold_bn
+    from pcdms_tpu_torch.pose.detectors.rtmpose import CSPNEXT_ARCH, RTMPose
+    sd: StateDict = {}
+    for i, c in enumerate(p["backbone"]["stem"]):
+        _conv(sd, f"backbone.stem.{i}.conv", c)
+    _mm_stages(sd, p["backbone"], CSPNEXT_ARCH, _cspnext_csp)
+    head, gau = p["head"], p["head"]["gau"]
+    _conv(sd, "head.final_layer", head["final_layer"])
+    sd["head.mlp.0.g"] = np.asarray(head["mlp_norm_g"]).reshape(1)
+    sd["head.mlp.1.weight"] = np.asarray(head["mlp"]).T
+    sd["head.gau.ln.g"] = np.asarray(gau["ln_g"]).reshape(1)
+    for name in ("uv", "o"):
+        sd[f"head.gau.{name}.weight"] = np.asarray(gau[name]).T
+    for name in ("gamma", "beta"):
+        sd[f"head.gau.{name}"] = np.asarray(gau[name])
+    sd["head.gau.res_scale.scale"] = np.asarray(gau["res_scale"])
+    for name in ("cls_x", "cls_y"):
+        sd[f"head.{name}.weight"] = np.asarray(head[name]).T
+    return load_numpy_state_dict(fold_bn(RTMPose()), sd).eval()

@@ -1,21 +1,22 @@
-"""OpenPose skeleton renderer, body only (counterpart of the body part of
-``pcdms_tpu/pose/skeleton.py``), drawn by ``pose/raster.py`` without cv2.
+"""OpenPose skeleton renderer (counterpart of ``pcdms_tpu/pose/skeleton.py``),
+drawn by ``pose/raster.py`` without cv2.
 
 The drawing convention the stage-2 conditioning was trained on
 (controlnet_aux's dwpose ``util.py``): limb ellipses of half-width 4 at 0.6
 brightness, joint circles of radius 4 at full brightness, the 18-colour
-wheel.
+wheel; 21-point hand skeletons as 1-pixel lines in HSV edge colours with
+red joint dots of radius 1; face landmarks as white dots of radius 3.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
 from pcdms_tpu_torch.pose.raster import (
-    ellipse2poly, fill_circle, fill_convex_poly,
+    ellipse2poly, fill_circle, fill_convex_poly, line_pixels,
 )
 
 EPS = 0.01
@@ -33,6 +34,12 @@ COLORS = [
     [85, 255, 0], [0, 255, 0], [0, 255, 85], [0, 255, 170], [0, 255, 255],
     [0, 170, 255], [0, 85, 255], [0, 0, 255], [85, 0, 255], [170, 0, 255],
     [255, 0, 255], [255, 0, 170], [255, 0, 85],
+]
+
+HAND_EDGES = [
+    [0, 1], [1, 2], [2, 3], [3, 4], [0, 5], [5, 6], [6, 7], [7, 8],
+    [0, 9], [9, 10], [10, 11], [11, 12], [0, 13], [13, 14], [14, 15],
+    [15, 16], [0, 17], [17, 18], [18, 19], [19, 20],
 ]
 
 
@@ -82,12 +89,69 @@ def draw_bodypose(canvas: np.ndarray, keypoints: np.ndarray,
     return canvas
 
 
+def draw_handpose(canvas: np.ndarray,
+                  hands: Sequence[np.ndarray]) -> np.ndarray:
+    """Draw 21-keypoint hand skeletons (each (21, 2) normalised) into
+    ``canvas`` in place."""
+    h, w, _ = canvas.shape
+    n_edges = len(HAND_EDGES)
+    for peaks in hands:
+        peaks = np.asarray(peaks, np.float32)
+        for ie, (a, b) in enumerate(HAND_EDGES):
+            # the visibility test is on the scaled integer pixels (an edge
+            # touching column or row 0 is skipped), as in the drawing code
+            # stage 2 was trained on
+            x1, y1 = int(peaks[a, 0] * w), int(peaks[a, 1] * h)
+            x2, y2 = int(peaks[b, 0] * w), int(peaks[b, 1] * h)
+            if min(x1, y1, x2, y2) <= EPS:
+                continue
+            # cv2 rounds a float colour half to even (cvRound), as round()
+            color = [round(c) for c in _hsv_to_rgb(ie / float(n_edges),
+                                                   1.0, 1.0)]
+            for x, y in line_pixels(w, h, (x1, y1), (x2, y2)):
+                canvas[y, x] = color
+        for x, y in peaks:
+            x, y = int(x * w), int(y * h)
+            if x > EPS and y > EPS:
+                fill_circle(canvas, (x, y), 1, (0, 0, 255))
+    return canvas
+
+
+def draw_facepose(canvas: np.ndarray,
+                  faces: Sequence[np.ndarray]) -> np.ndarray:
+    """Draw face landmarks (each (K, 2) normalised) as white dots of radius
+    3 into ``canvas`` in place (the dwpose renderer of the reference leaves
+    faces out; ``render_pose`` draws them only when given)."""
+    h, w, _ = canvas.shape
+    for peaks in faces:
+        for x, y in np.asarray(peaks, np.float32):
+            xi, yi = int(x * w), int(y * h)
+            if xi > EPS and yi > EPS:
+                fill_circle(canvas, (xi, yi), 3, (255, 255, 255))
+    return canvas
+
+
+def _hsv_to_rgb(h, s, v):
+    i = int(h * 6.0) % 6
+    f = h * 6.0 - int(h * 6.0)
+    p, q, t = v * (1 - s), v * (1 - s * f), v * (1 - s * (1 - f))
+    rgb = [(v, t, p), (q, v, p), (p, v, t), (p, q, v), (t, p, v),
+           (v, p, q)][i]
+    return tuple(c * 255.0 for c in rgb)
+
+
 def render_pose(keypoints: np.ndarray, height: int, width: int,
                 visible: Optional[np.ndarray] = None,
+                hands: Optional[Sequence[np.ndarray]] = None,
+                faces: Optional[Sequence[np.ndarray]] = None,
                 draw_body: bool = True) -> np.ndarray:
-    """A skeleton image: keypoints (N, 18, 2) or (18, 2) normalised ->
-    (height, width, 3) uint8 RGB on black."""
+    """A skeleton image: keypoints (N, 18, 2) or (18, 2) normalised, and
+    optional hands and faces -> (height, width, 3) uint8 RGB on black."""
     canvas = np.zeros((height, width, 3), np.uint8)
     if draw_body:
         canvas = draw_bodypose(canvas, keypoints, visible)
+    if hands:
+        canvas = draw_handpose(canvas, hands)
+    if faces:
+        canvas = draw_facepose(canvas, faces)
     return canvas

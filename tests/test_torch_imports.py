@@ -14,12 +14,15 @@ ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "pcdms_tpu_torch"
 FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pcdms_tpu", "cv2")
-# the modules of the metrics protocol and the learning proof, which take the
-# JAX package's cv2 code paths over
+# the modules of the metrics protocol, the learning proof and the DWPose
+# path, which take the JAX package's cv2 code paths over
 CV2_FREE = ("eval/metrics.py", "eval/inception.py", "eval/lpips.py",
             "cli/calculate_metrics.py", "cli/learning_proof.py",
             "pose/raster.py", "pose/skeleton.py", "data/synthetic.py",
-            "data/native.py")
+            "data/native.py", "pose/imgproc.py", "pose/dwpose.py",
+            "pose/detectors/__init__.py", "pose/detectors/common.py",
+            "pose/detectors/yolox.py", "pose/detectors/rtmpose.py",
+            "cli/extract_pose.py")
 
 
 def _imports(tree):

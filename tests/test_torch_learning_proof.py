@@ -7,8 +7,9 @@ CPU:
   convex hulls that cross the border, ``fill_circle`` against
   ``cv2.circle(thickness=-1)``: pixel for pixel, over seeded random inputs;
 * ``pose/skeleton.py::render_pose`` against the JAX package's (cv2) at 64,
-  128 and 512 px over seeded random poses and visibility masks: pixel for
-  pixel;
+  128 and 512 px over seeded random poses and visibility masks, and with
+  ``hands=`` (masked points included) and ``faces=``: pixel for pixel; the
+  hand edges' colours, five of them half a level, rounded as cv2 rounds;
 * ``data/synthetic.py`` against the JAX package's: every palette and pose
   equal, and ``generate_dataset``'s files byte for byte (PNGs, the
   quality-95 JPEG renders, the ``.txt`` keypoints, the pair JSONs);
@@ -34,11 +35,12 @@ import pytest
 
 from pcdms_tpu.data import native as j_native
 from pcdms_tpu.data import synthetic as j_synthetic
+from pcdms_tpu.pose.skeleton import _hsv_to_rgb as j_hsv_to_rgb
 from pcdms_tpu.pose.skeleton import render_pose as j_render_pose
 
 from pcdms_tpu_torch.data import native, synthetic
 from pcdms_tpu_torch.pose import raster
-from pcdms_tpu_torch.pose.skeleton import render_pose
+from pcdms_tpu_torch.pose.skeleton import HAND_EDGES, render_pose
 
 from _torch_common import one_thread
 
@@ -126,6 +128,46 @@ def test_render_pose_equals_jax(size):
             want = j_render_pose(kp, size, size + 16, vis)
             got = render_pose(kp, size, size + 16, vis)
             assert got.dtype == np.uint8 and (got == want).all()
+
+
+@pytest.mark.parametrize("size", [64, 128, 512])
+def test_render_pose_hands_faces_equal_jax(size):
+    rng = np.random.default_rng(1000 + size)
+    for _ in range(30):
+        kp = rng.uniform(-0.1, 1.1, (int(rng.integers(1, 3)), 18, 2)
+                         ).astype(np.float32)
+        visible = rng.uniform(0, 1, kp.shape[:2]) > 0.2
+        hands = [rng.uniform(-0.1, 1.1, (21, 2)).astype(np.float32)
+                 for _ in range(int(rng.integers(1, 5)))]
+        for hand in hands:
+            hand[rng.uniform(0, 1, 21) < 0.2] = -1.0      # low-score mask
+        faces = [rng.uniform(0, 1, (68, 2)).astype(np.float32)
+                 for _ in range(int(rng.integers(0, 3)))]
+        for draw_body in (True, False):
+            want = j_render_pose(kp, size, size + 16, visible, hands=hands,
+                                 faces=faces, draw_body=draw_body)
+            got = render_pose(kp, size, size + 16, visible, hands=hands,
+                              faces=faces, draw_body=draw_body)
+            assert got.dtype == np.uint8 and (got == want).all()
+
+
+def test_hand_edge_colours_equal_cv2():
+    """Each hand edge alone on a long horizontal line: cv2 paints the
+    float colour rounded to nearest, half to even (cvRound), the port the
+    same. Ten edges have a channel at (about) half a level, of five
+    values."""
+    halves = set()
+    for ie in range(len(HAND_EDGES)):
+        rgb = j_hsv_to_rgb(ie / len(HAND_EDGES), 1.0, 1.0)
+        halves |= {round(c, 1) for c in rgb if abs(c - round(c)) > 0.49}
+        peaks = np.full((21, 2), -1.0, np.float32)
+        a, b = HAND_EDGES[ie]
+        peaks[a], peaks[b] = (0.1, 0.5), (0.9, 0.5)
+        want = j_render_pose(np.zeros((1, 18, 2)), 32, 64, hands=[peaks])
+        got = render_pose(np.zeros((1, 18, 2)), 32, 64, hands=[peaks])
+        assert (got == want).all() and (got[16, 20] == [round(c) for c in
+                                                        rgb]).all()
+    assert halves == {25.5, 76.5, 127.5, 178.5, 229.5}
 
 
 # -------------------------------------------------------------- synthetic --
