@@ -162,8 +162,8 @@ Phases, each reported on its own lines:
      full-width FID InceptionV3 and LPIPS-Alex saved in their published
      layouts, the card's pool3 features and LPIPS values against the CPU's
      (8 images, f32, TF32 off), images/s of both networks by CUDA events,
-     and ``cli/calculate_metrics.main`` at --resolution 256 and 512 on 256
-     synthetic generated / GT pairs and 256 FID reference images, with the
+     and ``cli/calculate_metrics.main`` at --resolution 256 and 512 on 64
+     synthetic generated / GT pairs and 64 FID reference images, with the
      host seconds of sqrtm and of the reconstruction metrics per pair;
  16b. the DWPose extraction path (``phase_dwpose``, after phase 10):
      seeded random YOLOX-l and RTMPose-l saved as mm checkpoints and loaded
@@ -179,6 +179,25 @@ Phases, each reported on its own lines:
      1e-3; ``cli/extract_pose.main`` on 8 images (an 18-line ``.txt`` and
      a 512x512 ``_pose.jpg`` each, s an image). No kernel of the repository
      lies on this path;
+ 16c. the single-image demo (``phase_demo``, after phase 11):
+     ``cli/demo.main`` at full width with ``--random_init`` (the stage-2
+     UNet without class embedding, DINOv2-giant, the VAE; DDIM 50, CFG
+     2.0: 750 frozen launches), then from files (the same seeded UNet and
+     projections as a monolithic checkpoint, with phase 11's SD-2.1 and
+     DINOv2 dirs: the PNG byte-identical to ``--random_init`` with phase
+     11's VAE and DINOv2), then the code cells of
+     ``examples/demo_torch.ipynb`` read with ``json``; s per denoise step,
+     peak GiB. The fast-path drift table (``phase_fastpath_drift``):
+     ``cli/fastpath_drift.py``'s random-weights mode at 512x1024 and batch
+     2, each variant's PSNR, cosine and frozen launches. The annotators
+     (``phase_annotators``): seeded OpenPose body / hand / face, HED,
+     PiDiNet and LineArt saved as controlnet-aux files, each network card
+     vs CPU (rel L2 <= 1e-4) and its images/s at a 512 input, then every
+     ``Processor`` id of the slice on 4 synthetic 512x512 images on the
+     card and the first on the CPU, the OpenPose ids on a crafted
+     two-person body output (``pose/detectors/openpose_scene.py``), so that
+     the hand and face networks run on real crops. Phase 12 also sends one
+     ``cli/serve_client.main`` request at full width;
  17. the learning proof (``phase_learning_proof``):
      ``cli/learning_proof.main(["--quick", "--assert_improves"])`` on the
      card, the VAE and the three trainers from scratch at the tiny
@@ -3022,23 +3041,29 @@ def _f32_state_dict(module, prefix=""):
             for k, v in module.state_dict().items()}
 
 
-def _write_reference_layouts(root, models, dino):
-    """The stage-2 batch test's modules in the reference's layouts under
-    ``root``: the monolithic checkpoint in a DeepSpeed ``module`` wrapper
-    with ``unet.`` / ``pose_proj.`` / ``image_proj_model_p.`` keys, an
-    SD-2.1 dir whose VAE carries the old mid-attention names, and an HF
-    DINOv2 dir (with its ``mask_token``, at the module's 16 x 16 grid, so
-    that the load-time resize is the identity). -> (the CLI's weight flags,
-    bytes written)."""
-    ckpt = os.path.join(root, "pcdms_stage2.pt")
-    sd21, dino_dir = (os.path.join(root, d) for d in ("sd21", "dinov2"))
-    os.makedirs(os.path.join(sd21, "vae"))
-    os.makedirs(dino_dir)
+def _write_monolithic(path, models):
+    """The UNet and the projections as the reference's monolithic
+    checkpoint: a DeepSpeed ``module`` wrapper with ``unet.`` /
+    ``pose_proj.`` / ``image_proj_model_p.`` keys, f32."""
     torch.save({"module": {
         **_f32_state_dict(models["unet"], "unet."),
         **_f32_state_dict(models["pose_proj"], "pose_proj."),
         **_f32_state_dict(models["image_proj"], "image_proj_model_p.")}},
-        ckpt)
+        path)
+
+
+def _write_reference_layouts(root, models, dino):
+    """The stage-2 batch test's modules in the reference's layouts under
+    ``root``: the monolithic checkpoint (``_write_monolithic``), an SD-2.1
+    dir whose VAE carries the old mid-attention names, and an HF DINOv2 dir
+    (with its ``mask_token``, at the module's 16 x 16 grid, so that the
+    load-time resize is the identity). -> (the CLI's weight flags, bytes
+    written)."""
+    ckpt = os.path.join(root, "pcdms_stage2.pt")
+    sd21, dino_dir = (os.path.join(root, d) for d in ("sd21", "dinov2"))
+    os.makedirs(os.path.join(sd21, "vae"))
+    os.makedirs(dino_dir)
+    _write_monolithic(ckpt, models)
     vae = {}
     for k, v in _f32_state_dict(models["vae"]).items():
         for new, old in OLD_VAE_NAMES.items():
@@ -3056,16 +3081,19 @@ def _write_reference_layouts(root, models, dino):
             "--image_encoder_p_path", dino_dir], nbytes
 
 
-def phase_weights(fa, dev):
+def phase_weights(fa, dev, root):
     """Weight loading at full width: the stage-2 batch test's
     ``--random_init`` models (phase 9's seed: DINOv2-giant, the stage-2
     UNet, the VAE, the projections) saved in the reference's layouts as f32
-    files (``_write_reference_layouts``), then ``cli/stage2_batchtest.main``
-    once with ``--random_init`` and once from the files (no
-    ``--random_init``) on 2 pairs (UniPC 3 steps, 2 per prompt): the PNGs
-    must be byte-identical. Prints the bytes written and the seconds the
-    CLI's ``build_models`` takes each way. Fails, never skips, when the
-    disk lacks room for the files. Returns the launches of the two runs."""
+    files under ``root`` (``_write_reference_layouts``), then
+    ``cli/stage2_batchtest.main`` once with ``--random_init`` and once from
+    the files (no ``--random_init``) on 2 pairs (UniPC 3 steps, 2 per
+    prompt): the PNGs must be byte-identical. Prints the bytes written and
+    the seconds the CLI's ``build_models`` takes each way. Fails, never
+    skips, when the disk lacks room for the files. Returns (the launches of
+    the two runs, the SD-2.1 and DINOv2 dirs as the demo's ``--sd`` /
+    ``--dinov2`` and the bf16 VAE and DINOv2 they hold, for
+    ``phase_demo``)."""
     import shutil
 
     from pcdms_tpu_torch.cli import stage2_batchtest as cli
@@ -3080,42 +3108,45 @@ def phase_weights(fa, dev):
         build_s.append(time.perf_counter() - t0)
         return out
 
-    with tempfile.TemporaryDirectory() as root:
-        free = shutil.disk_usage(root).free
-        if free < 1.15 * WEIGHT_FILE_BYTES:
-            fail(f"phase_weights needs {1.15 * WEIGHT_FILE_BYTES / 1e9:.1f} "
-                 f"GB free under {root}, has {free / 1e9:.1f} GB")
-        names = _batchtest_dataset(root)
-        base = ["--json_path", os.path.join(root, "test_pairs.json"),
-                "--image_root_path", root, "--batch_size", "2", "--seed",
-                str(SEED), "--num_inference_steps", "3", "--scheduler",
-                "unipc", "--num_images_per_prompt", "2",
-                "--prior_embeds_dir", os.path.join(root, "prior")]
-        models, dino, _ = build(cli.parse_args(
-            base + ["--save_path", root, "--random_init"]), False, dev)
-        t0 = time.perf_counter()
-        flags, nbytes = _write_reference_layouts(
-            os.path.join(root, "weights"), models, dino)
-        write_s = time.perf_counter() - t0
-        del models, dino
-        gc.collect()
-        torch.cuda.empty_cache()
-        files, counts = {}, {}
-        cli.build_models = timed_build
-        try:
-            for label, extra in (("random", ["--random_init"]),
-                                 ("loaded", flags)):
-                fa.reset_launches()
-                written = cli.main(base + extra + [
-                    "--save_path", os.path.join(root, label)])
-                torch.cuda.synchronize()
-                _add(counts, {n: c for n, c in fa.LAUNCHES.items() if c})
-                files[label] = [open(p, "rb").read() for p in written]
-                if [os.path.basename(p) for p in written] != names:
-                    fail(f"phase_weights ({label}): expected one PNG per "
-                         f"pair")
-        finally:
-            cli.build_models = build
+    free = shutil.disk_usage(root).free
+    if free < 1.15 * WEIGHT_FILE_BYTES:
+        fail(f"phase_weights needs {1.15 * WEIGHT_FILE_BYTES / 1e9:.1f} "
+             f"GB free under {root}, has {free / 1e9:.1f} GB")
+    names = _batchtest_dataset(root)
+    base = ["--json_path", os.path.join(root, "test_pairs.json"),
+            "--image_root_path", root, "--batch_size", "2", "--seed",
+            str(SEED), "--num_inference_steps", "3", "--scheduler",
+            "unipc", "--num_images_per_prompt", "2",
+            "--prior_embeds_dir", os.path.join(root, "prior")]
+    models, dino, _ = build(cli.parse_args(
+        base + ["--save_path", root, "--random_init"]), False, dev)
+    t0 = time.perf_counter()
+    flags, nbytes = _write_reference_layouts(
+        os.path.join(root, "weights"), models, dino)
+    write_s = time.perf_counter() - t0
+    flag = dict(zip(flags[::2], flags[1::2]))
+    kept = {"--sd": flag["--pretrained_model_name_or_path"],
+            "--dinov2": flag["--image_encoder_p_path"],
+            "vae": models["vae"], "dino": dino}
+    del models, dino
+    gc.collect()
+    torch.cuda.empty_cache()
+    files, counts = {}, {}
+    cli.build_models = timed_build
+    try:
+        for label, extra in (("random", ["--random_init"]),
+                             ("loaded", flags)):
+            fa.reset_launches()
+            written = cli.main(base + extra + [
+                "--save_path", os.path.join(root, label)])
+            torch.cuda.synchronize()
+            _add(counts, {n: c for n, c in fa.LAUNCHES.items() if c})
+            files[label] = [open(p, "rb").read() for p in written]
+            if [os.path.basename(p) for p in written] != names:
+                fail(f"phase_weights ({label}): expected one PNG per "
+                     f"pair")
+    finally:
+        cli.build_models = build
     same = files["random"] == files["loaded"]
     print(f"[weights] the stage-2 batch test's full-width models saved in "
           f"the reference layouts: {nbytes} bytes ({nbytes / 1e9:.2f} GB) "
@@ -3125,7 +3156,7 @@ def phase_weights(fa, dev):
     if not same:
         fail("the batch test from the loaded files wrote other PNGs than "
              "its --random_init run")
-    return counts
+    return counts, kept
 
 
 def card_name_and_limit() -> str:
@@ -3144,6 +3175,42 @@ def _serve_request(rng, embed_dim=1024):
                 dino_features=rng.standard_normal((257, 1536)).astype(
                     np.float32),
                 embed=rng.standard_normal((embed_dim,)).astype(np.float32))
+
+
+def _serve_client_request(port, req):
+    """One ``cli/serve_client.main`` request at full width: ``req``'s
+    canvases written as 512x512 PNGs (source, source pose, target pose),
+    its DINOv2 features and embedding as ``.npy`` -> (the (512, 1024, 3)
+    image received, seconds)."""
+    import numpy as np
+    from PIL import Image
+    from pcdms_tpu_torch.cli import serve_client
+
+    with tempfile.TemporaryDirectory() as root:
+        def png(name, arr):
+            path = os.path.join(root, f"{name}.png")
+            Image.fromarray(np.clip(np.rint((arr + 1.0) * 127.5), 0, 255)
+                            .astype(np.uint8)).save(path)
+            return path
+
+        def npy(name, arr):
+            path = os.path.join(root, f"{name}.npy")
+            np.save(path, arr)
+            return path
+        out = os.path.join(root, "serve_out.png")
+        flags = ["--port", str(port), "--height", "512", "--width", "512",
+                 "--seed", str(SEED), "--out", out,
+                 "--source_image", png("source", req["vae_image"][:, :512]),
+                 "--source_pose", png("source_pose", req["st_pose"][:, :512]),
+                 "--target_pose", png("target_pose", req["st_pose"][:, 512:]),
+                 "--dino_features", npy("dino", req["dino_features"]),
+                 "--embed", npy("embed", req["embed"])]
+        t0 = time.perf_counter()
+        img = serve_client.main(flags)
+        secs = time.perf_counter() - t0
+        if np.asarray(Image.open(out)).shape != (512, 1024, 3):
+            fail("serve client: no (512, 1024, 3) PNG written")
+    return img, secs
 
 
 def phase_serve(fa, dev):
@@ -3224,8 +3291,15 @@ def phase_serve(fa, dev):
             four = [packed([0, 1, 2, 3])[0] for _ in range(2)]
             cross = _rel_l2(torch.from_numpy(four[0]),
                             torch.from_numpy(alone[0]))
+            client, client_s = _serve_client_request(server.port, reqs[1])
     finally:
         svc.close()
+    print(f"[serve] cli/serve_client.main: one full-width request from "
+          f"512x512 PNGs and .npy features, {client_s:.2f} s, image "
+          f"{client.shape}, finite {bool(np.isfinite(client).all())}",
+          flush=True)
+    if client.shape != (512, 1024, 3) or not np.isfinite(client).all():
+        fail("serve client: expected a finite (512, 1024, 3) image")
     torch.cuda.synchronize()
     counts, st = frozen(), svc.stats()
     batches = st["batches"] + 3                   # and the warmup's buckets
@@ -3828,7 +3902,9 @@ def phase_serve_dp(fa, dev):
 # values (relative): the two differ only in the order of f32 sums
 BAR_METRIC_NETS = 1e-4
 # the synthetic protocol run: generated / GT pairs and FID reference images
-METRIC_PAIRS = 256
+# (the reference scores thousands; the count is what the whole run's time
+# limit leaves room for)
+METRIC_PAIRS = 64
 
 
 def _conv_flops(model, *inputs):
@@ -3993,9 +4069,9 @@ def run_metrics_cli(argv, label):
 
 def phase_metrics(dev, weights_dir):
     """The metrics protocol on the card (``cli/calculate_metrics.main``) at
-    --resolution 256 and 512 on 256 synthetic generated / GT pairs and 256
-    FID reference images: two FID batches of 128 per directory, four LPIPS
-    batches of 64. InceptionV3 and LPIPS images/s by CUDA events, the
+    --resolution 256 and 512 on METRIC_PAIRS synthetic generated / GT pairs
+    and as many FID reference images, in the CLI's FID batches of 128 and
+    LPIPS batches of 64. InceptionV3 and LPIPS images/s by CUDA events, the
     card's pool3 features and LPIPS values against the CPU's on 8 images.
     -> the weight files (``phase_protocol`` scores its PNGs with them)."""
     import numpy as np
@@ -4082,16 +4158,20 @@ DWPOSE_MARGIN = 1e-3
 def _tf32_on():
     """Both of PyTorch's TF32 switches on (cuDNN's is on in a fresh
     process), so that what runs in f32 inside does so by the port's own
-    precision scope; the settings before are restored after."""
+    precision scope; the settings before are restored after. The matmul
+    switch goes through ``torch.set_float32_matmul_precision``, the API
+    ``dwpose.f32_forward`` uses: the legacy ``matmul.allow_tf32`` setter
+    after it leaves PyTorch's precision state mixed, and the next
+    ``get_float32_matmul_precision`` raises."""
     prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
+            torch.get_float32_matmul_precision())
     torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
     try:
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
+        torch.backends.cudnn.allow_tf32 = prev[0]
+        torch.set_float32_matmul_precision(prev[1])
 
 
 def _dwpose_checkpoints(root):
@@ -4364,6 +4444,578 @@ def phase_dwpose(dev):
               "checkpoints' load", flush=True)
 
 
+DEMO_STEPS = 50
+# the demo's own file, f32: the UNet without class embedding and the
+# projections (the VAE and DINOv2 are phase_weights' files)
+DEMO_FILE_BYTES = 4 * 870e6
+# a standing person's 18 OpenPose joints, normalised (x, y)
+STANDING_POSE = [[.5, .1], [.5, .22], [.38, .22], [.34, .4], [.32, .55],
+                 [.62, .22], [.66, .4], [.68, .55], [.44, .52], [.43, .72],
+                 [.42, .9], [.56, .52], [.57, .72], [.58, .9], [.47, .08],
+                 [.53, .08], [.44, .1], [.56, .1]]
+
+
+def _frozen_launches(fa):
+    return {n: c for n, c in fa.LAUNCHES.items() if c}
+
+
+def _demo_inputs(root):
+    """A synthetic 512x512 source (a gradient with a seeded block pattern)
+    and the standing pose as a keypoint ``.txt`` under ``root``."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(SEED + 170)
+    g = np.linspace(0, 255, 512, dtype=np.float32)
+    img = np.stack([np.tile(g, (512, 1))] * 3, -1)
+    img += np.kron(rng.uniform(-60, 60, (8, 8, 3)), np.ones((64, 64, 1)))
+    src = os.path.join(root, "person.png")
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(src)
+    pose = os.path.join(root, "pose.txt")
+    with open(pose, "w") as f:
+        f.writelines(f"{x} {y}\n" for x, y in STANDING_POSE)
+    return src, pose
+
+
+def phase_demo(fa, dev, weights):
+    """The single-image demo at full width (``cli/demo.main``: the stage-2
+    UNet without class embedding, SD-2.1's VAE, DINOv2-giant; 512x1024,
+    DDIM 50, CFG 2.0, bf16) with ``--random_init``: 750 frozen launches
+    (15 a forward), a finite PNG. Then from files: the same seeded UNet and
+    projections saved as a monolithic checkpoint (``_write_monolithic``),
+    with ``phase_weights``' SD-2.1 and DINOv2 dirs (``weights``), against
+    ``--random_init`` with ``phase_weights``' own VAE and DINOv2 modules in
+    place of the drawn ones: the PNG byte-identical. Then
+    ``examples/demo_torch.ipynb``'s code cells, read with ``json``, at full
+    width in an empty directory. Seconds per denoise step (the UNet's CUDA
+    events, and the host clock of the whole call over the steps) and the
+    peak GiB. Returns the launches."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+    from pcdms_tpu_torch.cli import demo
+
+    want = {"flash_frozen": FORWARD_LAUNCHES["flash_frozen"] * DEMO_STEPS}
+    build, timers, total, swap = demo.build_models, [], {}, {}
+
+    def timed_build(*args, **kwargs):
+        models, dino = build(*args, **kwargs)
+        if swap:
+            models["vae"], dino = swap["vae"], swap["dino"]
+        timers.append(_step_timer(models["unet"]))
+        return models, dino
+
+    def run(label, call):
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _frozen_launches(fa)
+        pairs, remove = timers.pop()
+        remove()
+        unet_ms = [a.elapsed_time(b) for a, b in pairs]
+        print(f"[demo] {label}: {wall:.2f} s in all, {wall / DEMO_STEPS:.4f}"
+              f" s per denoise step by the host clock (encoders, VAE and "
+              f"loading included), the UNet {np.mean(unet_ms):.2f} ms a step "
+              f"by CUDA events over {len(unet_ms)} forwards at batch 2; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {counts}", flush=True)
+        if counts != want:
+            fail(f"demo ({label}): expected launches {want}, got {counts}")
+        if len(unet_ms) != DEMO_STEPS:
+            fail(f"demo ({label}): {len(unet_ms)} UNet forwards, not "
+                 f"{DEMO_STEPS}")
+        _add(total, counts)
+        return out
+
+    demo.build_models = timed_build
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            free = shutil.disk_usage(root).free
+            if free < 1.15 * DEMO_FILE_BYTES:
+                fail(f"phase_demo needs {1.15 * DEMO_FILE_BYTES / 1e9:.1f} "
+                     f"GB free under {root}, has {free / 1e9:.1f} GB")
+            src, pose = _demo_inputs(root)
+            base = ["--source", src, "--target_pose", pose, "--seed",
+                    str(SEED)]
+            rand = run("--random_init", lambda: demo.main(
+                base + ["--random_init", "--out",
+                        os.path.join(root, "random.png")]))
+            arr = np.asarray(Image.open(rand))
+            if arr.shape != (512, 512, 3) or not arr.std() > 0:
+                fail(f"demo: expected a non-constant (512, 512, 3) PNG, got "
+                     f"{arr.shape}")
+            models, dino = build(demo.parse_args(base + ["--random_init"]),
+                                 demo.model_configs(False), dev)
+            del dino
+            ckpt = os.path.join(root, "pcdms_ckpt.pt")
+            t0 = time.perf_counter()
+            _write_monolithic(ckpt, models)
+            write_s = time.perf_counter() - t0
+            del models
+            gc.collect()
+            torch.cuda.empty_cache()
+            loaded = run("from the files", lambda: demo.main(base + [
+                "--ckpt", ckpt, "--sd", weights["--sd"], "--dinov2",
+                weights["--dinov2"], "--out",
+                os.path.join(root, "loaded.png")]))
+            swap.update(vae=weights["vae"], dino=weights["dino"])
+            try:
+                ref = run("--random_init with phase_weights' VAE and "
+                          "DINOv2", lambda: demo.main(
+                              base + ["--random_init", "--out",
+                                      os.path.join(root, "ref.png")]))
+            finally:
+                swap.clear()
+            same = open(ref, "rb").read() == open(loaded, "rb").read()
+            print(f"[demo] the seeded UNet and projections saved as a "
+                  f"monolithic checkpoint: {os.path.getsize(ckpt)} bytes in "
+                  f"{write_s:.2f} s; with phase_weights' SD-2.1 and DINOv2 "
+                  f"dirs, the PNG from the files byte-identical to "
+                  f"--random_init's with those modules: {same}", flush=True)
+            if not same:
+                fail("demo: the checkpoint run wrote another PNG than the "
+                     "--random_init run on the same modules")
+            nb_dir = os.path.join(root, "notebook")
+            os.makedirs(nb_dir)
+            ns = run("notebook cells", lambda: _run_notebook(nb_dir))
+            if ns["result"].shape != (512, 512, 3) or not np.isfinite(
+                    ns["result"]).all():
+                fail("demo notebook: expected a finite (512, 512, 3) result")
+    finally:
+        demo.build_models = build
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def _run_notebook(cwd):
+    """``examples/demo_torch.ipynb``'s code cells in one namespace, read
+    with ``json``, from ``cwd``, at full width on the card."""
+    here = os.getcwd()
+    path = os.path.join(here, "examples", "demo_torch.ipynb")
+    with open(path) as f:
+        cells = ["".join(c["source"]) for c in json.load(f)["cells"]
+                 if c["cell_type"] == "code"]
+    restore = _with_env({"PCDMS_DEMO_TINY": "0", "PCDMS_DEMO_DEVICE": "cuda"})
+    os.chdir(cwd)
+    try:
+        ns = {}
+        for src in cells:
+            exec(compile(src, path, "exec"), ns)
+    finally:
+        os.chdir(here)
+        restore()
+    return ns
+
+
+def phase_fastpath_drift(fa, dev):
+    """``cli/fastpath_drift.py``'s random-weights table at full width
+    (512x1024 canvas, batch 2, bf16, the stage-2 UNet with class
+    embedding): the exact 50-step DDIM against 20-step UniPC, 20-step DDIM,
+    encoder propagation at intervals 2 and 3 and 4-step LCM on the
+    teacher-equal student, each with its PSNR, cosine, frozen launches
+    (key steps 15, cached ones 9 a forward) and seconds. Returns the
+    launches."""
+    import numpy as np
+    from pcdms_tpu_torch.cli import fastpath_drift as drift
+
+    exact_steps, total = 50, {}
+    models, inputs, latents = drift.random_setup(False, 512, 2, dev,
+                                                 seed=SEED)
+    gen = drift.make_gen(inputs, latents, dev)
+
+    def launches_for(steps, interval=1):
+        keys = -(-steps // interval)
+        return (FORWARD_LAUNCHES["flash_frozen"] * keys
+                + DECODE_LAUNCHES["flash_frozen"] * (steps - keys))
+
+    def timed(fn, want):
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        counts = _frozen_launches(fa)
+        if counts != {"flash_frozen": want}:
+            fail(f"fastpath drift: expected {want} frozen launches, got "
+                 f"{counts}")
+        _add(total, counts)
+        if out.shape != (2, 512, 1024, 3) or not np.isfinite(out).all():
+            fail("fastpath drift: expected finite (2, 512, 1024, 3) images")
+        return out, wall, counts["flash_frozen"]
+
+    exact, wall, n = timed(lambda: gen(models, exact_steps),
+                           launches_for(exact_steps))
+    print(f"[drift] exact DDIM {exact_steps}: {wall:.2f} s, {n} frozen "
+          f"launches", flush=True)
+    wants = [launches_for(20), launches_for(20),
+             launches_for(exact_steps, 2), launches_for(exact_steps, 3),
+             FORWARD_LAUNCHES["flash_frozen"] * 4]
+    for (name, fn), want in zip(drift.variants(gen, models, exact_steps),
+                                wants):
+        out, wall, n = timed(fn, want)
+        p, c = drift.psnr(exact, out), drift.cosine(exact, out)
+        print(f"[drift] {name}: PSNR {p:.4f} dB, cosine {c:.6f}, {n} frozen "
+              f"launches, {wall:.2f} s", flush=True)
+        if not (np.isfinite(p) and 0.0 < c <= 1.0):
+            fail(f"fastpath drift ({name}): PSNR {p}, cosine {c}")
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+ANNOTATOR_IMAGES = 4
+# the CPU half of each Processor id runs on the first image only (the hand
+# network at four scales up to 736x736 a crop takes seconds on the host)
+ANNOTATOR_CPU_IMAGES = 1
+BAR_ANNOTATOR_NETS = 1e-4
+# Processor ids run card vs CPU at this detect_resolution (the networks'
+# CPU side at 512 would take the phase's whole budget); the images are
+# 512x512 and the outputs 512x512
+ANNOTATOR_DETECT_RES = 256
+
+
+def _annotator_images(n=ANNOTATOR_IMAGES):
+    """``n`` synthetic 512x512 uint8 images: seeded 16x16 colour fields
+    enlarged by ``imgproc.resize`` (Lanczos-4), with a bright figure."""
+    import numpy as np
+    from pcdms_tpu_torch.pose import imgproc
+    rng = np.random.default_rng(SEED + 171)
+    out = []
+    for _ in range(n):
+        small = rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+        img = imgproc.resize(torch.from_numpy(small), (512, 512),
+                             "lanczos4").numpy()
+        img[100:420, 220:292] = rng.integers(180, 256, 3)
+        out.append(img)
+    return out
+
+
+def _annotator_weights(root):
+    """Seeded full-width OpenPose body / hand / face, HED, PiDiNet and
+    LineArt (realistic, coarse) saved as controlnet-aux ``.pth`` files
+    (the OpenPose body / hand without their block prefixes as released,
+    PiDiNet in a DataParallel ``state_dict``) -> {name: (path, module)}."""
+    from pcdms_tpu_torch.pose import detectors as det
+    out = {}
+    for i, (name, cls) in enumerate((
+            ("body", det.BodyPoseModel), ("hand", det.HandPoseModel),
+            ("face", det.FaceNet), ("hed", det.ControlNetHED),
+            ("pidinet", det.PiDiNet), ("lineart", det.Generator),
+            ("lineart_coarse", det.Generator))):
+        torch.manual_seed(SEED + 180 + i)
+        model = cls().eval()
+        sd = model.state_dict()
+        if name in ("body", "hand"):
+            sd = {k.split(".", 1)[1]: v for k, v in sd.items()}
+        if name == "pidinet":
+            sd = {"state_dict": {f"module.{k}": v for k, v in sd.items()}}
+        path = os.path.join(root, f"{name}.pth")
+        torch.save(sd, path)
+        out[name] = (path, model)
+    return out
+
+
+# a body peak may differ card vs CPU only where the CPU's blurred heat is
+# within this of a tie: with a 4-neighbour or with the 0.1 threshold
+OPENPOSE_MARGIN = 1e-6
+
+
+def _peak_margins(heat, thresh=0.1, sigma=3.0):
+    """(H, W, 19) heat -> (18, H, W): per part, how far each pixel of the
+    blurred map is from being no peak in ``openpose_decode.find_peaks``
+    (the least of its lead over each zero-padded 4-neighbour and over
+    ``thresh``; a peak where >= 0)."""
+    import numpy as np
+    from scipy.ndimage import gaussian_filter
+    out = []
+    for part in range(heat.shape[2] - 1):
+        b = np.pad(gaussian_filter(heat[:, :, part], sigma=sigma), 1)
+        c = b[1:-1, 1:-1]
+        out.append(np.minimum.reduce([c - b[:-2, 1:-1], c - b[2:, 1:-1],
+                                      c - b[1:-1, :-2], c - b[1:-1, 2:],
+                                      c - thresh]))
+    return np.stack(out)
+
+
+def _peak_flips(cpu_heats, dev_heats, find_peaks):
+    """-> (the body peaks that ``find_peaks`` finds on the CPU, the (image,
+    part, y, x) that differ card vs CPU, the largest |CPU margin| among
+    them)."""
+    count, flips, worst = 0, [], 0.0
+    for i, (a, b) in enumerate(zip(cpu_heats, dev_heats)):
+        pa, pb = (find_peaks(h, 0.1) for h in (a, b))
+        count += sum(len(p) for p in pa)
+        margins = _peak_margins(a)
+        for part, (qa, qb) in enumerate(zip(pa, pb)):
+            for x, y in {(p[0], p[1]) for p in qa} ^ {(p[0], p[1])
+                                                       for p in qb}:
+                flips.append((i, part, int(y), int(x)))
+                worst = max(worst, float(abs(margins[part, y, x])))
+    return count, flips, worst
+
+
+def _face_picks(heat, thresh=0.05):
+    """``openpose_decode.face_peaks_from_heatmaps`` per landmark: (x, y)
+    or None where no value passes ``thresh``."""
+    import numpy as np
+    out = []
+    for part in range(70):
+        m = heat[:, :, part]
+        ys, xs = np.nonzero(m > thresh)
+        if not len(ys):
+            out.append(None)
+            continue
+        i = int(np.argmax(m[ys, xs]))
+        out.append((int(xs[i]), int(ys[i])))
+    return out
+
+
+def _pick_flips(kind, cpu_reads, dev_reads, thresh=0.05):
+    """The hand or face peak readers' (heat, peaks) card vs CPU, call by
+    call -> (the parts read, the parts whose pick differs, the largest
+    ratio of such a part's CPU margin to twice the card-vs-CPU difference
+    of its map: a pick may move only where it is <= 1). The margin is the
+    CPU map's lead of its own pick over the card's, or, where one side
+    found none, the least distance of the thresholded map (blurred, for a
+    hand) from the threshold."""
+    import numpy as np
+    from scipy.ndimage import gaussian_filter
+    parts, flips, worst = 0, [], 0.0
+    for call, ((hc, pc), (hd, pd)) in enumerate(zip(cpu_reads, dev_reads)):
+        if kind == "hand":
+            picks = [[None if not p.any() else tuple(int(v) for v in p)
+                      for p in peaks] for peaks in (pc, pd)]
+        else:
+            picks = [_face_picks(hc, thresh), _face_picks(hd, thresh)]
+            if not np.array_equal(np.asarray(
+                    [p for p in picks[0] if p], np.float32).reshape(-1, 2),
+                    pc):
+                fail("annotators: _face_picks does not read the CPU's "
+                     "face peaks")
+        for part, (a, b) in enumerate(zip(*picks)):
+            parts += 1
+            if a == b:
+                continue
+            m = hc[:, :, part]
+            delta = float(np.abs(m - hd[:, :, part]).max())
+            if a is not None and b is not None:
+                lead = abs(float(m[a[1], a[0]] - m[b[1], b[0]]))
+            else:
+                g = gaussian_filter(m, sigma=3.0) if kind == "hand" else m
+                lead = float(np.abs(g - thresh).min())
+            ratio = lead / (2 * delta) if delta else math.inf
+            flips.append((call, part, a, b))
+            worst = max(worst, ratio)
+    return parts, flips, worst
+
+
+def phase_annotators(dev):
+    """The annotator facade on the card: the seeded networks saved as
+    controlnet-aux files and loaded back (``load_network``); each network
+    card vs CPU on a 128x128 input (rel L2 <= 1e-4, f32, both TF32
+    switches on around the port's own scope) and its images/s at a 512
+    input by CUDA events; then every ``Processor`` id of this slice on 4
+    synthetic 512x512 images on the card and the first on the CPU (the
+    network ids at detect_resolution 256): uint8 outputs by their largest
+    level difference and the share of differing values. The OpenPose ids
+    take the body network's output from ``openpose_scene`` on both sides
+    (a random body finds nobody), so two people are assembled from the
+    PAFs and their hand and face crops run through the seeded hand and face
+    networks on the card; the CPU reuses the card's output for a crop whose
+    network input is bit-identical to one of the card's (each network also
+    runs on the CPU once, on such a crop, rel L2 <= 1e-4), else runs its
+    own. Body, hand and face peaks card vs CPU, held equal but for
+    near-ties (``_peak_flips``, ``_pick_flips``). No kernel of the
+    repository lies on this path."""
+    import hashlib
+
+    import numpy as np
+    from pcdms_tpu_torch.pose import processors
+    from pcdms_tpu_torch.pose.detectors import openpose as op
+    from pcdms_tpu_torch.pose.detectors import openpose_decode, openpose_scene
+    from pcdms_tpu_torch.pose.detectors.common import load_network
+    from pcdms_tpu_torch.pose.dwpose import f32_forward
+
+    card = card_name_and_limit()
+    t_nets = time.perf_counter()
+    images = _annotator_images()
+    with tempfile.TemporaryDirectory() as root:
+        weights = _annotator_weights(root)
+        g = torch.Generator().manual_seed(SEED)
+        x = torch.rand((1, 3, 128, 128), generator=g)
+        big = torch.rand((1, 3, 512, 512), generator=g, device="cpu").to(dev)
+        for name, (path, model) in weights.items():
+            loaded = load_network(type(model)(), path)
+            for k, v in loaded.state_dict().items():
+                if not torch.equal(v, model.state_dict()[k]):
+                    fail(f"annotators: {name}.pth loaded {k} changed")
+            net = copy.deepcopy(loaded).to(dev)
+            with torch.no_grad(), _tf32_on(), f32_forward():
+                want = loaded(x)
+                got = net(x.to(dev))
+                want = want if isinstance(want, (tuple, list)) else [want]
+                got = got if isinstance(got, (tuple, list)) else [got]
+                rel = max(_rel_l2(a.cpu(), b) for a, b in zip(got, want))
+                # PiDiNet times with its difference convs folded once
+                args = (net.fold(),) if name == "pidinet" else ()
+                ms = cuda_ms(lambda: net(big, *args), iters=5)
+            print(f"[annotators] {name}: {sum(p.numel() for p in net.parameters()) / 1e6:.2f}M "
+                  f"parameters; card vs CPU rel L2 {rel:.3e} (bar "
+                  f"{BAR_ANNOTATOR_NETS:g}); at a 512x512 input {ms:.3f} ms,"
+                  f" {1000.0 / ms:.2f} images/s (CUDA events); {card}",
+                  flush=True)
+            if not rel <= BAR_ANNOTATOR_NETS:
+                fail(f"annotators: {name} card vs CPU rel L2 {rel:.3e}")
+            del net
+        print(f"[annotators] the seven networks made, saved, loaded and "
+              f"checked in {time.perf_counter() - t_nets:.1f} s", flush=True)
+
+        paths = {k: v[0] for k, v in weights.items()}
+        net_ids = {
+            "hed": "hed", "hed_safe": "hed", "scribble_hed": "hed",
+            "softedge_hed": "hed", "softedge_hedsafe": "hed",
+            "scribble_pidinet": "pidinet", "softedge_pidinet": "pidinet",
+            "softedge_pidsafe": "pidinet", "lineart_realistic": "lineart",
+            "lineart_coarse": "lineart_coarse", "openpose": "body",
+            "openpose_face": "body", "openpose_faceonly": "body",
+            "openpose_full": "body", "openpose_hand": "body"}
+        ids = [(pid, {}) for pid in ("none", "resize", "canny", "scribble",
+                                     "shuffle")]
+        ids += [(pid, {"weights": paths[w], "hand_weights": paths["hand"],
+                       "face_weights": paths["face"],
+                       "detect_resolution": ANNOTATOR_DETECT_RES})
+                for pid, w in net_ids.items()]
+        reads = {"body": {}, "hand": {}, "face": {}}
+        card_out, net_checks, misses = {}, {}, {}
+        originals = {"body": openpose_decode.find_peaks,
+                     "hand": openpose_decode.hand_peaks_from_heatmaps,
+                     "face": openpose_decode.face_peaks_from_heatmaps}
+        forward = op.OpenposeDetector._forward
+
+        def spying(kind):
+            def spy(heat, *args, **kwargs):
+                out = originals[kind](heat, *args, **kwargs)
+                # the face reader's result is shifted in place by its caller
+                reads[kind].setdefault(spying.device, []).append(
+                    (heat, out if kind == "body" else out.copy()))
+                return out
+            return spy
+
+        def crafted_forward(self, net, img):
+            name = type(net).__name__
+            if name == "BodyPoseModel":
+                return tuple(torch.from_numpy(a).to(self.device).permute(
+                    0, 3, 1, 2) for a in openpose_scene.network_outputs(
+                        *img.shape[:2])[:2])
+            key = (name, hashlib.sha1(img.cpu().numpy().tobytes()).digest())
+            if self.device.type != "cpu":
+                out = forward(self, net, img)
+                card_out[key] = out.cpu()
+                return out
+            if key not in card_out:
+                misses[name] = misses.get(name, 0) + 1
+                return forward(self, net, img)
+            if name not in net_checks:
+                net_checks[name] = _rel_l2(forward(self, net, img),
+                                           card_out[key])
+            return card_out[key].clone()
+
+        for kind in originals:
+            setattr(openpose_decode, {"body": "find_peaks"}.get(
+                kind, f"{kind}_peaks_from_heatmaps"), spying(kind))
+        op.OpenposeDetector._forward = crafted_forward
+        try:
+            for pid, params in ids:
+                outs, secs = {}, {}
+                card_out.clear()
+                for side, where, imgs in (
+                        ("card", dev, images),
+                        ("cpu", "cpu", images[:ANNOTATOR_CPU_IMAGES])):
+                    spying.device = side
+                    proc = processors.Processor(pid, dict(params),
+                                                device=where)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    outs[side] = [np.asarray(proc(im, to_pil=False))
+                                  for im in imgs]
+                    torch.cuda.synchronize()
+                    secs[side] = (time.perf_counter() - t0) / len(imgs)
+                want = outs["cpu"]
+                got = outs["card"][:len(want)]
+                if any(a.shape != b.shape for a, b in zip(got, want)):
+                    fail(f"annotators: Processor('{pid}') card and CPU "
+                         f"shapes differ")
+                d = np.stack([np.abs(a.astype(np.int32) - b.astype(np.int32))
+                              for a, b in zip(got, want)])
+                extra = ""
+                if pid.startswith("openpose"):
+                    side = {k: (v.pop("cpu", []), v.pop("card", []))
+                            for k, v in reads.items()}
+                    cpu_b, dev_b = side["body"]
+                    n, flips, worst = _peak_flips(
+                        [h for h, _ in cpu_b],
+                        [h for h, _ in dev_b[:len(cpu_b)]],
+                        originals["body"])
+                    extra = (f"; body peaks {n} on the CPU, {len(flips)} "
+                             f"differ card vs CPU, their largest CPU margin "
+                             f"{worst:.3e} (bar {OPENPOSE_MARGIN:g})")
+                    if worst > OPENPOSE_MARGIN:
+                        fail(f"annotators: Processor('{pid}') body peaks "
+                             f"differ card vs CPU beyond a tie: {flips[:5]}")
+                    for kind in ("hand", "face"):
+                        cpu_r, dev_r = side[kind]
+                        wanted = kind in pid or pid == "openpose_full"
+                        if wanted != bool(dev_r) or len(cpu_r) > len(dev_r):
+                            fail(f"annotators: Processor('{pid}') read "
+                                 f"{len(dev_r)} {kind} crops on the card, "
+                                 f"{len(cpu_r)} on the CPU")
+                        if not wanted:
+                            continue
+                        parts, pflips, pworst = _pick_flips(
+                            kind, cpu_r, dev_r[:len(cpu_r)])
+                        extra += (f"; {kind} crops {len(dev_r)} on the card"
+                                  f" ({len(cpu_r)} on the CPU), {parts} "
+                                  f"{kind} parts read on both, "
+                                  f"{len(pflips)} differ, the largest margin"
+                                  f" / (2 x map difference) {pworst:.3g} "
+                                  f"(bar 1)")
+                        if pworst > 1.0:
+                            fail(f"annotators: Processor('{pid}') {kind} "
+                                 f"peaks differ card vs CPU beyond a tie: "
+                                 f"{pflips[:5]}")
+                print(f"[annotators] Processor('{pid}') on "
+                      f"{len(images)} 512x512 images on the card, "
+                      f"{len(want)} on the CPU: {secs['card']:.4f} s "
+                      f"an image on the card, {secs['cpu']:.4f} on the CPU; "
+                      f"out {got[0].shape}; card vs CPU largest level "
+                      f"difference {int(d.max())}, differing share "
+                      f"{float((d > 0).mean()):.3e}{extra}", flush=True)
+                if (d > 0).mean() > 1e-2:
+                    fail(f"annotators: Processor('{pid}') card vs CPU differ"
+                         f" in over 1 % of the values")
+        finally:
+            op.OpenposeDetector._forward = forward
+            openpose_decode.find_peaks = originals["body"]
+            openpose_decode.hand_peaks_from_heatmaps = originals["hand"]
+            openpose_decode.face_peaks_from_heatmaps = originals["face"]
+    print(f"[annotators] the OpenPose hand / face networks on the CPU on a "
+          f"real crop vs the card's output: rel L2 {net_checks} (bar "
+          f"{BAR_ANNOTATOR_NETS:g}); CPU crops whose input matched no card "
+          f"input (run on the CPU): {misses or 'none'}", flush=True)
+    if set(net_checks) != {"HandPoseModel", "FaceNet"} or not all(
+            v <= BAR_ANNOTATOR_NETS for v in net_checks.values()):
+        fail(f"annotators: the hand / face networks card vs CPU on a crop: "
+             f"{net_checks}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_learning_proof():
     """``cli/learning_proof.main(["--quick", "--assert_improves"])`` on the
     card: the three trainers and the VAE from scratch at the tiny
@@ -4443,7 +5095,13 @@ def main() -> int:
         metric_weights = _timed(phase_metrics, dev, weights_dir)
         _timed(phase_protocol, fa, metric_weights)
     _timed(phase_dwpose, dev)
-    _add(launches, _timed(phase_weights, fa, dev))
+    with tempfile.TemporaryDirectory() as weights_root:
+        counts, weights = _timed(phase_weights, fa, dev, weights_root)
+        _add(launches, counts)
+        _add(launches, _timed(phase_demo, fa, dev, weights))
+        del weights
+    _add(launches, _timed(phase_fastpath_drift, fa, dev))
+    _timed(phase_annotators, dev)
     _add(launches, _timed(phase_serve, fa, dev))
     _add(launches, _timed(phase_data_parallel, fa, dev))
     _add(launches, _timed(phase_lcm, fa, dev))

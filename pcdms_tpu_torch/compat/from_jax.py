@@ -363,3 +363,111 @@ def rtmpose_from_jax(p):
     for name in ("cls_x", "cls_y"):
         sd[f"head.{name}.weight"] = np.asarray(head[name]).T
     return load_numpy_state_dict(fold_bn(RTMPose()), sd).eval()
+
+
+# ---------------------------------------------------------------------------
+# the annotator networks (the inverses of the JAX ``convert_body`` /
+# ``convert_hand`` / ``convert_face`` / ``convert_hed`` /
+# ``convert_pidinet`` / ``convert_lineart``)
+# ---------------------------------------------------------------------------
+
+def _stack_sd(sd: StateDict, prefix: str, group) -> None:
+    """{conv name: {kernel, bias}} -> ``prefix.name.weight / bias``."""
+    for name, p in group.items():
+        _conv(sd, f"{prefix}{name}", p)
+
+
+def openpose_body_from_jax(p):
+    """The JAX body tree (``convert_body``'s) -> the port's
+    ``BodyPoseModel`` on the CPU, in eval mode."""
+    from pcdms_tpu_torch.pose.detectors.openpose import BodyPoseModel
+    sd: StateDict = {}
+    for group, convs in p.items():
+        _stack_sd(sd, f"{group}.", convs)
+    return load_numpy_state_dict(BodyPoseModel(), sd).eval()
+
+
+def openpose_hand_from_jax(p):
+    """The JAX hand tree (``convert_hand``'s) -> ``HandPoseModel``."""
+    from pcdms_tpu_torch.pose.detectors.openpose import HandPoseModel
+    sd: StateDict = {}
+    for group, convs in p.items():
+        _stack_sd(sd, f"{group}.", convs)
+    return load_numpy_state_dict(HandPoseModel(), sd).eval()
+
+
+def openpose_face_from_jax(p):
+    """The JAX face tree (``convert_face``'s: stem / head / stage2-6 groups
+    of flat names) -> ``FaceNet``."""
+    from pcdms_tpu_torch.pose.detectors.openpose import FaceNet
+    sd: StateDict = {}
+    for convs in p.values():
+        _stack_sd(sd, "", convs)
+    return load_numpy_state_dict(FaceNet(), sd).eval()
+
+
+def hed_from_jax(p):
+    """The JAX HED tree (``convert_hed``'s) -> ``ControlNetHED``."""
+    from pcdms_tpu_torch.pose.detectors.hed import STAGES, ControlNetHED
+    sd: StateDict = {"norm": np.asarray(p["norm"]).reshape(1, 3, 1, 1)}
+    for si in range(1, len(STAGES) + 1):
+        block = p[f"block{si}"]
+        for i, c in enumerate(block["convs"]):
+            _conv(sd, f"block{si}.convs.{i}", c)
+        _conv(sd, f"block{si}.projection", block["proj"])
+    return load_numpy_state_dict(ControlNetHED(), sd).eval()
+
+
+def pidinet_from_jax(p):
+    """The JAX PiDiNet tree (``convert_pidinet``'s, whose difference convs
+    are already folded into plain kernels, which cannot be unfolded) ->
+    (the port's ``PiDiNet`` with every other weight, {"init_block" / block
+    name: the folded kernel, OIHW}) for ``PiDiNet.forward(x, kernels)``."""
+    from pcdms_tpu_torch.pose.detectors.pidi import PiDiNet, _block_names
+
+    def oihw(k):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(k).transpose(3, 2, 0, 1)))
+    model = PiDiNet()
+    sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    kernels = {"init_block": oihw(p["init_block"]["kernel"])}
+    names = iter(_block_names())
+    for stage in range(4):
+        for blk in p["blocks"][stage]:
+            _, name, _, stride2 = next(names)
+            kernels[name] = oihw(blk["conv1"]["kernel"])
+            _conv(sd, f"{name}.conv2", blk["conv2"])
+            if stride2:
+                _conv(sd, f"{name}.shortcut", blk["shortcut"])
+        _conv(sd, f"dilations.{stage}.conv1", p["cdcm"][stage]["conv1"])
+        for i, d in enumerate(p["cdcm"][stage]["dilated"], start=1):
+            _conv(sd, f"dilations.{stage}.conv2_{i}", d)
+        for name in ("conv1", "conv2"):
+            _conv(sd, f"attentions.{stage}.{name}", p["csam"][stage][name])
+        _conv(sd, f"conv_reduces.{stage}.conv", p["reduce"][stage])
+    _conv(sd, "classifier", p["classifier"])
+    return load_numpy_state_dict(model, sd).eval(), kernels
+
+
+def _conv_transpose(sd: StateDict, prefix: str, p) -> None:
+    """``t2j_conv_transpose``'s flipped HWIO (I, O in torch's order) ->
+    torch's (I, O, kH, kW)."""
+    w = np.asarray(p["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    sd[f"{prefix}.weight"] = np.ascontiguousarray(w)
+    sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def lineart_from_jax(p):
+    """The JAX LineArt tree (``convert_lineart``'s) -> ``Generator``."""
+    from pcdms_tpu_torch.pose.detectors.lineart import Generator
+    sd: StateDict = {}
+    _conv(sd, "model0.1", p["stem"])
+    _conv(sd, "model1.0", p["down"][0])
+    _conv(sd, "model1.3", p["down"][1])
+    for i, r in enumerate(p["res"]):
+        _conv(sd, f"model2.{i}.conv_block.1", r["conv1"])
+        _conv(sd, f"model2.{i}.conv_block.5", r["conv2"])
+    _conv_transpose(sd, "model3.0", p["up"][0])
+    _conv_transpose(sd, "model3.3", p["up"][1])
+    _conv(sd, "model4.1", p["head"])
+    return load_numpy_state_dict(Generator(), sd).eval()

@@ -76,3 +76,118 @@ class SPPBottleneck(nn.Module):
         h = self.conv1(x)
         return self.conv2(torch.cat(
             [h] + [F.max_pool2d(h, k, 1, k // 2) for k in (5, 9, 13)], 1))
+
+
+# ---------------------------------------------------------------------------
+# the annotators' image protocol (controlnet-aux ``util.py``), on uint8
+# (H, W, C) tensors on any device through ``pose/imgproc.py``
+# ---------------------------------------------------------------------------
+
+def as_image(image, device=None) -> torch.Tensor:
+    """A PIL image, array or tensor -> an (H, W[, C]) uint8 tensor on
+    ``device`` (None: where a tensor is; an array goes to the CPU). A PIL
+    image keeps its own channels, as ``np.asarray`` gives them."""
+    if not isinstance(image, torch.Tensor):
+        image = torch.from_numpy(np.array(image, np.uint8))
+    return image if device is None else image.to(device)
+
+
+def hwc3(x: torch.Tensor) -> torch.Tensor:
+    """Coerce to 3-channel uint8 (util.py:HWC3, alpha composited onto
+    white, in f32, truncated)."""
+    assert x.dtype == torch.uint8
+    if x.dim() == 2:
+        x = x[:, :, None]
+    c = x.shape[2]
+    if c == 3:
+        return x
+    if c == 1:
+        return torch.cat([x] * 3, dim=2)
+    color = x[:, :, :3].float()
+    alpha = x[:, :, 3:4].float() / 255.0
+    return (color * alpha + 255.0 * (1.0 - alpha)).clamp(0, 255).to(
+        torch.uint8)
+
+
+def shape_to_64(h: int, w: int, resolution: int):
+    """The output grid ``resize_to_64`` would produce, without resizing."""
+    k = float(resolution) / min(h, w)
+    return (int(np.round(h * k / 64.0)) * 64,
+            int(np.round(w * k / 64.0)) * 64)
+
+
+def resize_to_64(img: torch.Tensor, resolution: int) -> torch.Tensor:
+    """Scale so min side ~= resolution, snapped to multiples of 64
+    (util.py:resize_image: Lanczos-4 to enlarge, area to shrink)."""
+    from pcdms_tpu_torch.pose import imgproc
+    h, w = img.shape[:2]
+    nh, nw = shape_to_64(h, w, resolution)
+    interp = "lanczos4" if resolution > min(h, w) else "area"
+    return imgproc.resize(img, (nw, nh), interp)
+
+
+_NMS_KERNELS = [np.array([[0, 0, 0], [1, 1, 1], [0, 0, 0]], np.uint8),
+                np.array([[0, 1, 0], [0, 1, 0], [0, 1, 0]], np.uint8),
+                np.eye(3, dtype=np.uint8),
+                np.eye(3, dtype=np.uint8)[::-1].copy()]
+
+
+def edge_nms(x: torch.Tensor, t: float, s: float) -> torch.Tensor:
+    """Directional edge thinning (util.py:nms): keep the pixels that are
+    the maximum of the Gaussian-blurred map along one of 4 line
+    directions, then threshold to {0, 255}."""
+    from pcdms_tpu_torch.pose import imgproc
+    x = imgproc.gaussian_blur(x.float(), s)
+    y = torch.zeros_like(x)
+    for f in _NMS_KERNELS:
+        y = torch.where(imgproc.dilate(x, f) == x, x, y)
+    return torch.where(y > t, 255, 0).to(torch.uint8)
+
+
+def scribble_postprocess(detected: torch.Tensor) -> torch.Tensor:
+    """NMS + blur + binarize of the hed / pidi scribble modes
+    (hed/__init__.py:124-127)."""
+    from pcdms_tpu_torch.pose import imgproc
+    out = imgproc.gaussian_blur(edge_nms(detected, 127, 3.0), 3.0)
+    return torch.where(out > 4, 255, 0).to(torch.uint8)
+
+
+def safe_step(x: torch.Tensor, step: int = 2) -> torch.Tensor:
+    """Quantize [0, 1] maps to step + 1 levels (util.py:safe_step)."""
+    y = x.float() * float(step + 1)
+    return y.to(torch.int32).float() / float(step)
+
+
+def to_uint8_map(edge: torch.Tensor) -> torch.Tensor:
+    """A [0, 1] (H, W) map -> its (H, W, 3) uint8 image
+    (``hwc3((edge * 255).clip(0, 255).astype(uint8))``, in the map's own
+    f32 or f64)."""
+    return hwc3((edge * 255.0).clamp(0, 255).to(torch.uint8))
+
+
+def transfer_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]
+                        ) -> Dict[str, np.ndarray]:
+    """controlnet-aux ``util.transfer``: where a checkpoint stores a key
+    without the model's first name component (the released OpenPose files
+    name ``conv1_1.weight`` what the model calls ``model0.conv1_1.weight``),
+    take it under the model's name; keys already the model's pass as they
+    are."""
+    out = dict(sd)
+    for name in model.state_dict():
+        if name not in out:
+            short = name.split(".", 1)[-1]
+            if short in sd:
+                out[name] = sd[short]
+                out.pop(short, None)
+    return out
+
+
+def load_network(model: nn.Module, path: str) -> nn.Module:
+    """Load a controlnet-aux annotator checkpoint into ``model``
+    (``compat/load.py::load_into``: a key the model lacks is dropped with a
+    log line, a missing one raises), names mapped by
+    ``transfer_state_dict``. -> ``model`` in eval mode."""
+    from pcdms_tpu_torch.compat.load import load_into
+    sd = transfer_state_dict(model, load_torch_state_dict(path))
+    return load_into(model, {k: torch.from_numpy(v) for k, v in sd.items()},
+                     path).eval()

@@ -1,5 +1,8 @@
 """The port stands alone: no module of ``pcdms_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, Flax, Optax, the JAX package or cv2 (the
+``chip_smoke.py``, ``examples/make_demo_notebook_torch.py``, the code cells
+of ``examples/demo_torch.ipynb`` or the modules that
+``scripts/*_torch.sh`` launch) imports JAX, Flax, Optax, the JAX package or
+cv2 (the
 card's machine has no OpenCV: the port draws with ``pose/raster.py`` and
 resizes with PyTorch), and the package never calls
 ``scaled_dot_product_attention`` or ``torch.compile`` (library kernels are
@@ -12,7 +15,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "pcdms_tpu_torch"
-FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PACKAGE.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "make_demo_notebook_torch.py"]
+NOTEBOOK = ROOT / "examples" / "demo_torch.ipynb"
+LAUNCHERS = sorted((ROOT / "scripts").glob("*_torch.sh"))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pcdms_tpu", "cv2")
 # the modules of the metrics protocol, the learning proof and the DWPose
 # path, which take the JAX package's cv2 code paths over
@@ -22,7 +28,11 @@ CV2_FREE = ("eval/metrics.py", "eval/inception.py", "eval/lpips.py",
             "data/native.py", "pose/imgproc.py", "pose/dwpose.py",
             "pose/detectors/__init__.py", "pose/detectors/common.py",
             "pose/detectors/yolox.py", "pose/detectors/rtmpose.py",
-            "cli/extract_pose.py")
+            "cli/extract_pose.py", "cli/demo.py", "cli/serve_client.py",
+            "cli/fastpath_drift.py", "pose/processors.py",
+            "pose/detectors/openpose.py", "pose/detectors/openpose_decode.py",
+            "pose/detectors/hed.py", "pose/detectors/pidi.py",
+            "pose/detectors/lineart.py")
 
 
 def _imports(tree):
@@ -56,6 +66,32 @@ def test_no_jax_imports(path):
     bad = [m for m in _imports(tree)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_notebook_cells_import_no_jax():
+    """The notebook's code cells run on the card's machine, read with
+    ``json``: no JAX, no JAX package, no cv2 and no nbformat there."""
+    import json
+    cells = [("".join(c["source"]))
+             for c in json.loads(NOTEBOOK.read_text())["cells"]
+             if c["cell_type"] == "code"]
+    assert len(cells) >= 5
+    for src in cells:
+        bad = [m for m in _imports(ast.parse(src))
+               if m.split(".")[0] in FORBIDDEN + ("nbformat",)]
+        assert not bad, bad
+
+
+@pytest.mark.parametrize("path", LAUNCHERS, ids=lambda p: p.name)
+def test_launchers_run_port_modules(path):
+    """Each ``scripts/*_torch.sh`` launches modules of the port only, and
+    each is a file of the package (whose imports the test above checks)."""
+    import re
+    modules = re.findall(r"-m ([\w.]+)", path.read_text())
+    assert modules
+    for m in modules:
+        assert m.startswith("pcdms_tpu_torch."), m
+        assert (ROOT / (m.replace(".", "/") + ".py")) in FILES, m
 
 
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")),
