@@ -162,10 +162,10 @@ Phases, each reported on its own lines:
      full-width FID InceptionV3 and LPIPS-Alex saved in their published
      layouts, the card's pool3 features and LPIPS values against the CPU's
      (8 images, f32, TF32 off), images/s of both networks by CUDA events,
-     and ``cli/calculate_metrics.main`` at --resolution 256 and 512 on 64
-     synthetic generated / GT pairs and 64 FID reference images, with the
+     and ``cli/calculate_metrics.main`` at --resolution 256 and 512 on 32
+     synthetic generated / GT pairs and 32 FID reference images, with the
      host seconds of sqrtm and of the reconstruction metrics per pair;
- 16b. the DWPose extraction path (``phase_dwpose``, after phase 10):
+ 16b. the DWPose extraction path (``phase_dwpose``, after phase 16):
      seeded random YOLOX-l and RTMPose-l saved as mm checkpoints and loaded
      by ``DWposeTorch.from_torch``, run with both TF32 switches on around
      the port's own f32 scope; both networks card vs CPU through
@@ -196,14 +196,29 @@ Phases, each reported on its own lines:
      ``Processor`` id of the slice on 4 synthetic 512x512 images on the
      card and the first on the CPU, the OpenPose ids on a crafted
      two-person body output (``pose/detectors/openpose_scene.py``), so that
-     the hand and face networks run on real crops. Phase 12 also sends one
-     ``cli/serve_client.main`` request at full width;
+     the hand and face networks run on real crops. The depth, normal and
+     line annotators (``phase_annotators_depth``): seeded LineArt-Anime,
+     M-LSD, MiDaS, NormalBAE, ZoeDepth, LeReS and the LeReS++ merge
+     network saved in their published layouts and loaded back, each card
+     vs CPU and its images/s at 512, every ``Processor`` id of the slice as
+     above (the CPU half taking its networks' outputs from the card's calls
+     where its inputs match) with each discrete step's input held card vs
+     CPU, and the LeReS++ patch loop on a crafted image on the card and on
+     the CPU. Phase 12 also sends one ``cli/serve_client.main`` request at
+     full width;
  17. the learning proof (``phase_learning_proof``):
      ``cli/learning_proof.main(["--quick", "--assert_improves"])`` on the
      card, the VAE and the three trainers from scratch at the tiny
      configurations; it fails unless every stage beats its 1-step init by
      the JAX package's thresholds.
 Launch counters are reset just before each path runs and read just after.
+The phases run in this order: 1 to 7c, 9, 16, 16b, 11, 16c (the demo and
+the annotators; the drift table below), 14; then the learning proof
+starts in a child process on the same card (host-bound at its tiny
+configurations, it leaves the card idle most of its time) and runs beside
+the phases that read only the host's clock: 7d, 8, 10, the drift table,
+12, 13 and 15. The run waits for it, and fails with it, before the result
+lines.
 
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with one record per kernel (every TPU kernel of the
@@ -3904,7 +3919,7 @@ BAR_METRIC_NETS = 1e-4
 # the synthetic protocol run: generated / GT pairs and FID reference images
 # (the reference scores thousands; the count is what the whole run's time
 # limit leaves room for)
-METRIC_PAIRS = 64
+METRIC_PAIRS = 32
 
 
 def _conv_flops(model, *inputs):
@@ -5016,6 +5031,417 @@ def phase_annotators(dev):
     torch.cuda.empty_cache()
 
 
+# the depth, normal and line families: each network card vs CPU on a small
+# input at this bar (rel L2, f32, TF32 off), its images/s at these inputs
+DEPTH_NET_INPUTS = {"lineart_anime": (3, 256, 256), "mlsd": (4, 128, 128),
+                    "midas": (3, 128, 128), "normalbae": (3, 128, 128),
+                    "zoe": (3, 96, 128), "leres": (3, 128, 128),
+                    "pix2pix": (2, 1024, 1024)}
+# the timed input: 512x512 (ZoeDepth: its prep_size of a 512 image, padded;
+# the merge network: its only size, 1024)
+DEPTH_NET_TIMED = {"lineart_anime": (3, 512, 512), "mlsd": (4, 512, 512),
+                   "midas": (3, 512, 512), "normalbae": (3, 512, 512),
+                   "zoe": (3, 512, 512), "leres": (3, 512, 512),
+                   "pix2pix": (2, 1024, 1024)}
+# the boost's patch loop runs on the card at this detect_resolution (at
+# 256 the image is smaller than the 448 receptive field, and the boost
+# takes its whole-image exit)
+BOOST_DETECT_RES = 512
+
+
+# a uint8 map of the family card vs CPU: at most this many levels apart, on
+# at most this share of its values (the CPU tests' bar against cv2)
+DEPTH_LEVELS = 1
+DEPTH_LEVEL_SHARE = 1e-3
+
+
+def _depth_annotator_networks(dev):
+    """The seven seeded full-width networks, one at a time: PyTorch's
+    default init drawn on the card (seconds of the host's time less) and
+    brought to the host, random BatchNorm statistics and affines,
+    ZoeDepth's zero-initialised BEiT parameters made non-zero and its seed
+    bins spread, as tests/test_torch_annotators_depth.py seeds them ->
+    yields (name, module on the CPU, the published layout around a state
+    dict)."""
+    import numpy as np
+    from pcdms_tpu_torch.pose import detectors as det
+    layouts = {
+        "lineart_anime": (det.UnetGenerator, lambda sd: sd),
+        "mlsd": (det.MobileV2_MLSD_Large, lambda sd: sd),
+        "midas": (det.DPTHybrid, lambda sd: sd),
+        "normalbae": (det.NNET, lambda sd: {"model": sd}),
+        "zoe": (det.ZoeDepth, lambda sd: {"model": sd}),
+        "leres": (det.RelDepthModel, lambda sd: {"depth_model": {
+            f"module.{k}": v for k, v in sd.items()}}),
+        "pix2pix": (det.pix2pix4depth, lambda sd: sd)}
+    for i, (name, (cls, wrap)) in enumerate(layouts.items()):
+        torch.manual_seed(SEED + 190 + i)
+        rng = np.random.default_rng(SEED + 190 + i)
+        with torch.device(dev):
+            model = cls()
+        model = model.cpu().eval()
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    for attr, lo, hi in (("running_mean", -0.3, 0.3),
+                                         ("running_var", 0.5, 1.5),
+                                         ("weight", 0.5, 1.5),
+                                         ("bias", -0.1, 0.1)):
+                        v = getattr(m, attr)
+                        v.copy_(torch.from_numpy(rng.uniform(
+                            lo, hi, v.shape).astype(np.float32)))
+            if name == "zoe":
+                model.seed_bin_regressor._net[2].weight.mul_(100.0)
+                model.conditional_log_binomial.mlp[2].weight.mul_(10.0)
+                for pname, p in model.named_parameters():
+                    if pname.endswith(("gamma_1", "gamma_2")):
+                        p.copy_(torch.from_numpy(rng.uniform(
+                            0.05, 0.15, p.shape).astype(np.float32)))
+                    elif pname.endswith(("q_bias", "v_bias", "cls_token",
+                                         "relative_position_bias_table")):
+                        p.copy_(torch.from_numpy((rng.standard_normal(
+                            p.shape) * 0.05).astype(np.float32)))
+        yield name, model, wrap
+
+
+def _boost_image():
+    """A 512x512 image for the boost's patch loop: a flat colour with one
+    sharp 40 px square near a corner, whose lone edges leave most of the
+    dilated gradient mask empty, so the resolution search keeps the 448
+    receptive field (at or under the image's 512: the patch loop runs), and
+    select 4 patches of two sizes around the square."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 197)
+    img = np.empty((512, 512, 3), np.uint8)
+    img[:] = rng.integers(60, 200, 3)
+    img[16:56, 16:56] = rng.integers(0, 256, 3)
+    return img
+
+
+class _NetReplay:
+    """The card's network calls replayed on the CPU: each class's
+    ``forward`` is wrapped so that on the card it records (input, output)
+    in call order, and on the CPU it takes the card's call of the same
+    index, holds its own input against the card's (same shape, rel L2 <=
+    ``bar``) and returns the card's output. The CPU half of a detector
+    then runs every step but its networks (each held card vs CPU on its
+    own) on the host."""
+
+    def __init__(self, classes, bar):
+        self.bar = bar
+        self.originals = {cls: cls.forward for cls in classes}
+        self.calls, self.seen, self.worst = {}, {}, {}
+        for cls in classes:
+            cls.forward = self._wrap(cls.__name__, cls.forward)
+
+    def _wrap(self, name, forward):
+        def wrapped(net, x):
+            if x.device.type != "cpu":
+                out = forward(net, x)
+                self.calls.setdefault(name, []).append((x.cpu(), out.cpu()))
+                return out
+            i = self.seen.get(name, 0)
+            self.seen[name] = i + 1
+            card = self.calls.get(name, [])
+            if i >= len(card) or card[i][0].shape != x.shape:
+                fail(f"annotators_depth: the CPU's call {i} of {name} "
+                     f"(input {tuple(x.shape)}) has no card call of its "
+                     f"shape")
+            rel = _rel_l2(x, card[i][0])
+            self.worst[name] = max(self.worst.get(name, 0.0), rel)
+            if not rel <= self.bar:
+                fail(f"annotators_depth: {name}'s input {i} card vs CPU "
+                     f"rel L2 {rel:.3e}")
+            return card[i][1].clone()
+        return wrapped
+
+    def reset(self):
+        self.calls.clear()
+        self.seen.clear()
+        self.worst.clear()
+
+    def summary(self, per_cpu_call):
+        """Each network's CPU calls, its card calls (``per_cpu_call`` each:
+        the card ran that many images for each of the CPU's) and the worst
+        input rel L2; fails where they do not add up."""
+        if not self.seen:
+            fail("annotators_depth: the CPU half called no network")
+        for name, n in self.seen.items():
+            if len(self.calls[name]) != per_cpu_call * n:
+                fail(f"annotators_depth: {name} ran {len(self.calls[name])}"
+                     f" times on the card, {n} on the CPU")
+        return ", ".join(f"{k} {n} call(s), input rel L2 {self.worst[k]:.3e}"
+                         for k, n in self.seen.items())
+
+    def restore(self):
+        for cls, forward in self.originals.items():
+            cls.forward = forward
+
+
+def _level_check(pid, got, want):
+    """uint8 maps card vs CPU -> (largest level difference, differing
+    share); fails on a shape or beyond DEPTH_LEVELS / DEPTH_LEVEL_SHARE."""
+    import numpy as np
+    if any(a.shape != b.shape for a, b in zip(got, want)):
+        fail(f"annotators_depth: {pid} card and CPU shapes differ")
+    d = np.stack([np.abs(a.astype(np.int32) - b.astype(np.int32))
+                  for a, b in zip(got, want)])
+    top, share = int(d.max()), float((d > 0).mean())
+    if top > DEPTH_LEVELS or share > DEPTH_LEVEL_SHARE:
+        fail(f"annotators_depth: {pid} card vs CPU {top} levels apart on "
+             f"{share:.3e} of the values (bar {DEPTH_LEVELS} on "
+             f"{DEPTH_LEVEL_SHARE:g})")
+    return top, share
+
+
+def phase_annotators_depth(dev):
+    """The depth, normal and line families on the card: the seven seeded
+    full-width networks saved in their published layouts and loaded back
+    through each detector's ``from_pretrained``; each network card vs CPU
+    on a small input (rel L2 <= 1e-4, f32, both TF32 switches on around the
+    port's own scope) and its images/s at 512 by CUDA events; then every
+    ``Processor`` id of the slice on 4 synthetic 512x512 images on the card
+    and the first on the CPU at detect_resolution 256. The CPU half runs
+    every step on the host but the networks, whose outputs it takes from
+    the card's calls where its inputs match the card's (``_NetReplay``,
+    rel L2 <= 1e-4). uint8 maps card vs CPU within DEPTH_LEVELS on at most
+    DEPTH_LEVEL_SHARE of their values. Each discrete step after a network
+    is held by its input card vs CPU (rel L2 <= 1e-4) and its flips
+    counted: ZoeDepth's percentile map (its depth), LeReS's 16-bit step
+    (its depth), M-LSD's top 200 (its map; the segments that differ), the
+    boost's patch search (the decisions, equal). Last, ``depth_leres++`` at
+    detect_resolution 512 on a crafted image runs its patch loop on the
+    card and on the CPU: the decisions equal, the boosted depth within rel
+    L2 1e-4, the maps as above. No kernel of the repository lies on this
+    path."""
+    import numpy as np
+    from pcdms_tpu_torch.pose import processors
+    from pcdms_tpu_torch.pose.detectors import (
+        leres, leres_boost, lineart_anime, midas, mlsd, normalbae, zoe,
+    )
+    from pcdms_tpu_torch.pose.detectors.common import empty, load_network
+    from pcdms_tpu_torch.pose.dwpose import f32_forward
+
+    card = card_name_and_limit()
+    t_nets = time.perf_counter()
+    images = _annotator_images()
+    g = torch.Generator().manual_seed(SEED + 198)
+    loaders = {
+        "lineart_anime": lambda p: lineart_anime.LineartAnimeDetector
+        .from_pretrained(p, device="cpu").model,
+        "mlsd": lambda p: mlsd.MLSDdetector.from_pretrained(
+            p, device="cpu").model,
+        "midas": lambda p: midas.MidasDetector.from_pretrained(
+            p, device="cpu").model,
+        "normalbae": lambda p: normalbae.NormalBaeDetector.from_pretrained(
+            p, device="cpu").model,
+        "zoe": lambda p: zoe.ZoeDetector.from_pretrained(
+            p, device="cpu").model,
+        "leres": lambda p: leres.LeresDetector.from_pretrained(
+            p, device="cpu").model,
+        "pix2pix": lambda p: load_network(empty(leres_boost.pix2pix4depth),
+                                          p)}
+    with tempfile.TemporaryDirectory() as root:
+        paths, size = {}, 0
+        for name, model, wrap in _depth_annotator_networks(dev):
+            path = paths[name] = os.path.join(root, f"{name}.pth")
+            torch.save(wrap(model.state_dict()), path)
+            size += os.path.getsize(path)
+            loaded = loaders[name](path)
+            if hasattr(model, "fold"):
+                model.fold()
+            for k, v in model.state_dict().items():
+                if not torch.equal(v, loaded.state_dict()[k]):
+                    fail(f"annotators_depth: {name} loaded {k} changed")
+            del model
+            x = torch.rand((1,) + DEPTH_NET_INPUTS[name], generator=g)
+            big = torch.rand((1,) + DEPTH_NET_TIMED[name], generator=g).to(
+                dev)
+            if name == "midas" or name == "lineart_anime":
+                x, big = x * 2 - 1, big * 2 - 1
+            if name == "leres":
+                x, big = x * 255, big * 255
+            with torch.no_grad(), _tf32_on(), f32_forward():
+                want = loaded(x)
+                net = loaded.to(dev)
+                got = net(x.to(dev))
+                rel = _rel_l2(got.cpu(), want)
+                ms = cuda_ms(lambda: net(big), iters=3)
+            print(f"[annotators_depth] {name}: "
+                  f"{sum(p.numel() for p in net.parameters()) / 1e6:.2f}M "
+                  f"parameters; card vs CPU at {tuple(x.shape[1:])} rel L2 "
+                  f"{rel:.3e} (bar {BAR_ANNOTATOR_NETS:g}); at "
+                  f"{tuple(big.shape[1:])} {ms:.3f} ms, {1000.0 / ms:.2f} "
+                  f"images/s (CUDA events); {card}", flush=True)
+            if not rel <= BAR_ANNOTATOR_NETS:
+                fail(f"annotators_depth: {name} card vs CPU rel L2 "
+                     f"{rel:.3e}")
+            del net, loaded
+        print(f"[annotators_depth] the seven networks made, saved "
+              f"({size / 1e9:.2f} GB of files), loaded and checked in "
+              f"{time.perf_counter() - t_nets:.1f} s", flush=True)
+        gc.collect()
+
+        # the discrete steps' inputs, recorded per side
+        reads = {}
+        originals = (zoe.ZoeDetector.infer, leres.normalize_16bit,
+                     mlsd.decode_lines, leres_boost.estimateboost)
+
+        def record(key, value):
+            reads.setdefault((record.pid, record.side, key), []).append(value)
+
+        def infer(self, *a, **k):
+            out = originals[0](self, *a, **k)
+            record("depth", out.cpu())
+            return out
+
+        def norm16(depth):
+            record("depth", depth.cpu())
+            return originals[1](depth)
+
+        def decode(tp_map, *a, **k):
+            out = originals[2](tp_map, *a, **k)
+            record("map", tp_map.cpu())
+            record("lines", out)
+            return out
+
+        def boost(*a, **k):
+            log = []
+            out = originals[3](*a, log=log, **k)
+            record("boost", log[0])
+            return out
+
+        zoe.ZoeDetector.infer = infer
+        leres.normalize_16bit = norm16
+        mlsd.decode_lines = decode
+        leres_boost.estimateboost = boost
+        replay = _NetReplay(
+            (lineart_anime.UnetGenerator, mlsd.MobileV2_MLSD_Large,
+             midas.DPTHybrid, normalbae.NNET, zoe.ZoeDepth,
+             leres.RelDepthModel), BAR_ANNOTATOR_NETS)
+        ids = [("lineart_anime", "lineart_anime"), ("mlsd", "mlsd"),
+               ("midas", "midas"), ("depth_midas", "midas"),
+               ("normal_midas", "midas"), ("normal_bae", "normalbae"),
+               ("depth_zoe", "zoe"), ("depth_leres", "leres"),
+               ("depth_leres++", "leres")]
+        try:
+            for pid, w in ids:
+                params = {"weights": paths[w],
+                          "pix2pix_weights": paths["pix2pix"],
+                          "detect_resolution": ANNOTATOR_DETECT_RES}
+                outs, secs = {}, {}
+                record.pid = pid
+                replay.reset()
+                for side, where, imgs in (
+                        ("card", dev, images),
+                        ("cpu", "cpu", images[:ANNOTATOR_CPU_IMAGES])):
+                    record.side = side
+                    proc = processors.Processor(pid, dict(params),
+                                                device=where)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    outs[side] = [np.asarray(proc(im, to_pil=False))
+                                  for im in imgs]
+                    torch.cuda.synchronize()
+                    secs[side] = (time.perf_counter() - t0) / len(imgs)
+                    del proc
+                want = outs["cpu"]
+                top, share = _level_check(f"Processor('{pid}')",
+                                          outs["card"][:len(want)], want)
+                extra = ("; the CPU's networks from the card: "
+                         + replay.summary(len(images) // len(want)))
+                for key in ("depth", "map"):
+                    cpu_r = reads.get((pid, "cpu", key), [])
+                    dev_r = reads.get((pid, "card", key), [])
+                    for a, b in zip(cpu_r, dev_r):
+                        rel = _rel_l2(b, a)
+                        extra += (f"; the step's input ({key}) card vs CPU "
+                                  f"rel L2 {rel:.3e}")
+                        if not rel <= BAR_ANNOTATOR_NETS:
+                            fail(f"annotators_depth: Processor('{pid}') "
+                                 f"{key} card vs CPU rel L2 {rel:.3e}")
+                if pid == "mlsd":
+                    a = {tuple(r) for r in reads[(pid, "cpu", "lines")][0]
+                         .astype(int)}
+                    b = {tuple(r) for r in reads[(pid, "card", "lines")][0]
+                         .astype(int)}
+                    extra += (f"; segments {len(a)} on the CPU, {len(b)} on "
+                              f"the card, {len(a ^ b)} differ")
+                if pid == "depth_leres++":
+                    a = reads[(pid, "cpu", "boost")][0]
+                    b = reads[(pid, "card", "boost")][0]
+                    extra += (f"; boost: whole size {b['whole_size']} on the"
+                              f" card, {a['whole_size']} on the CPU, "
+                              f"{len(b['patches'])} / {len(a['patches'])} "
+                              f"patches")
+                    if a != b:
+                        fail(f"annotators_depth: the boost's decisions "
+                             f"differ card vs CPU: {b} vs {a}")
+                print(f"[annotators_depth] Processor('{pid}') on "
+                      f"{len(images)} 512x512 images on the card, "
+                      f"{len(want)} on the CPU: {secs['card']:.4f} s an "
+                      f"image on the card, {secs['cpu']:.4f} on the CPU; "
+                      f"out {want[0].shape}; card vs CPU largest level "
+                      f"difference {top}, differing share {share:.3e}"
+                      f"{extra}", flush=True)
+
+            # the patch loop on a crafted image, card then CPU
+            record.pid = "boost"
+            replay.reset()
+            img = _boost_image()
+            outs, secs = {}, {}
+            for side, where in (("card", dev), ("cpu", "cpu")):
+                record.side = side
+                det = leres.LeresDetector.from_pretrained(
+                    paths["leres"], paths["pix2pix"], device=where)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[side] = det(img, boost=True,
+                                 detect_resolution=BOOST_DETECT_RES)
+                torch.cuda.synchronize()
+                secs[side] = time.perf_counter() - t0
+                del det
+            info = reads[("boost", "card", "boost")][0]
+            cpu_info = reads[("boost", "cpu", "boost")][0]
+            nets = replay.summary(1)
+            top, share = _level_check("the boost", [outs["card"]],
+                                      [outs["cpu"]])
+            rel = _rel_l2(reads[("boost", "card", "depth")][0],
+                          reads[("boost", "cpu", "depth")][0])
+            w = info["whole_size"]
+            print(f"[annotators_depth] depth_leres++ patch loop at "
+                  f"detect_resolution {BOOST_DETECT_RES}: {secs['card']:.2f}"
+                  f" s on the card, {secs['cpu']:.2f} s on the CPU (its "
+                  f"networks from the card: {nets}); resolution {w} (patch "
+                  f"scale {info['patch_scale']:.4f}, factor "
+                  f"{info['factor']:.4f}), {len(info['patches'])} patches on"
+                  f" the card, {len(cpu_info['patches'])} on the CPU; the "
+                  f"boosted depth card vs CPU rel L2 {rel:.3e} (bar "
+                  f"{BAR_ANNOTATOR_NETS:g}); out {outs['card'].shape}, "
+                  f"largest level difference {top}, differing share "
+                  f"{share:.3e}; {card}", flush=True)
+            for side, rec in (("card", info), ("CPU", cpu_info)):
+                print(f"[annotators_depth] patch rects (x, y, w, h) on the "
+                      f"enlarged image / on the image, {side}: "
+                      f"{[r for r, _ in rec['patches']]} / "
+                      f"{[r for _, r in rec['patches']]}", flush=True)
+            if w > BOOST_DETECT_RES or not info["patches"]:
+                fail(f"annotators_depth: the boost ran no patch (resolution "
+                     f"{w})")
+            if info != cpu_info:
+                fail("annotators_depth: the boost's decisions differ card "
+                     "vs CPU")
+            if not rel <= BAR_ANNOTATOR_NETS:
+                fail(f"annotators_depth: the boosted depth card vs CPU rel "
+                     f"L2 {rel:.3e}")
+        finally:
+            replay.restore()
+            (zoe.ZoeDetector.infer, leres.normalize_16bit,
+             mlsd.decode_lines, leres_boost.estimateboost) = originals
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_learning_proof():
     """``cli/learning_proof.main(["--quick", "--assert_improves"])`` on the
     card: the three trainers and the VAE from scratch at the tiny
@@ -5036,6 +5462,45 @@ def phase_learning_proof():
               f"{k} {res[f'stage{s}_init'][k]:.4f} -> "
               f"{res[f'stage{s}_trained'][k]:.4f}" for k in keys)
                       for s in (2, 3)), flush=True)
+
+
+def _learning_proof_child():
+    """Start ``phase_learning_proof`` in a child process on the same card
+    (TF32 off, as ``main`` sets it), its output into a temporary file ->
+    (the process, the file, its start on the host's clock). The proof is
+    host-bound at its tiny configurations and leaves the card idle most of
+    its time, so it runs beside the phases that read only the host's
+    clock, on one CPU thread: a thread per core would spin against theirs
+    (its tiny models gain nothing from more)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    log = tempfile.TemporaryFile()
+    code = ("import torch, chip_smoke; "
+            "torch.set_num_threads(1); "
+            "torch.backends.cuda.matmul.allow_tf32 = False; "
+            "torch.backends.cudnn.allow_tf32 = False; "
+            "chip_smoke._timed(chip_smoke.phase_learning_proof)")
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=here, env=env,
+                            stdout=log, stderr=subprocess.STDOUT)
+    return proc, log, time.perf_counter()
+
+
+def _join_learning_proof(child):
+    """Wait for the learning proof's child process, print its output and
+    how long this process waited for it; fail unless it passed."""
+    proc, log, t_start = child
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    log.seek(0)
+    sys.stdout.write(log.read().decode(errors="replace"))
+    log.close()
+    print(f"[learning_proof] in a child process: exit code {rc}, "
+          f"{time.perf_counter() - t_start:.1f} s from its start to its "
+          f"join, {time.perf_counter() - t0:.1f} s of them waited for",
+          flush=True)
+    if rc != 0:
+        fail(f"the learning proof failed (exit code {rc})")
 
 
 def _timed(phase, *args):
@@ -5088,25 +5553,34 @@ def main() -> int:
     launches.update(_timed(phase_train, fa, dev))
     _add(launches, _timed(phase_train_stage3, fa, dev))
     _add(launches, _timed(phase_train_stage1, fa, dev))
-    _add(launches, _timed(phase_train_data, fa, dev))
-    _timed(phase_cli)
     _timed(phase_batchtest, fa)
     with tempfile.TemporaryDirectory() as weights_dir:
         metric_weights = _timed(phase_metrics, dev, weights_dir)
-        _timed(phase_protocol, fa, metric_weights)
-    _timed(phase_dwpose, dev)
-    with tempfile.TemporaryDirectory() as weights_root:
-        counts, weights = _timed(phase_weights, fa, dev, weights_root)
-        _add(launches, counts)
-        _add(launches, _timed(phase_demo, fa, dev, weights))
-        del weights
-    _add(launches, _timed(phase_fastpath_drift, fa, dev))
-    _timed(phase_annotators, dev)
-    _add(launches, _timed(phase_serve, fa, dev))
-    _add(launches, _timed(phase_data_parallel, fa, dev))
-    _add(launches, _timed(phase_lcm, fa, dev))
-    _add(launches, _timed(phase_serve_dp, fa, dev))
-    _timed(phase_learning_proof)
+        _timed(phase_dwpose, dev)
+        with tempfile.TemporaryDirectory() as weights_root:
+            counts, weights = _timed(phase_weights, fa, dev, weights_root)
+            _add(launches, counts)
+            _add(launches, _timed(phase_demo, fa, dev, weights))
+            del weights
+        _timed(phase_annotators, dev)
+        _timed(phase_annotators_depth, dev)
+        _add(launches, _timed(phase_lcm, fa, dev))
+        # the phases above read device times; those below only the host's
+        # clock, beside the learning proof
+        child = _learning_proof_child()
+        try:
+            _add(launches, _timed(phase_train_data, fa, dev))
+            _timed(phase_cli)
+            _timed(phase_protocol, fa, metric_weights)
+            _add(launches, _timed(phase_fastpath_drift, fa, dev))
+            _add(launches, _timed(phase_serve, fa, dev))
+            _add(launches, _timed(phase_data_parallel, fa, dev))
+            _add(launches, _timed(phase_serve_dp, fa, dev))
+            _join_learning_proof(child)
+        finally:
+            if child[0].poll() is None:
+                child[0].kill()
+                child[0].wait()
     for kernel in KERNELS:
         if not launches.get(kernel):
             fail(f"kernel {kernel} was not launched on its path")

@@ -32,8 +32,9 @@ def _linear(sd: StateDict, prefix: str, p) -> None:
 
 
 def _conv(sd: StateDict, prefix: str, p) -> None:
+    """A conv whose bias may be absent or None (a bias-free conv)."""
     sd[f"{prefix}.weight"] = np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
-    if "bias" in p:
+    if p.get("bias") is not None:
         sd[f"{prefix}.bias"] = np.asarray(p["bias"])
 
 
@@ -454,7 +455,8 @@ def _conv_transpose(sd: StateDict, prefix: str, p) -> None:
     torch's (I, O, kH, kW)."""
     w = np.asarray(p["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
     sd[f"{prefix}.weight"] = np.ascontiguousarray(w)
-    sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+    if p.get("bias") is not None:
+        sd[f"{prefix}.bias"] = np.asarray(p["bias"])
 
 
 def lineart_from_jax(p):
@@ -471,3 +473,246 @@ def lineart_from_jax(p):
     _conv_transpose(sd, "model3.3", p["up"][1])
     _conv(sd, "model4.1", p["head"])
     return load_numpy_state_dict(Generator(), sd).eval()
+
+
+def _unet_from_jax(p, model):
+    """The JAX per-level U-Net list (outermost first) -> ``model``, a
+    ``lineart_anime.UnetGenerator`` of as many levels."""
+    sd: StateDict = {}
+    prefix = "model.model."
+    for i, level in enumerate(p):
+        outermost, innermost = i == 0, i == len(p) - 1
+        di = 0 if outermost else 1
+        ui = 3 if (outermost or innermost) else 5
+        _conv(sd, f"{prefix}{di}", level["down"])
+        _conv_transpose(sd, f"{prefix}{ui}", level["up"])
+        prefix += "1.model." if outermost else "3.model."
+    return load_numpy_state_dict(model, sd).eval()
+
+
+def lineart_anime_from_jax(p):
+    """The JAX LineArt-Anime tree (``convert_lineart_anime``'s) ->
+    ``lineart_anime.UnetGenerator``."""
+    from pcdms_tpu_torch.pose.detectors.lineart_anime import UnetGenerator
+    return _unet_from_jax(p, UnetGenerator())
+
+
+def pix2pix_from_jax(p):
+    """The JAX LeReS++ merge-network tree (``convert_pix2pix4depth``'s, any
+    number of levels) -> ``leres_boost.pix2pix4depth``."""
+    from pcdms_tpu_torch.pose.detectors.leres_boost import (
+        LEVELS, pix2pix4depth,
+    )
+    return _unet_from_jax(p, pix2pix4depth(LEVELS[:len(p) - 1]
+                                           + LEVELS[-1:]))
+
+
+def mlsd_from_jax(p):
+    """The JAX M-LSD tree (``convert_mlsd``'s: BatchNorm folded) -> the
+    port's folded ``MobileV2_MLSD_Large``."""
+    from pcdms_tpu_torch.pose.detectors.mlsd import (
+        BLOCKS, MobileV2_MLSD_Large,
+    )
+    sd: StateDict = {}
+    _conv(sd, "backbone.features.0.0", p["stem"])
+    for i, ((t, _, _), blk) in enumerate(zip(BLOCKS, p["features"]), 1):
+        pfx, j = f"backbone.features.{i}.conv", 0
+        if t != 1:
+            _conv(sd, f"{pfx}.0.0", blk["expand"])
+            j = 1
+        _conv(sd, f"{pfx}.{j}.0", blk["dw"])
+        _conv(sd, f"{pfx}.{j + 1}", blk["project"])
+    for n in range(15, 23):
+        for c in ("conv1", "conv2"):
+            _conv(sd, f"block{n}.{c}.0", p[f"block{n}"][c])
+    for c in ("conv1", "conv2"):
+        _conv(sd, f"block23.{c}.0", p["block23"][c])
+    _conv(sd, "block23.conv3", p["block23"]["conv3"])
+    return load_numpy_state_dict(MobileV2_MLSD_Large().fold(), sd).eval()
+
+
+def _kernel(k):
+    return {"kernel": k}
+
+
+def _vit_blocks(sd: StateDict, prefix: str, blocks, beit: bool) -> None:
+    for i, b in enumerate(blocks):
+        pre = f"{prefix}.blocks.{i}"
+        sd[f"{pre}.norm1.weight"] = np.asarray(b["ln1_scale"])
+        sd[f"{pre}.norm1.bias"] = np.asarray(b["ln1_bias"])
+        sd[f"{pre}.norm2.weight"] = np.asarray(b["ln2_scale"])
+        sd[f"{pre}.norm2.bias"] = np.asarray(b["ln2_bias"])
+        if beit:
+            sd[f"{pre}.attn.qkv.weight"] = np.asarray(b["qkv_w"]).T
+            sd[f"{pre}.attn.q_bias"] = np.asarray(b["q_bias"])
+            sd[f"{pre}.attn.v_bias"] = np.asarray(b["v_bias"])
+            sd[f"{pre}.attn.relative_position_bias_table"] = np.asarray(
+                b["rel_pos_table"])
+            sd[f"{pre}.gamma_1"] = np.asarray(b["gamma1"])
+            sd[f"{pre}.gamma_2"] = np.asarray(b["gamma2"])
+        else:
+            _linear(sd, f"{pre}.attn.qkv", {"kernel": b["qkv_w"],
+                                             "bias": b["qkv_b"]})
+        for name, key in (("attn.proj", "proj"), ("mlp.fc1", "fc1"),
+                          ("mlp.fc2", "fc2")):
+            _linear(sd, f"{pre}.{name}", {"kernel": b[f"{key}_w"],
+                                          "bias": b[f"{key}_b"]})
+
+
+def _dpt_scratch(sd: StateDict, prefix: str, p) -> None:
+    for i in range(1, 5):
+        _conv(sd, f"{prefix}.layer{i}_rn", _kernel(p[f"layer{i}_rn"]))
+        r = p[f"refinenet{i}"]
+        for unit, key in (("resConfUnit1", "res1"), ("resConfUnit2", "res2")):
+            for c in ("conv1", "conv2"):
+                _conv(sd, f"{prefix}.refinenet{i}.{unit}.{c}", r[key][c])
+        _conv(sd, f"{prefix}.refinenet{i}.out_conv", r["out_conv"])
+    for c, idx in (("conv1", 0), ("conv2", 2), ("conv3", 4)):
+        _conv(sd, f"{prefix}.output_conv.{idx}", p["head"][c])
+
+
+def midas_from_jax(p):
+    """The JAX DPT-Hybrid tree (``convert_dpt_hybrid``'s: the weight
+    standardisation folded) -> the port's standardised ``DPTHybrid``."""
+    from pcdms_tpu_torch.pose.detectors.midas import (
+        DEPTHS, DPTHybrid, StdConv2dSame,
+    )
+    sd: StateDict = {}
+    bb = "pretrained.model.patch_embed.backbone"
+    res = p["resnet"]
+
+    def gn(prefix, scale, bias):
+        sd[f"{prefix}.weight"] = np.asarray(scale)
+        sd[f"{prefix}.bias"] = np.asarray(bias)
+    _conv(sd, f"{bb}.stem.conv", _kernel(res["stem"]["conv"]))
+    gn(f"{bb}.stem.norm", res["stem"]["scale"], res["stem"]["bias"])
+    for si, depth in enumerate(DEPTHS):
+        for bi in range(depth):
+            b, pre = res[f"stage{si}"][bi], f"{bb}.stages.{si}.blocks.{bi}"
+            for i in (1, 2, 3):
+                _conv(sd, f"{pre}.conv{i}", _kernel(b[f"conv{i}"]))
+                gn(f"{pre}.norm{i}", b[f"norm{i}_scale"], b[f"norm{i}_bias"])
+            if "downsample" in b:
+                d = b["downsample"]
+                _conv(sd, f"{pre}.downsample.conv", _kernel(d["conv"]))
+                gn(f"{pre}.downsample.norm", d["scale"], d["bias"])
+    pm = "pretrained.model"
+    sd[f"{pm}.patch_embed.proj.weight"] = np.asarray(
+        p["patch_proj_w"]).T[:, :, None, None]
+    sd[f"{pm}.patch_embed.proj.bias"] = np.asarray(p["patch_proj_b"])
+    sd[f"{pm}.cls_token"] = np.asarray(p["cls_token"])[None]
+    sd[f"{pm}.pos_embed"] = np.asarray(p["pos_embed"])
+    _vit_blocks(sd, pm, p["blocks"], beit=False)
+    for i in (3, 4):
+        r = p[f"readout{i}"]
+        _linear(sd, f"pretrained.act_postprocess{i}.0.project.0",
+                {"kernel": r["w"], "bias": r["b"]})
+    _conv(sd, "pretrained.act_postprocess3.3", p["post3"])
+    _conv(sd, "pretrained.act_postprocess4.3", p["post4a"])
+    _conv(sd, "pretrained.act_postprocess4.4", p["post4b"])
+    _dpt_scratch(sd, "scratch", p)
+    model = DPTHybrid()
+    for m in model.modules():
+        if isinstance(m, StdConv2dSame):
+            m.standardized = True
+    return load_numpy_state_dict(model, sd).eval()
+
+
+def normalbae_from_jax(p):
+    """The JAX NNET tree (``convert_nnet``'s: BatchNorm folded) -> the
+    port's folded ``NNET``."""
+    from pcdms_tpu_torch.pose.detectors.normalbae import NNET, STAGES
+    sd: StateDict = {}
+    enc, e = "encoder.original_model", p["encoder"]
+    _conv(sd, f"{enc}.conv_stem", e["stem"])
+    _conv(sd, f"{enc}.conv_head", e["head"])
+    for si, (_, _, x, _, reps) in enumerate(STAGES):
+        for bi in range(reps):
+            b, pre = e[f"stage{si}"][bi], f"{enc}.blocks.{si}.{bi}"
+            names = (("dw", "conv_dw"), ("pwl", "conv_pw")) if x == 1 else (
+                ("pw", "conv_pw"), ("dw", "conv_dw"), ("pwl", "conv_pwl"))
+            for key, name in names:
+                _conv(sd, f"{pre}.{name}", b[key])
+            _conv(sd, f"{pre}.se.conv_reduce", b["se"]["reduce"])
+            _conv(sd, f"{pre}.se.conv_expand", b["se"]["expand"])
+    d = p["decoder"]
+    _conv(sd, "decoder.conv2", d["conv2"])
+    _conv(sd, "decoder.out_conv_res8", d["res8"])
+    for i in range(1, 5):
+        _conv(sd, f"decoder.up{i}._net.0", d[f"up{i}"]["conv1"])
+        _conv(sd, f"decoder.up{i}._net.3", d[f"up{i}"]["conv2"])
+    for r in ("res4", "res2", "res1"):
+        for j, layer in zip((0, 2, 4, 6), d[r]):
+            sd[f"decoder.out_conv_{r}.{j}.weight"] = np.asarray(
+                layer["w"]).T[:, :, None]
+            sd[f"decoder.out_conv_{r}.{j}.bias"] = np.asarray(layer["b"])
+    return load_numpy_state_dict(NNET().fold(), sd).eval()
+
+
+def zoe_from_jax(p):
+    """The JAX ZoeDepth tree (``convert_zoedepth``'s) -> ``ZoeDepth``."""
+    from pcdms_tpu_torch.pose.detectors.zoe import ZoeDepth
+    sd: StateDict = {}
+    core, beit = p["core"], p["core"]["beit"]
+    pm, pp = "core.core.pretrained.model", "core.core.pretrained"
+    _conv(sd, f"{pm}.patch_embed.proj", {"kernel": beit["patch_w"],
+                                         "bias": beit["patch_b"]})
+    sd[f"{pm}.cls_token"] = np.asarray(beit["cls_token"])[None]
+    _vit_blocks(sd, pm, beit["blocks"], beit=True)
+    for i in range(1, 5):
+        post = core[f"post{i}"]
+        r = post["readout"]
+        _linear(sd, f"{pp}.act_postprocess{i}.0.project.0",
+                {"kernel": r["w"], "bias": r["b"]})
+        _conv(sd, f"{pp}.act_postprocess{i}.3", post["conv"])
+        if "convt_w" in post:
+            sd[f"{pp}.act_postprocess{i}.4.weight"] = np.asarray(
+                post["convt_w"])
+            sd[f"{pp}.act_postprocess{i}.4.bias"] = np.asarray(
+                post["convt_b"])
+        if "conv2" in post:
+            _conv(sd, f"{pp}.act_postprocess{i}.4", post["conv2"])
+    _dpt_scratch(sd, "core.core.scratch", core)
+    z = p["zoe"]
+    _conv(sd, "conv2", z["conv2"])
+
+    def mlp2(prefix, q):
+        _conv(sd, f"{prefix}.0", q["c1"])
+        _conv(sd, f"{prefix}.2", q["c2"])
+    mlp2("seed_bin_regressor._net", z["seed_bin_regressor"])
+    mlp2("seed_projector._net", z["seed_projector"])
+    for i in range(4):
+        mlp2(f"projectors.{i}._net", z["projectors"][i])
+        mlp2(f"attractors.{i}._net", z["attractors"][i])
+    mlp2("conditional_log_binomial.mlp", z["clb"])
+    return load_numpy_state_dict(ZoeDepth(), sd).eval()
+
+
+def leres_from_jax(p):
+    """The JAX LeReS tree (``convert_leres``'s: BatchNorm folded) -> the
+    port's folded ``RelDepthModel``."""
+    from pcdms_tpu_torch.pose.detectors.leres import LAYERS, RelDepthModel
+    sd: StateDict = {}
+    enc, e = "depth_model.encoder_modules", p["encoder"]
+    _conv(sd, f"{enc}.conv1", e["stem"])
+    for li, depth in enumerate(LAYERS, 1):
+        for bi in range(depth):
+            b, pre = e[f"layer{li}"][bi], f"{enc}.layer{li}.{bi}"
+            for i in (1, 2, 3):
+                _conv(sd, f"{pre}.conv{i}", b[f"conv{i}"])
+            if "downsample" in b:
+                _conv(sd, f"{pre}.downsample.0", b["downsample"])
+    dec, d = "depth_model.decoder_modules", p["decoder"]
+
+    def ftb(prefix, q):
+        _conv(sd, f"{prefix}.conv1", q["conv1"])
+        _conv(sd, f"{prefix}.conv_branch.1", q["branch1"])
+        _conv(sd, f"{prefix}.conv_branch.4", q["branch2"])
+    ftb(f"{dec}.conv", d["conv"])
+    _conv(sd, f"{dec}.conv1", d["conv1"])
+    for f in ("ffm2", "ffm1", "ffm0"):
+        ftb(f"{dec}.{f}.ftb1", d[f]["ftb1"])
+        ftb(f"{dec}.{f}.ftb2", d[f]["ftb2"])
+    _conv(sd, f"{dec}.outconv.adapt_conv.0", d["ao1"])
+    _conv(sd, f"{dec}.outconv.adapt_conv.3", d["ao2"])
+    return load_numpy_state_dict(RelDepthModel().fold(), sd).eval()

@@ -12,13 +12,18 @@ import torch.nn.functional as F
 from torch import nn
 
 
+# the dicts a released checkpoint may wrap its state dict in, taken off in
+# this order (LeReS's ``res101.pth`` keeps its under ``depth_model``)
+WRAPPERS = ("state_dict", "model", "depth_model", "module")
+
+
 def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
-    """An mm checkpoint -> {name: np.ndarray}: the ``state_dict``, ``model``
-    and ``module`` wrappers are taken off in that order wherever they hold a
-    dict, then ``"module."`` is removed from every key. The file is
-    unpickled: read only trusted local files."""
+    """An mm or controlnet-aux checkpoint -> {name: np.ndarray}: the
+    ``WRAPPERS`` are taken off in that order wherever they hold a dict, then
+    ``"module."`` is removed from every key. The file is unpickled: read
+    only trusted local files."""
     sd = torch.load(path, map_location="cpu", weights_only=False)
-    for key in ("state_dict", "model", "module"):
+    for key in WRAPPERS:
         if isinstance(sd, dict) and key in sd and isinstance(sd[key], dict):
             sd = sd[key]
     return {k.replace("module.", ""): v.detach().numpy()
@@ -39,18 +44,56 @@ class ConvModule(nn.Module):
     def forward(self, x):
         return F.silu(self.bn(self.conv(x)))
 
-    @torch.no_grad()
     def fold_bn(self) -> None:
-        if isinstance(self.bn, nn.Identity):
-            return
-        bn, conv = self.bn, self.conv
-        scale = bn.weight / torch.sqrt(bn.running_var + bn.eps)
-        folded = nn.Conv2d(conv.in_channels, conv.out_channels,
-                           conv.kernel_size, conv.stride, conv.padding,
-                           groups=conv.groups, bias=True).to(conv.weight)
-        folded.weight.copy_(conv.weight * scale[:, None, None, None])
-        folded.bias.copy_(bn.bias - bn.running_mean * scale)
-        self.conv, self.bn = folded, nn.Identity()
+        if not isinstance(self.bn, nn.Identity):
+            fold_conv_bn(self.conv, self.bn)
+            self.bn = nn.Identity()
+
+
+@torch.no_grad()
+def fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> None:
+    """Fold ``bn`` into ``conv`` in place, as the JAX converters do, in
+    numpy's f32 (``scale = gamma / sqrt(var + eps)``; the kernel times
+    ``scale``; the bias ``(beta - mean * scale) + conv_bias * scale``):
+    PyTorch's vectorised CPU sqrt is not always correctly rounded."""
+    def f32(t):
+        return t.detach().cpu().numpy().astype(np.float32)
+    scale = f32(bn.weight) / np.sqrt(f32(bn.running_var) + bn.eps)
+    bias = f32(bn.bias) - f32(bn.running_mean) * scale
+    if conv.bias is not None:
+        bias = bias + f32(conv.bias) * scale
+    dev = conv.weight.device
+    conv.weight.copy_(torch.from_numpy(
+        f32(conv.weight) * scale[:, None, None, None]).to(dev))
+    conv.bias = nn.Parameter(torch.from_numpy(bias).to(dev))
+
+
+def fold_bn_pairs(model: nn.Module, pairs) -> nn.Module:
+    """Fold each (conv name, BatchNorm name) of ``pairs`` in ``model`` and
+    put an identity in the BatchNorm's place; a pair already folded is
+    left as it is. -> ``model``."""
+    for conv_name, bn_name in pairs:
+        bn = model.get_submodule(bn_name)
+        if isinstance(bn, nn.BatchNorm2d):
+            fold_conv_bn(model.get_submodule(conv_name), bn)
+            parent, _, leaf = bn_name.rpartition(".")
+            setattr(model.get_submodule(parent), leaf, nn.Identity())
+    return model
+
+
+def sequential_bn_pairs(model: nn.Module):
+    """The (conv, BatchNorm) name pairs of ``model`` that sit next to each
+    other in an ``nn.Sequential``."""
+    pairs = []
+    for name, m in model.named_modules():
+        if isinstance(m, nn.Sequential):
+            items = list(m.named_children())
+            for (a, ma), (b, mb) in zip(items, items[1:]):
+                if (isinstance(ma, nn.Conv2d)
+                        and isinstance(mb, nn.BatchNorm2d)):
+                    pre = f"{name}." if name else ""
+                    pairs.append((pre + a, pre + b))
+    return pairs
 
 
 def fold_bn(model: nn.Module) -> nn.Module:
@@ -182,11 +225,22 @@ def transfer_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]
     return out
 
 
+def empty(cls, *args, **kwargs) -> nn.Module:
+    """``cls(*args, **kwargs)`` built on the meta device and given
+    uninitialised CPU memory, for a module whose every parameter and buffer
+    a checkpoint then loads (``load_network`` raises on a missing key): a
+    344M-parameter ZoeDepth skips seconds of random initialisation."""
+    with torch.device("meta"):
+        module = cls(*args, **kwargs)
+    return module.to_empty(device="cpu")
+
+
 def load_network(model: nn.Module, path: str) -> nn.Module:
     """Load a controlnet-aux annotator checkpoint into ``model``
     (``compat/load.py::load_into``: a key the model lacks is dropped with a
-    log line, a missing one raises), names mapped by
-    ``transfer_state_dict``. -> ``model`` in eval mode."""
+    log line, a missing one raises), its wrappers taken off by
+    ``load_torch_state_dict``, names mapped by ``transfer_state_dict``. ->
+    ``model`` in eval mode."""
     from pcdms_tpu_torch.compat.load import load_into
     sd = transfer_state_dict(model, load_torch_state_dict(path))
     return load_into(model, {k: torch.from_numpy(v) for k, v in sd.items()},

@@ -28,12 +28,19 @@ The annotators' operations (controlnet-aux's ``util.py``, OpenPose's
 heatmaps, the processors), on (H, W) or (H, W, C) tensors:
 
   * ``resize`` by area, Lanczos-4 and bilinear on uint8 and f32, bicubic on
-    f32: OpenCV's taps and, on uint8, its fixed-point sums (equal to cv2
-    5.0's pixels); f32 bilinear is OpenCV 5's pair of fused lerps (equal),
-    the other f32 kinds sum the same taps within 2e-6 of OpenCV's largest
-    value;
+    uint8 and f32, bilinear and bicubic on f64: OpenCV's taps and, on
+    uint8, its fixed-point sums (equal to cv2 5.0's pixels) but for
+    bicubic, which cv2 5.0 sums in f32 (its f32 sums rounded half to even:
+    within 1 level on about 1e-5 of the values, the ones whose exact value
+    lies within an f32 rounding of a half); f32 bilinear is OpenCV 5's
+    pair of fused lerps (equal), the other f32 kinds sum the same taps
+    within 2e-6 of OpenCV's largest value; f64 bicubic sums OpenCV's f32
+    taps in f64 (equal), f64 bilinear is within 1e-13;
   * ``gaussian_blur``: on uint8 OpenCV's bit-exact fixed-point path
-    (equal), on f32 the f32 kernel's sums (within 2e-6);
+    (equal), on f32 the f32 kernel's sums (within 2e-6), any kernel size
+    (above 64 taps by FFT, in f64);
+  * ``sobel`` (aperture 3, BORDER_REFLECT_101) on f32 and f64, ``integral``,
+    ``convert_scale_abs``, ``threshold_tozero`` and ``bitwise_not``;
   * ``dilate``, ``remap_linear`` (OpenCV 5's f32 path, as the affine
     warp's) and ``canny`` (aperture 3, L1), equal to OpenCV's.
 """
@@ -239,14 +246,16 @@ def _lanczos4_coeffs(x: np.float32):
 _KSIZE = {"linear": 2, "area": 2, "cubic": 4, "lanczos4": 8}
 
 
-def _generic_taps(src: int, dst: int, kind: str, clamp_border: bool):
+def _generic_taps(src: int, dst: int, kind: str, clamp_border: bool,
+                  f32_phase: bool = False):
     """The taps of OpenCV's separable resize (``resizeGeneric``) for one
     axis: -> ((dst, ksize) source indices clamped to the image, (dst,
     ksize) f32 weights). ``kind`` "area" is INTER_AREA where it enlarges
     (bilinear with OpenCV's area-mode phase). ``clamp_border``: the x axis
     of the two-tap kinds moves a tap left of the image onto pixel 0 (and
     right of it onto the last) with weight 0 for its neighbour, as OpenCV
-    does for x only."""
+    does for x only. ``f32_phase``: the bicubic phase rounded to f32 first,
+    as OpenCV's 64F path takes it."""
     ksize = _KSIZE[kind]
     inv_scale = dst / src
     scale = 1.0 / inv_scale
@@ -261,8 +270,12 @@ def _generic_taps(src: int, dst: int, kind: str, clamp_border: bool):
             pos = _f32((d + 0.5) * scale - 0.5)
             s = int(np.floor(pos))
             f = _f32(pos - _f32(s))
+        elif f32_phase:
+            pos = _f32((d + 0.5) * scale - 0.5)
+            s = int(np.floor(pos))
+            f = _f32(pos - _f32(s))
         else:
-            # OpenCV 5 takes the bicubic phase in f64
+            # OpenCV 5 takes the bicubic phase in f64 (uint8 and f32)
             pos = (d + 0.5) * scale - 0.5
             s = int(np.floor(pos))
             f = _f32(pos - s)
@@ -313,16 +326,19 @@ def _weights_along(wts: np.ndarray, dim: int, device, dtype):
 
 def _resize_generic(img: torch.Tensor, w: int, h: int, kind: str
                     ) -> torch.Tensor:
-    """OpenCV's separable resize of an (H, W, C) uint8 or f32 tensor."""
+    """OpenCV's separable resize of an (H, W, C) uint8, f32 or f64 tensor
+    (f64: the f32 taps, summed in f64, as OpenCV's 64F path)."""
     src_h, src_w = img.shape[:2]
-    xi, xw = _generic_taps(src_w, w, kind, clamp_border=True)
-    yi, yw = _generic_taps(src_h, h, kind, clamp_border=False)
+    f64 = img.dtype == torch.float64
+    xi, xw = _generic_taps(src_w, w, kind, True, f64)
+    yi, yw = _generic_taps(src_h, h, kind, False, f64)
     dev = img.device
-    if img.dtype == torch.float32:
+    if img.dtype in (torch.float32, torch.float64):
         hor = _sum_taps(img, 1, xi, _weights_along(xw, 1, dev, img.dtype))
         return _sum_taps(hor, 0, yi, _weights_along(yw, 0, dev, img.dtype))
     if img.dtype != torch.uint8:
-        raise TypeError(f"resize takes uint8 or float32, not {img.dtype}")
+        raise TypeError(f"resize takes uint8, float32 or float64, not "
+                        f"{img.dtype}")
     s = img.to(torch.int64)
     hor = _sum_taps(s, 1, xi, _weights_along(_fixed(xw), 1, dev,
                                              torch.int64))
@@ -361,6 +377,27 @@ def _resize_linear_f32(img: torch.Tensor, w: int, h: int) -> torch.Tensor:
     hor = _fma(fx[None, :, None], b - a, a)
     a, b = hor.index_select(0, y0), hor.index_select(0, y1)
     return _fma(fy[:, None, None], b - a, a)
+
+
+def _resize_linear_f64(img: torch.Tensor, w: int, h: int) -> torch.Tensor:
+    """INTER_LINEAR on f64: the phase and both weights in f64, the two taps
+    of each axis weighted and summed (within 1e-13 of OpenCV's largest
+    value)."""
+    def taps(src, dst):
+        pos = (np.arange(dst, dtype=np.float64) + 0.5) * (1.0 / (dst / src)
+                                                          ) - 0.5
+        lo = np.floor(pos)
+        frac = pos - lo
+        lo = lo.astype(np.int64)
+        return [torch.from_numpy(v).to(img.device) for v in (
+            np.clip(lo, 0, src - 1), np.clip(lo + 1, 0, src - 1), frac)]
+    src_h, src_w = img.shape[:2]
+    x0, x1, fx = taps(src_w, w)
+    y0, y1, fy = taps(src_h, h)
+    fx = fx[None, :, None]
+    hor = img.index_select(1, x0) * (1 - fx) + img.index_select(1, x1) * fx
+    fy = fy[:, None, None]
+    return hor.index_select(0, y0) * (1 - fy) + hor.index_select(0, y1) * fy
 
 
 def _area_taps(src: int, dst: int, scale: float):
@@ -428,19 +465,26 @@ def _resize_area_down(img: torch.Tensor, w: int, h: int) -> torch.Tensor:
 def resize(image: torch.Tensor, size: Tuple[int, int],
            interpolation: str = "linear") -> torch.Tensor:
     """``cv2.resize(image, size, interpolation=...)`` on an (H, W) or
-    (H, W, C) uint8 or f32 tensor; ``size`` is (width, height);
-    ``interpolation`` "linear", "area", "cubic" or "lanczos4".
+    (H, W, C) uint8, f32 or f64 tensor; ``size`` is (width, height);
+    ``interpolation`` "linear", "area", "cubic" or "lanczos4" (f64:
+    "linear" and "cubic").
 
     uint8: OpenCV's 11-bit fixed-point taps, rounded half to even, summed
     in integers; the vertical pass of the two-tap kinds is ``resize_linear``'s
     vector formula, Lanczos-4's ``(sum + 2^21) >> 22``; INTER_AREA at
     integer factors averages blocks (2x2 by a rounding shift, as OpenCV's
     SIMD path), at other shrinking factors it accumulates its f32 area
-    weights tap by tap and rounds half to even. f32: the same taps in f32,
+    weights tap by tap and rounds half to even. uint8 bicubic is cv2 5.0's
+    float path: the f32 taps summed in f32 along x, then along y, rounded
+    half to even and saturated (equal but for about 1e-5 of the values, 1
+    level off, whose exact value lies within an f32 rounding of a half:
+    cv2's sums round in another order there). f32: the same taps in f32,
     summed in OpenCV's order (the card may fuse a product and a sum where
-    OpenCV does not: a last-ulp difference). INTER_AREA that enlarges an
+    OpenCV does not: a last-ulp difference). f64: bicubic sums OpenCV's f32
+    taps (the phase rounded to f32) in f64 (equal), bilinear takes its
+    phase and weights in f64 (within 1e-13). INTER_AREA that enlarges an
     axis is OpenCV's bilinear with the area-mode phase; INTER_LINEAR that
-    halves both axes is INTER_AREA, as in OpenCV."""
+    halves both axes of uint8 is INTER_AREA, as in OpenCV."""
     w, h = size
     img, had_c = _hwc(image)
     src_h, src_w = img.shape[:2]
@@ -453,12 +497,16 @@ def resize(image: torch.Tensor, size: Tuple[int, int],
         out = _resize_area_down(img, w, h)
     elif interpolation == "linear" and img.dtype == torch.uint8:
         out = resize_linear(img, size)
-    elif interpolation == "linear":
+    elif interpolation == "linear" and img.dtype == torch.float32:
         out = _resize_linear_f32(img, w, h)
     elif interpolation == "cubic" and img.dtype == torch.uint8:
-        # OpenCV's SIMD bicubic pass on uint8 is in f32 (not replicated;
-        # the annotators take INTER_CUBIC on f32 only)
-        raise NotImplementedError("INTER_CUBIC on uint8")
+        out = _resize_generic(img.float(), w, h, "cubic")
+        out = out.round().clamp(0, 255).to(torch.uint8)
+    elif img.dtype == torch.float64 and interpolation == "linear":
+        out = _resize_linear_f64(img, w, h)
+    elif img.dtype == torch.float64 and interpolation != "cubic":
+        raise TypeError(f"resize takes float64 with linear or cubic, not "
+                        f"{interpolation}")
     elif interpolation in _KSIZE:
         out = _resize_generic(img, w, h, interpolation)
     else:
@@ -507,16 +555,42 @@ def _reflect101(n: int, pad: int, device) -> torch.Tensor:
     return torch.from_numpy(i).to(device)
 
 
-def gaussian_blur(image: torch.Tensor, sigma: float) -> torch.Tensor:
-    """``cv2.GaussianBlur(image, (0, 0), sigma)`` on an (H, W) or (H, W, C)
-    uint8 or f32 tensor: a separable kernel of ``round(sigma * 6 + 1) | 1``
-    taps on uint8 (``* 8`` on f32), BORDER_REFLECT_101. uint8 is OpenCV's
-    bit-exact path: the kernel in 8 fraction bits with its error carried,
-    the rows in 16-bit fixed point, the columns in 32-bit, rounded half up;
-    f32 sums the f32 kernel's products tap by tap."""
+# above this many taps the f32 blur convolves by FFT
+FFT_BLUR_TAPS = 64
+
+
+def _blur_fft(img: torch.Tensor, kernel: np.ndarray, dim: int
+              ) -> torch.Tensor:
+    """The f64 kernel along ``dim`` of an (H, W, C) tensor, BORDER_REFLECT_101,
+    by an f64 FFT (the row pass's result rounded to f32, as OpenCV keeps its
+    row buffer) -> f64."""
+    n, ksize = img.shape[dim], len(kernel)
+    x = img.double().index_select(dim, _reflect101(n, ksize // 2, img.device))
+    nfft = 1 << int(np.ceil(np.log2(x.shape[dim] + ksize)))
+    k = torch.from_numpy(kernel[::-1].copy()).to(img.device)
+    shape = [1, 1, 1]
+    shape[dim] = -1
+    y = torch.fft.irfft(torch.fft.rfft(x, nfft, dim=dim)
+                        * torch.fft.rfft(k, nfft).reshape(shape), nfft,
+                        dim=dim).narrow(dim, ksize - 1, n)
+    return y.float().double() if dim == 1 else y
+
+
+def gaussian_blur(image: torch.Tensor, sigma: float,
+                  ksize: int = 0) -> torch.Tensor:
+    """``cv2.GaussianBlur(image, (ksize, ksize), sigma)`` on an (H, W) or
+    (H, W, C) uint8 or f32 tensor: a separable kernel of ``ksize`` taps (0:
+    ``round(sigma * 6 + 1) | 1`` taps on uint8, ``* 8`` on f32),
+    BORDER_REFLECT_101. uint8 is OpenCV's bit-exact path: the kernel in 8
+    fraction bits with its error carried, the rows in 16-bit fixed point,
+    the columns in 32-bit, rounded half up; f32 sums the f32 kernel's
+    products tap by tap, or, above ``FFT_BLUR_TAPS`` taps, convolves with
+    the f64 kernel by FFT in f64 (within 1.1e-6 of cv2's largest value at
+    749 taps; the tap loop would take minutes there on a CPU)."""
     img, had_c = _hwc(image)
     depth_mult = 3 if img.dtype == torch.uint8 else 4
-    ksize = int(np.rint(sigma * depth_mult * 2 + 1)) | 1
+    if not ksize:
+        ksize = int(np.rint(sigma * depth_mult * 2 + 1)) | 1
     kernel = _gaussian_kernel(sigma, ksize)
     pad = ksize // 2
     h, w = img.shape[:2]
@@ -532,6 +606,8 @@ def gaussian_blur(image: torch.Tensor, sigma: float) -> torch.Tensor:
         out = _sum_taps(hor.index_select(0, rows), 0, idx_y, _weights_along(
             np.tile(k, (h, 1)), 0, dev, torch.int64))
         out = ((out + (1 << 15)) >> 16).clamp(0, 255).to(torch.uint8)
+    elif img.dtype == torch.float32 and ksize > FFT_BLUR_TAPS:
+        out = _blur_fft(_blur_fft(img, kernel, 1), kernel, 0).float()
     elif img.dtype == torch.float32:
         k = kernel.astype(np.float32)
         x = img.index_select(1, cols)
@@ -543,6 +619,59 @@ def gaussian_blur(image: torch.Tensor, sigma: float) -> torch.Tensor:
         raise TypeError(f"gaussian_blur takes uint8 or float32, not "
                         f"{img.dtype}")
     return _unhwc(out, had_c)
+
+
+def sobel(image: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
+    """``cv2.Sobel(image, <its depth>, dx, dy, ksize=3)`` on an (H, W) f32
+    or f64 tensor, BORDER_REFLECT_101: ``(dx, dy)`` (1, 0) or (0, 1). The
+    derivative pass is a difference, the smoothing pass ``(a + c) + 2 b``,
+    OpenCV's symmetric-kernel order (``(a + 2 b) + c`` along the rows of
+    f64): equal to cv2 on f64; on f32 equal but for the few columns that
+    cv2 takes outside its vector loop, within an ulp of their magnitude."""
+    if (dx, dy) not in ((1, 0), (0, 1)):
+        raise ValueError("sobel takes (dx, dy) (1, 0) or (0, 1)")
+    h, w = image.shape
+    dev = image.device
+    p = image.index_select(0, _reflect101(h, 1, dev)).index_select(
+        1, _reflect101(w, 1, dev))
+    if dx:
+        r = p[:, 2:] - p[:, :-2]
+        return (r[:-2] + r[2:]) + r[1:-1] * 2
+    if image.dtype == torch.float64:
+        r = (p[:, :-2] + p[:, 1:-1] * 2) + p[:, 2:]
+    else:
+        r = (p[:, :-2] + p[:, 2:]) + p[:, 1:-1] * 2
+    return r[2:] - r[:-2]
+
+
+def integral(image: torch.Tensor) -> torch.Tensor:
+    """``cv2.integral`` of an (H, W) f64 tensor: the (H + 1, W + 1) sums of
+    every top-left rectangle, a zero first row and column; each row's
+    running sum added to the row above, as OpenCV accumulates."""
+    h, w = image.shape
+    out = image.new_zeros((h + 1, w + 1))
+    out[1:, 1:] = image.cumsum(1).cumsum(0)
+    return out
+
+
+def convert_scale_abs(image: torch.Tensor, alpha: float) -> torch.Tensor:
+    """``cv2.convertScaleAbs(image, alpha=alpha)``: ``|x * alpha|`` in f32,
+    rounded half to even and saturated to uint8."""
+    out = (image.float() * np.float32(alpha)).abs().round()
+    return out.clamp(0, 255).to(torch.uint8)
+
+
+def threshold_tozero(image: torch.Tensor, thresh: float) -> torch.Tensor:
+    """``cv2.threshold(image, thresh, 255, cv2.THRESH_TOZERO)[1]`` on uint8:
+    a value above ``floor(thresh)`` kept, the rest 0 (OpenCV floors the
+    threshold of 8-bit images)."""
+    return torch.where(image.to(torch.int32) > int(np.floor(thresh)), image,
+                       torch.zeros_like(image))
+
+
+def bitwise_not(image: torch.Tensor) -> torch.Tensor:
+    """``cv2.bitwise_not`` of a uint8 tensor."""
+    return 255 - image
 
 
 def dilate(image: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:

@@ -8,14 +8,17 @@
     (``params={'det_torch': ..., 'pose_torch': ...}``, mm checkpoints); the
     ONNX route (``det_onnx`` / ``pose_onnx``) refuses without onnxruntime,
     which this port does not need;
-  * the network families ported so far, once their checkpoint is given as
+  * the network families, once their checkpoint is given as
     ``params={'weights': ...}``: the OpenPose ids (``hand_weights`` /
-    ``face_weights`` for hands and faces), HED, PiDiNet and LineArt
-    (realistic and coarse, ``coarse_weights``);
+    ``face_weights`` for hands and faces), HED, PiDiNet, LineArt
+    (realistic and coarse, ``coarse_weights``), LineArt-Anime, M-LSD,
+    MiDaS (depth and normals), NormalBAE, ZoeDepth and LeReS
+    (``depth_leres++`` with ``pix2pix_weights``, the boost's merge
+    network);
   * ``mediapipe_face`` through the external ``mediapipe`` package where it
     can be imported.
-The depth, normal, segmentation, anime line-art and M-LSD ids raise
-``NotImplementedError``: their families are not ported yet.
+The segmentation id (``sam``) raises ``NotImplementedError``: its family is
+not ported yet.
 
 API: Processor(processor_id, params, device)(image, to_pil=True); the
 processors run on ``device`` (None: CUDA).
@@ -37,18 +40,15 @@ from pcdms_tpu_torch.utils.device import resolve_device
 _IMPLEMENTED_NN = (
     "hed", "hed_safe", "scribble_hed", "softedge_hed", "softedge_hedsafe",
     "scribble_pidinet", "softedge_pidinet", "softedge_pidsafe",
-    "lineart_realistic", "lineart_coarse",
+    "lineart_realistic", "lineart_coarse", "lineart_anime", "mlsd",
+    "midas", "depth_midas", "normal_midas", "normal_bae", "depth_zoe",
+    "depth_leres", "depth_leres++",
     "openpose", "openpose_face", "openpose_faceonly", "openpose_full",
     "openpose_hand",
 )
 
 # network processors whose family is not ported yet -> the family
-_NOT_PORTED = {
-    "lineart_anime": "lineart_anime", "mlsd": "mlsd", "midas": "midas",
-    "depth_midas": "midas", "normal_midas": "midas",
-    "depth_leres": "leres", "depth_leres++": "leres + boost",
-    "normal_bae": "normalbae", "depth_zoe": "zoe", "sam": "sam",
-}
+_NOT_PORTED = {"sam": "sam"}
 
 # controlnet-aux processor.py:59-63 include-flag table
 _OPENPOSE_FLAGS = {
@@ -196,7 +196,7 @@ class Processor:
         if pid in _NOT_PORTED:
             raise NotImplementedError(
                 f"processor '{pid}': the {_NOT_PORTED[pid]} family is not "
-                "ported to pcdms_tpu_torch yet (ROADMAP item 24b)")
+                "ported to pcdms_tpu_torch yet (ROADMAP item 24c)")
         if pid in _IMPLEMENTED_NN:
             return self._resolve_nn(pid)
         raise ValueError(f"unknown processor: {pid}")
@@ -233,6 +233,26 @@ class Processor:
                                 else None), device=dev)
             return lambda img, **kw: d(
                 img, coarse=kw.pop("coarse", pid == "lineart_coarse"), **kw)
+        if pid in ("lineart_anime", "mlsd", "normal_bae", "depth_zoe"):
+            cls = {"lineart_anime": det.LineartAnimeDetector,
+                   "mlsd": det.MLSDdetector,
+                   "normal_bae": det.NormalBaeDetector,
+                   "depth_zoe": det.ZoeDetector}[pid]
+            d = cls.from_pretrained(weights, device=dev)
+            return lambda img, **kw: d(img, **kw)
+        if pid in ("depth_leres", "depth_leres++"):
+            d = det.LeresDetector.from_pretrained(
+                weights, pix2pix_weights=self.params.get("pix2pix_weights"),
+                device=dev)
+            boost = pid.endswith("++")
+            return lambda img, **kw: d(img, boost=kw.pop("boost", boost),
+                                       **kw)
+        if pid in ("midas", "depth_midas", "normal_midas"):
+            d = det.MidasDetector.from_pretrained(weights, device=dev)
+            if pid == "normal_midas":
+                return lambda img, **kw: d(img, depth_and_normal=True,
+                                           **kw)[1]
+            return lambda img, **kw: d(img, **kw)
         body, hand, face = _OPENPOSE_FLAGS[pid]
         d = det.OpenposeDetector.from_pretrained(
             weights, self.params.get("hand_weights") if hand else None,

@@ -5,7 +5,8 @@ openpose_decode,hed,pidi,lineart}.py``, ``pose/processors.py``,
 
 Bars:
 * ``imgproc`` against cv2: every uint8 result equal pixel for pixel
-  (resize by area, Lanczos-4 and bilinear, up and down; GaussianBlur;
+  (resize by area, Lanczos-4 and bilinear, up and down, and bicubic within
+  1 level on at most 0.1 % of the values; GaussianBlur;
   dilate; remap; Canny); f32 results within 2e-6 x max |cv2| (resize,
   measured <= 1.03e-6; GaussianBlur, measured <= 3.7e-7); f32 dilate
   exactly. ``resize_to_64``, ``edge_nms``, ``scribble_postprocess``,
@@ -122,14 +123,13 @@ def test_resize_equals_cv2(kind, dtype):
     for (sh, sw), (dh, dw) in RESIZE_CASES:
         for c in (1, 3):
             img = _image(rng, sh, sw, c, dtype)
-            if kind == "cubic" and dtype == "uint8":
-                with pytest.raises(NotImplementedError):
-                    imgproc.resize(t(img), (dw, dh), kind)
-                return
             want = cv2.resize(img, (dw, dh), interpolation=INTERP[kind])
             got = imgproc.resize(t(img), (dw, dh), kind).numpy()
             assert got.shape == want.shape
-            if dtype == "uint8":
+            if kind == "cubic" and dtype == "uint8":
+                # cv2 5.0 sums uint8 bicubic in f32 (the port's stated bar)
+                _assert_levels(got, want)
+            elif dtype == "uint8":
                 np.testing.assert_array_equal(got, want)
             else:
                 _assert_f32(got, want)
@@ -632,10 +632,19 @@ def test_processor_refuses_without_weights_as_jax(pid):
         processors.Processor(pid, device="cpu")
 
 
-@pytest.mark.parametrize("pid", sorted(processors._NOT_PORTED))
+# the ids this slice left to later ones: sam still refuses (item 24c); the
+# depth, normal, M-LSD and anime line-art ids are ported since, and refuse
+# only for want of their weights, as the JAX facade does
+@pytest.mark.parametrize("pid", sorted(set(j_proc._IMPLEMENTED_NN)
+                                       - set(_NET_IDS)))
 def test_processor_refuses_unported_families(pid):
-    with pytest.raises(NotImplementedError, match="24b"):
-        processors.Processor(pid, {"weights": "w.pth"}, device="cpu")
+    if pid in processors._NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="24c"):
+            processors.Processor(pid, {"weights": "w.pth"}, device="cpu")
+    else:
+        assert pid in processors._IMPLEMENTED_NN
+        with pytest.raises(NotImplementedError, match="needs its pretrained"):
+            processors.Processor(pid, device="cpu")
 
 
 def test_processor_other_refusals():

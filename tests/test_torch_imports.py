@@ -20,8 +20,8 @@ FILES = sorted(PACKAGE.rglob("*.py")) + [
 NOTEBOOK = ROOT / "examples" / "demo_torch.ipynb"
 LAUNCHERS = sorted((ROOT / "scripts").glob("*_torch.sh"))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pcdms_tpu", "cv2")
-# the modules of the metrics protocol, the learning proof and the DWPose
-# path, which take the JAX package's cv2 code paths over
+# the modules of the metrics protocol, the learning proof, the DWPose path
+# and the annotators, which take the JAX package's cv2 code paths over
 CV2_FREE = ("eval/metrics.py", "eval/inception.py", "eval/lpips.py",
             "cli/calculate_metrics.py", "cli/learning_proof.py",
             "pose/raster.py", "pose/skeleton.py", "data/synthetic.py",
@@ -32,7 +32,10 @@ CV2_FREE = ("eval/metrics.py", "eval/inception.py", "eval/lpips.py",
             "cli/fastpath_drift.py", "pose/processors.py",
             "pose/detectors/openpose.py", "pose/detectors/openpose_decode.py",
             "pose/detectors/hed.py", "pose/detectors/pidi.py",
-            "pose/detectors/lineart.py")
+            "pose/detectors/lineart.py", "pose/detectors/lineart_anime.py",
+            "pose/detectors/mlsd.py", "pose/detectors/midas.py",
+            "pose/detectors/normalbae.py", "pose/detectors/zoe.py",
+            "pose/detectors/leres.py", "pose/detectors/leres_boost.py")
 
 
 def _imports(tree):
