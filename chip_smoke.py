@@ -206,6 +206,16 @@ Phases, each reported on its own lines:
      CPU, and the LeReS++ patch loop on a crafted image on the card and on
      the CPU. Phase 12 also sends one ``cli/serve_client.main`` request at
      full width;
+ 16d. SAM (``phase_sam``, after the depth annotators): seeded vit_h (641M
+     parameters) and MobileSAM saved in their published layouts and loaded
+     back through ``Processor("sam")``; a windowed and a global vit_h
+     block, the neck, TinyViT at 1024 and a 64-point decoder batch card vs
+     CPU; the encoders' images/s and the decoder's prompts/s; the default
+     automatic mask generator (32 x 32 points) on 2 synthetic 512x512
+     images with the masks left after each filter and the host's share;
+     then a run with the thresholds lowered and one crop layer on the card
+     and on the CPU (the CPU half taking the networks' outputs from the
+     card's calls), its kept masks and canvas equal;
  17. the learning proof (``phase_learning_proof``):
      ``cli/learning_proof.main(["--quick", "--assert_improves"])`` on the
      card, the VAE and the three trainers from scratch at the tiny
@@ -213,7 +223,7 @@ Phases, each reported on its own lines:
      the JAX package's thresholds.
 Launch counters are reset just before each path runs and read just after.
 The phases run in this order: 1 to 7c, 9, 16, 16b, 11, 16c (the demo and
-the annotators; the drift table below), 14; then the learning proof
+the annotators; the drift table below), 16d, 14; then the learning proof
 starts in a child process on the same card (host-bound at its tiny
 configurations, it leaves the card idle most of its time) and runs beside
 the phases that read only the host's clock: 7d, 8, 10, the drift table,
@@ -4224,30 +4234,32 @@ def _person_boxes(kp, size, n):
 
 
 class _NetTimer:
-    """Wraps ``det._forward`` to record CUDA events around each network
-    call; ``ms()`` waits for the card and sums them."""
+    """Puts an instance attribute over ``owner.name`` (a detector's
+    ``_forward`` by default) that records CUDA events around each call;
+    ``ms()`` waits for the card and sums them; ``restore()`` takes it
+    off."""
 
-    def __init__(self, det):
-        self.det, self.events = det, []
-        forward = det._forward
+    def __init__(self, owner, name="_forward"):
+        self.owner, self.name, self.events = owner, name, []
+        fn = getattr(owner, name)
 
-        def timed(net, image):
+        def timed(*args, **kwargs):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = forward(net, image)
+            out = fn(*args, **kwargs)
             end.record()
             self.events.append((start, end))
             return out
 
-        det._forward = timed
+        setattr(owner, name, timed)
 
     def ms(self):
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in self.events)
 
     def restore(self):
-        del self.det._forward
+        delattr(self.owner, self.name)
 
 
 def phase_dwpose(dev):
@@ -5120,39 +5132,47 @@ def _boost_image():
 
 class _NetReplay:
     """The card's network calls replayed on the CPU: each class's
-    ``forward`` is wrapped so that on the card it records (input, output)
-    in call order, and on the CPU it takes the card's call of the same
-    index, holds its own input against the card's (same shape, rel L2 <=
-    ``bar``) and returns the card's output. The CPU half of a detector
-    then runs every step but its networks (each held card vs CPU on its
-    own) on the host."""
+    ``forward`` is wrapped so that on the card it records (tensor inputs,
+    output) in call order, and on the CPU it takes the card's call of the
+    same index, holds each of its own tensor inputs against the card's
+    (same shapes, rel L2 <= ``bar``) and returns the card's output (a tensor
+    or a tuple of them). The CPU half of a detector then runs every step
+    but its networks (each held card vs CPU on its own) on the host;
+    ``phase`` names the phase in its failures."""
 
-    def __init__(self, classes, bar):
-        self.bar = bar
+    def __init__(self, classes, bar, phase):
+        self.bar, self.phase = bar, phase
         self.originals = {cls: cls.forward for cls in classes}
         self.calls, self.seen, self.worst = {}, {}, {}
         for cls in classes:
             cls.forward = self._wrap(cls.__name__, cls.forward)
 
     def _wrap(self, name, forward):
-        def wrapped(net, x):
-            if x.device.type != "cpu":
-                out = forward(net, x)
-                self.calls.setdefault(name, []).append((x.cpu(), out.cpu()))
+        def wrapped(net, *args, **kwargs):
+            xs = [a for a in args if isinstance(a, torch.Tensor)]
+            if xs[0].device.type != "cpu":
+                out = forward(net, *args, **kwargs)
+                self.calls.setdefault(name, []).append((
+                    [x.cpu() for x in xs],
+                    tuple(o.cpu() for o in out) if isinstance(out, tuple)
+                    else out.cpu()))
                 return out
             i = self.seen.get(name, 0)
             self.seen[name] = i + 1
             card = self.calls.get(name, [])
-            if i >= len(card) or card[i][0].shape != x.shape:
-                fail(f"annotators_depth: the CPU's call {i} of {name} "
-                     f"(input {tuple(x.shape)}) has no card call of its "
-                     f"shape")
-            rel = _rel_l2(x, card[i][0])
+            shapes = [tuple(x.shape) for x in xs]
+            if i >= len(card) or shapes != [tuple(c.shape)
+                                            for c in card[i][0]]:
+                fail(f"{self.phase}: the CPU's call {i} of {name} "
+                     f"(inputs {shapes}) has no card call of its shapes")
+            rel = max(_rel_l2(x, c) for x, c in zip(xs, card[i][0]))
             self.worst[name] = max(self.worst.get(name, 0.0), rel)
             if not rel <= self.bar:
-                fail(f"annotators_depth: {name}'s input {i} card vs CPU "
+                fail(f"{self.phase}: {name}'s input {i} card vs CPU "
                      f"rel L2 {rel:.3e}")
-            return card[i][1].clone()
+            out = card[i][1]
+            return (tuple(o.clone() for o in out) if isinstance(out, tuple)
+                    else out.clone())
         return wrapped
 
     def reset(self):
@@ -5165,10 +5185,10 @@ class _NetReplay:
         the card ran that many images for each of the CPU's) and the worst
         input rel L2; fails where they do not add up."""
         if not self.seen:
-            fail("annotators_depth: the CPU half called no network")
+            fail(f"{self.phase}: the CPU half called no network")
         for name, n in self.seen.items():
             if len(self.calls[name]) != per_cpu_call * n:
-                fail(f"annotators_depth: {name} ran {len(self.calls[name])}"
+                fail(f"{self.phase}: {name} ran {len(self.calls[name])}"
                      f" times on the card, {n} on the CPU")
         return ", ".join(f"{k} {n} call(s), input rel L2 {self.worst[k]:.3e}"
                          for k, n in self.seen.items())
@@ -5318,7 +5338,7 @@ def phase_annotators_depth(dev):
         replay = _NetReplay(
             (lineart_anime.UnetGenerator, mlsd.MobileV2_MLSD_Large,
              midas.DPTHybrid, normalbae.NNET, zoe.ZoeDepth,
-             leres.RelDepthModel), BAR_ANNOTATOR_NETS)
+             leres.RelDepthModel), BAR_ANNOTATOR_NETS, "annotators_depth")
         ids = [("lineart_anime", "lineart_anime"), ("mlsd", "mlsd"),
                ("midas", "midas"), ("depth_midas", "midas"),
                ("normal_midas", "midas"), ("normal_bae", "normalbae"),
@@ -5438,6 +5458,308 @@ def phase_annotators_depth(dev):
             replay.restore()
             (zoe.ZoeDetector.infer, leres.normalize_16bit,
              mlsd.decode_lines, leres_boost.estimateboost) = originals
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+SAM_IMAGES = 2
+SAM_DETECT_RES = 512
+# the mask head's craft (sam_scene.seeded_sam): at vit_h's 1024 input the
+# module's defaults (20, 3) leave the stability scores of the probe's most
+# confident masks at 0 (on an H100, seed SEED + 200)
+SAM_MASK_GAIN, SAM_MASK_SHIFT = 40.0, 2.0
+# the crafted run's IoU threshold: the first of these quantiles of a probe
+# batch's IoUs above which a mask has a non-zero stability score (the CPU
+# half takes the passing masks to 512^2 in f64 on the host: the fewer, the
+# faster); the stability threshold: the median of those masks' non-zero
+# scores
+SAM_CRAFT_IOU_QUANTILES = (0.9, 0.8, 0.7, 0.6, 0.5)
+
+
+def _sam_encoder_macs(cfg):
+    """Multiply-adds of one image through a SAM ViT encoder: the patch
+    embed; each block's qkv and projection (a windowed block's on its
+    grid padded to whole windows), its attention products and the
+    relative-position einsums, its MLP; the neck."""
+    g, d = cfg.img_size // 16, cfg.dim
+    n = g * g
+    macs = n * 768 * d + n * d * 256 + n * 256 * 256 * 9
+    for i in range(cfg.depth):
+        if i in cfg.global_blocks:
+            t, win, side = n, n, g
+        else:
+            t, win, side = (-(-g // 14) * 14) ** 2, 196, 14
+        macs += 4 * t * d * d + 2 * t * win * d + 2 * t * side * d
+        macs += 8 * n * d * d
+    return macs
+
+
+def _sam_decoder_macs(b, n, t=7, c=256, inner=128):
+    """Multiply-adds of the mask decoder for ``b`` one-point prompts (``t``
+    tokens: the IoU token, 4 mask tokens, the point and the pad point) on
+    an ``n``-token image grid."""
+    cross = 2 * t * c * inner + 2 * n * c * inner + 2 * t * n * inner
+    layer = (4 * t * c * c + 2 * t * t * c + 2 * cross
+             + 2 * t * c * 2048)
+    up = n * c * 64 * 4 + 4 * n * 64 * 32 * 4 + 4 * 32 * 16 * n
+    heads = 4 * (2 * c * c + c * 32) + 2 * c * c + c * 4
+    return b * (2 * layer + cross + up + heads)
+
+
+def _same_anns(got, want):
+    """Fails unless two ``generate`` results hold the same annotations."""
+    import numpy as np
+    if len(got) != len(want):
+        fail(f"sam: {len(got)} masks kept on the card, {len(want)} on the "
+             f"CPU")
+    for i, (a, b) in enumerate(zip(got, want)):
+        same = np.array_equal(a["segmentation"], b["segmentation"]) and all(
+            a[k] == b[k] for k in ("area", "bbox", "predicted_iou",
+                                   "point_coords", "stability_score",
+                                   "crop_box"))
+        if not same:
+            fail(f"sam: kept mask {i} differs card vs CPU")
+
+
+def phase_sam(dev):
+    """SAM on the card. vit_h at full width (641M parameters) and MobileSAM
+    seeded (``sam_scene.seeded_sam``: PyTorch's default init drawn on the
+    card, the zero tables and BatchNorm statistics random, the mask head
+    crafted so that masks reach past the stability offsets), saved as a
+    ``sam_vit_h_4b8939.pth`` (2.56 GB) and a ``mobile_sam.pt`` in the
+    published layouts and loaded back through ``Processor("sam")``. Each
+    network held card vs CPU (rel L2 <= 1e-4, f32, both TF32 switches on
+    around the port's own scope): a windowed and a global vit_h block on
+    the 64 x 64 grid, the neck, TinyViT at 1024, one 64-point decoder
+    batch. The encoders' images/s at 1024 and the decoder's prompts/s at
+    batch 64 by CUDA events. The default generator (32 x 32 points in
+    batches of 64, crop layers 0) through the ``Processor`` on 2 synthetic
+    512x512 images at detect_resolution 512: s an image by the host clock,
+    the networks' share by CUDA events, the masks left after each filter,
+    the peak GiB. Then a run that keeps masks: the same vit_h with the
+    generator's own thresholds lowered (the IoU's at the 0.9 quantile of a
+    probe batch, or a lower one if no mask above it has a non-zero
+    stability score; the stability score's at the median of the non-zero
+    scores of what passes it) and one crop layer (4 crops with 16 x 16
+    points: the crop-edge filter and the NMS across crops), on the card and
+    on the CPU, whose half runs every host step of the generator and the
+    facade and takes the networks' outputs from the
+    card's calls (``_NetReplay``): the same kept masks, boxes, IoUs,
+    stability scores and points, and the same canvas under one
+    ``np.random.seed``; each of the IoU, stability and NMS filters drops
+    some masks and keeps others. No kernel of the repository lies on this
+    path."""
+    import numpy as np
+    from pcdms_tpu_torch.pose import processors
+    from pcdms_tpu_torch.pose.detectors import sam, sam_amg
+    from pcdms_tpu_torch.pose.detectors.sam_scene import (
+        published_state_dict, seeded_sam,
+    )
+    from pcdms_tpu_torch.pose.dwpose import f32_forward
+
+    card = card_name_and_limit()
+    t_files = time.perf_counter()
+    images = _annotator_images(SAM_IMAGES)
+    g = torch.Generator().manual_seed(SEED + 202)
+    made = []
+    from_pretrained = sam_amg.SamDetector.__dict__["from_pretrained"]
+
+    def capture(weights, **kw):
+        made.append(from_pretrained.__func__(sam_amg.SamDetector, weights,
+                                             **kw))
+        return made[-1]
+
+    with tempfile.TemporaryDirectory() as root:
+        paths, size = {}, 0
+        for name, fname in (("vit_h", "sam_vit_h_4b8939.pth"),
+                            ("vit_t", "mobile_sam.pt")):
+            model = seeded_sam(sam.SAM_CONFIGS[name], SEED + 200, device=dev,
+                               gain=SAM_MASK_GAIN, shift=SAM_MASK_SHIFT)
+            paths[name] = os.path.join(root, fname)
+            torch.save(published_state_dict(model, SEED + 201), paths[name])
+            size += os.path.getsize(paths[name])
+            del model
+        sam_amg.SamDetector.from_pretrained = capture
+        try:
+            procs = {name: processors.Processor(
+                "sam", {"weights": p, "detect_resolution": SAM_DETECT_RES})
+                for name, p in paths.items()}
+        finally:
+            sam_amg.SamDetector.from_pretrained = from_pretrained
+    dets = dict(zip(paths, made))
+    for name, det in dets.items():
+        got = det.mask_generator.model
+        if got.cfg != sam.SAM_CONFIGS[name] or got.cfg.tiny != (
+                name == "vit_t"):
+            fail(f"sam: Processor built {got.cfg} from the {name} file")
+        if next(got.parameters()).device.type != torch.device(dev).type:
+            fail("sam: the Processor's model is not on the card")
+    vit_h = dets["vit_h"].mask_generator.model
+    n_params = [sum(p.numel() for p in d.mask_generator.model.parameters())
+                / 1e6 for d in dets.values()]
+    print(f"[sam] vit_h ({n_params[0]:.2f}M parameters) and MobileSAM "
+          f"({n_params[1]:.2f}M, folded) made on the card, saved ({size / 1e9:.2f} GB of files in "
+          f"the published layouts) and loaded through Processor('sam') in "
+          f"{time.perf_counter() - t_files:.1f} s", flush=True)
+
+    # each network card vs CPU on an input the CPU can afford
+    t_nets = time.perf_counter()
+    enc = vit_h.image_encoder
+    tiny = dets["vit_t"].mask_generator.model.image_encoder
+    size = vit_h.cfg.img_size
+    grid = torch.randn((1, size // 16, size // 16, vit_h.cfg.dim),
+                       generator=g)
+    checks = [
+        ("vit_h windowed block 0", enc.blocks[0], grid),
+        (f"vit_h global block {vit_h.cfg.global_blocks[0]}",
+         enc.blocks[vit_h.cfg.global_blocks[0]], grid),
+        ("vit_h neck", enc.neck, grid.permute(0, 3, 1, 2).contiguous()),
+        (f"TinyViT at {size}", tiny, torch.randn((1, 3, size, size),
+                                                generator=g))]
+    gen_h = dets["vit_h"].mask_generator
+    gen_h._set_image(images[0])
+    emb = gen_h._embedding
+    pts = sam_amg.build_point_grid(8) * 512.0
+    coords = torch.from_numpy(pts.astype(np.float32))[:, None, :]
+    labels = torch.ones((64, 1))
+    with torch.no_grad(), _tf32_on(), f32_forward():
+        for label, net, x in checks:
+            got = net(x.to(dev)).cpu()
+            want = copy.deepcopy(net).cpu()(x)
+            rel = _rel_l2(got, want)
+            print(f"[sam] {label}: card vs CPU at {tuple(x.shape[1:])} rel "
+                  f"L2 {rel:.3e} (bar {BAR_ANNOTATOR_NETS:g}); {card}",
+                  flush=True)
+            if not rel <= BAR_ANNOTATOR_NETS:
+                fail(f"sam: {label} card vs CPU rel L2 {rel:.3e}")
+        cpu_model = copy.deepcopy(vit_h).cpu()
+        got = sam.sam_predict_points(vit_h, emb, coords.to(dev),
+                                     labels.to(dev))
+        want = sam.sam_predict_points(cpu_model, emb.cpu(), coords, labels)
+        for what, a, b in zip(("masks", "IoU"), got, want):
+            rel = _rel_l2(a.cpu(), b)
+            print(f"[sam] the decoder on 64 points, {what} card vs CPU rel "
+                  f"L2 {rel:.3e} (bar {BAR_ANNOTATOR_NETS:g}); {card}",
+                  flush=True)
+            if not rel <= BAR_ANNOTATOR_NETS:
+                fail(f"sam: the decoder's {what} card vs CPU rel L2 "
+                     f"{rel:.3e}")
+    print(f"[sam] the networks checked in "
+          f"{time.perf_counter() - t_nets:.1f} s", flush=True)
+
+    # the encoders and the decoder timed on the card
+    x = torch.rand((1, 3, size, size), generator=g).to(dev) * 255.0
+    enc_macs = _sam_encoder_macs(vit_h.cfg)
+    dec_macs = _sam_decoder_macs(64, (size // 16) ** 2)
+    enc_ms = cuda_ms(lambda: gen_h._encode(x), iters=3, warmup=1)
+    tiny_ms = cuda_ms(lambda: dets["vit_t"].mask_generator._encode(x),
+                      iters=5, warmup=1)
+    dec_ms = cuda_ms(lambda: gen_h._predict(emb, coords.to(dev),
+                                            labels.to(dev)), iters=5)
+    print(f"[sam] {card}: vit_h encoder at {size} {enc_ms:.2f} ms, "
+          f"{1e3 / enc_ms:.2f} images/s, {2 * enc_macs / 1e12:.2f} TFLOP an "
+          f"image, {2 * enc_macs / enc_ms / 1e9:.1f} TFLOP/s = "
+          f"{2 * enc_macs / enc_ms / 1e9 / PEAK_F32_FLOPS * 1e12:.1%} of "
+          f"the f32 peak; TinyViT {tiny_ms:.2f} ms, {1e3 / tiny_ms:.1f} "
+          f"images/s; decoder at batch 64 on the {size // 16}^2 grid "
+          f"{dec_ms:.2f} ms, {64e3 / dec_ms:.0f} prompts/s, "
+          f"{2 * dec_macs / dec_ms / 1e9:.1f} TFLOP/s (CUDA events)",
+          flush=True)
+
+    # the default generator through the Processor, 2 images a model
+    for name in ("vit_h", "vit_t"):
+        gen = dets[name].mask_generator
+        timers = [_NetTimer(gen, "_encode"), _NetTimer(gen, "_predict")]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        counts = []
+        for img in images:
+            out = procs[name](img, to_pil=False)
+            counts.append(dict(gen.counts))
+            if out.shape != (512, 512, 3) or out.dtype != np.uint8:
+                fail(f"sam: Processor('sam') ({name}) gave {out.shape} "
+                     f"{out.dtype}")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / len(images)
+        net = [tm.ms() / len(images) / 1e3 for tm in timers]
+        for tm in timers:
+            tm.restore()
+        if counts[0].get("predicted") != 3 * 1024:
+            fail(f"sam: the default generator predicted {counts[0]}")
+        print(f"[sam] {card}: Processor('sam') ({name}, default generator: "
+              f"32 x 32 points, batches of 64) on {len(images)} 512x512 "
+              f"images at detect_resolution {SAM_DETECT_RES}: {wall:.3f} s "
+              f"an image by the host clock, the encoder {net[0]:.3f} s and "
+              f"the decoder {net[1]:.3f} s of it by CUDA events (the host "
+              f"and the rest {1 - sum(net) / wall:.1%}); peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; masks "
+              f"left after each filter: {counts}", flush=True)
+
+    # a run that keeps masks, on the card and on the CPU
+    gen_h._set_image(images[0])
+    low, ious = gen_h._predict_batch(pts)
+    stab = sam_amg.calculate_stability_score(sam_amg.postprocess_masks(
+        low, size, gen_h._input_size, gen_h._orig_size), 0.0, 1.0
+    ).cpu().numpy()
+    print(f"[sam] the probe batch (64 points, 192 masks): IoU quantiles "
+          f"0 / 0.5 / 0.9 / 1 {np.quantile(ious, [0, 0.5, 0.9, 1])}, "
+          f"{int((stab > 0).sum())} stability scores above 0, quantiles "
+          f"{np.quantile(stab, [0, 0.5, 0.9, 1])}", flush=True)
+    for q in SAM_CRAFT_IOU_QUANTILES:
+        iou_t = float(np.quantile(ious, q))
+        if (stab[ious > iou_t] > 0).any():
+            break
+    else:
+        fail("sam: the probe's confident masks never clear the stability "
+             "offsets")
+    stab_t = float(np.quantile(stab[(ious > iou_t) & (stab > 0)], 0.5))
+    kw = dict(pred_iou_thresh=iou_t, stability_score_thresh=stab_t,
+              crop_n_layers=1, crop_n_points_downscale_factor=2)
+    replay = _NetReplay((sam.ImageEncoderViT, sam.MaskDecoder),
+                        BAR_ANNOTATOR_NETS, "sam")
+    anns, canvas, secs, counts = {}, {}, {}, {}
+    try:
+        for side, model in (("card", vit_h), ("cpu", cpu_model)):
+            det = sam_amg.SamDetector(
+                model, device=next(model.parameters()).device, **kw)
+            generate = det.mask_generator.generate
+
+            def keep(image, generate=generate, side=side):
+                anns[side] = generate(image)
+                return anns[side]
+            det.mask_generator.generate = keep
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            np.random.seed(SEED)
+            canvas[side] = det(images[0], detect_resolution=SAM_DETECT_RES,
+                               image_resolution=SAM_DETECT_RES)
+            torch.cuda.synchronize()
+            secs[side] = time.perf_counter() - t0
+            counts[side] = dict(det.mask_generator.counts)
+        nets = replay.summary(1)
+    finally:
+        replay.restore()
+    _same_anns(anns["card"], anns["cpu"])
+    if counts["card"] != counts["cpu"] or not np.array_equal(
+            canvas["card"], canvas["cpu"]):
+        fail(f"sam: the kept masks' canvas or counts differ card vs CPU: "
+             f"{counts}")
+    c = counts["card"]
+    if not (c["predicted"] > c["iou"] > c["stability"] > 0
+            and c["edge"] > c["nms"] >= c["kept"] > 0):
+        fail(f"sam: a filter of the crafted run kept all or nothing: {c}")
+    colours = len(np.unique(canvas["card"].reshape(-1, 3), axis=0))
+    print(f"[sam] {card}: vit_h with the thresholds lowered (IoU > "
+          f"{iou_t:.5f}, the {q} quantile of a probe batch; stability >= "
+          f"{stab_t:.5f}, the median of the non-zero scores of what passes "
+          f"it) and one crop layer on image 0: {secs['card']:.3f} s on the "
+          f"card, {secs['cpu']:.2f} s on the CPU (its networks from the card: "
+          f"{nets}); masks left after each filter {c}, the same on both "
+          f"sides; {len(anns['card'])} kept masks equal card vs CPU "
+          f"(segmentation, area, box, IoU, point, stability, crop box), "
+          f"the canvas equal ({colours} colours)", flush=True)
+    del dets, procs, made, gen_h, vit_h, cpu_model, emb
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5564,6 +5886,7 @@ def main() -> int:
             del weights
         _timed(phase_annotators, dev)
         _timed(phase_annotators_depth, dev)
+        _timed(phase_sam, dev)
         _add(launches, _timed(phase_lcm, fa, dev))
         # the phases above read device times; those below only the host's
         # clock, beside the learning proof

@@ -716,3 +716,149 @@ def leres_from_jax(p):
     _conv(sd, f"{dec}.outconv.adapt_conv.0", d["ao1"])
     _conv(sd, f"{dec}.outconv.adapt_conv.3", d["ao2"])
     return load_numpy_state_dict(RelDepthModel().fold(), sd).eval()
+
+
+def _sam_neck(sd: StateDict, prefix: str, p) -> None:
+    _conv(sd, f"{prefix}.neck.0", _kernel(p["neck0_w"]))
+    _conv(sd, f"{prefix}.neck.2", _kernel(p["neck1_w"]))
+    for i, key in ((1, "neck_ln0"), (3, "neck_ln1")):
+        sd[f"{prefix}.neck.{i}.weight"] = np.asarray(p[f"{key}_scale"])
+        sd[f"{prefix}.neck.{i}.bias"] = np.asarray(p[f"{key}_bias"])
+
+
+def _tiny_vit_sd(sd: StateDict, prefix: str, p) -> None:
+    def cbn(name, q):
+        _conv(sd, f"{prefix}.{name}.c", q)
+
+    def lin(name, q, key):
+        _linear(sd, f"{prefix}.{name}", {"kernel": q[f"{key}_w"],
+                                         "bias": q[f"{key}_b"]})
+
+    def norm(name, q):
+        sd[f"{prefix}.{name}.weight"] = np.asarray(q["norm_scale"])
+        sd[f"{prefix}.{name}.bias"] = np.asarray(q["norm_bias"])
+    cbn("patch_embed.seq.0", p["patch_embed"][0])
+    cbn("patch_embed.seq.2", p["patch_embed"][1])
+    for si in range(4):
+        for bi, b in enumerate(p[f"stage{si}"]):
+            pre = f"layers.{si}.blocks.{bi}"
+            if si == 0:
+                for i in (1, 2, 3):
+                    cbn(f"{pre}.conv{i}", b[f"conv{i}"])
+                continue
+            a, m = b["attn"], b["mlp"]
+            norm(f"{pre}.attn.norm", a)
+            lin(f"{pre}.attn.qkv", a, "qkv")
+            lin(f"{pre}.attn.proj", a, "proj")
+            sd[f"{prefix}.{pre}.attn.attention_biases"] = np.asarray(
+                a["attention_biases"])
+            cbn(f"{pre}.local_conv", b["local_conv"])
+            norm(f"{pre}.mlp.norm", m)
+            lin(f"{pre}.mlp.fc1", m, "fc1")
+            lin(f"{pre}.mlp.fc2", m, "fc2")
+        if si < 3:
+            for i in (1, 2, 3):
+                cbn(f"layers.{si}.downsample.conv{i}",
+                    p[f"down{si}"][f"conv{i}"])
+    _sam_neck(sd, prefix, p)
+
+
+def tiny_vit_from_jax(p):
+    """The JAX TinyViT tree (``convert_tiny_vit``'s: every Conv2d_BN folded,
+    HWIO kernels, the linears stored (in, out)) -> the port's folded
+    ``pose/detectors/tiny_vit.py::TinyViT``."""
+    from pcdms_tpu_torch.pose.detectors.tiny_vit import TinyViT
+    sd: StateDict = {}
+    _tiny_vit_sd(sd, "image_encoder", p)
+    return load_numpy_state_dict(TinyViT().fold(), {
+        k.split(".", 1)[1]: v for k, v in sd.items()}).eval()
+
+
+def _sam_attention(sd: StateDict, prefix: str, p) -> None:
+    for a in ("q", "k", "v", "out"):
+        _linear(sd, f"{prefix}.{a}_proj", {"kernel": p[f"{a}_w"],
+                                           "bias": p[f"{a}_b"]})
+
+
+def sam_from_jax(p, cfg=None):
+    """The JAX SAM tree (``convert_sam``'s) -> the port's ``Sam`` (folded,
+    for MobileSAM), its configuration ``cfg`` or, without one, read off the
+    tree: vit_t for a TinyViT encoder, else the width, depth, head width
+    (the tables' columns), global blocks (the tables sized by the grid, not
+    the window) and input size (the position grid) of the ViT."""
+    from pcdms_tpu_torch.pose.detectors.sam import (
+        SAM_CONFIGS, WINDOW, Sam, SamConfig,
+    )
+    enc = p["encoder"]
+    if cfg is None and "tiny" in enc:
+        cfg = SAM_CONFIGS["vit_t"]
+    elif cfg is None:
+        blocks = enc["blocks"]
+        dim = np.shape(enc["patch_w"])[-1]
+        cfg = SamConfig(
+            dim, len(blocks), dim // np.shape(blocks[0]["rel_pos_h"])[1],
+            tuple(i for i, b in enumerate(blocks)
+                  if np.shape(b["rel_pos_h"])[0] != 2 * WINDOW - 1),
+            np.shape(enc["pos_embed"])[0] * 16)
+    sd: StateDict = {}
+    ie = "image_encoder"
+    if cfg.tiny:
+        _tiny_vit_sd(sd, ie, enc["tiny"])
+    else:
+        _conv(sd, f"{ie}.patch_embed.proj", {"kernel": enc["patch_w"],
+                                             "bias": enc["patch_b"]})
+        sd[f"{ie}.pos_embed"] = np.asarray(enc["pos_embed"])[None]
+        for i, b in enumerate(enc["blocks"]):
+            pre = f"{ie}.blocks.{i}"
+            for n, key in (("norm1", "ln1"), ("norm2", "ln2")):
+                sd[f"{pre}.{n}.weight"] = np.asarray(b[f"{key}_scale"])
+                sd[f"{pre}.{n}.bias"] = np.asarray(b[f"{key}_bias"])
+            for name, key in (("attn.qkv", "qkv"), ("attn.proj", "proj"),
+                              ("mlp.lin1", "fc1"), ("mlp.lin2", "fc2")):
+                _linear(sd, f"{pre}.{name}", {"kernel": b[f"{key}_w"],
+                                              "bias": b[f"{key}_b"]})
+            sd[f"{pre}.attn.rel_pos_h"] = np.asarray(b["rel_pos_h"])
+            sd[f"{pre}.attn.rel_pos_w"] = np.asarray(b["rel_pos_w"])
+        _sam_neck(sd, ie, enc)
+
+    pr, pe = p["prompt"], "prompt_encoder"
+    sd[f"{pe}.pe_layer.positional_encoding_gaussian_matrix"] = np.asarray(
+        pr["pe_gauss"])
+    for i, key in enumerate(("point_neg", "point_pos", "box_a", "box_b")):
+        sd[f"{pe}.point_embeddings.{i}.weight"] = np.asarray(pr[key])[None]
+    sd[f"{pe}.not_a_point_embed.weight"] = np.asarray(pr["not_a_point"])[None]
+
+    d, md = p["decoder"], "mask_decoder"
+    sd[f"{pe}.no_mask_embed.weight"] = np.asarray(d["no_mask"])[None]
+    t, mt = d["transformer"], f"{md}.transformer"
+    for i, layer in enumerate(t["layers"]):
+        pre = f"{mt}.layers.{i}"
+        for name, key in (("self_attn", "self_attn"),
+                          ("cross_attn_token_to_image", "t2i"),
+                          ("cross_attn_image_to_token", "i2t")):
+            _sam_attention(sd, f"{pre}.{name}", layer[key])
+        for j in (1, 2, 3, 4):
+            sd[f"{pre}.norm{j}.weight"] = np.asarray(layer[f"ln{j}_scale"])
+            sd[f"{pre}.norm{j}.bias"] = np.asarray(layer[f"ln{j}_bias"])
+        for name, key in (("mlp.lin1", "fc1"), ("mlp.lin2", "fc2")):
+            _linear(sd, f"{pre}.{name}", {"kernel": layer[f"{key}_w"],
+                                          "bias": layer[f"{key}_b"]})
+    _sam_attention(sd, f"{mt}.final_attn_token_to_image", t["final_attn"])
+    sd[f"{mt}.norm_final_attn.weight"] = np.asarray(t["final_ln_scale"])
+    sd[f"{mt}.norm_final_attn.bias"] = np.asarray(t["final_ln_bias"])
+    sd[f"{md}.iou_token.weight"] = np.asarray(d["iou_token"])
+    sd[f"{md}.mask_tokens.weight"] = np.asarray(d["mask_tokens"])
+    for i, key in ((0, "up0"), (3, "up1")):
+        sd[f"{md}.output_upscaling.{i}.weight"] = np.asarray(d[f"{key}_w"])
+        sd[f"{md}.output_upscaling.{i}.bias"] = np.asarray(d[f"{key}_b"])
+    sd[f"{md}.output_upscaling.1.weight"] = np.asarray(d["up_ln_scale"])
+    sd[f"{md}.output_upscaling.1.bias"] = np.asarray(d["up_ln_bias"])
+    for name, mlps in ((f"{md}.output_hypernetworks_mlps.{i}", m)
+                       for i, m in enumerate(d["hyper_mlps"])):
+        for j, layer in enumerate(mlps):
+            _linear(sd, f"{name}.layers.{j}", {"kernel": layer["w"],
+                                               "bias": layer["b"]})
+    for j, layer in enumerate(d["iou_head"]):
+        _linear(sd, f"{md}.iou_prediction_head.layers.{j}",
+                {"kernel": layer["w"], "bias": layer["b"]})
+    return load_numpy_state_dict(Sam(cfg).fold(), sd).eval()

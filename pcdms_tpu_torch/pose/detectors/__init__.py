@@ -4,9 +4,10 @@ the DWPose pair (YOLOX-l, ``yolox.py``; RTMPose-l / DWPose-l,
 decoded by ``openpose_decode.py``), HED (``hed.py``), PiDiNet (``pidi.py``),
 LineArt (``lineart.py``), LineArt-Anime (``lineart_anime.py``), M-LSD
 (``mlsd.py``), MiDaS (``midas.py``), NormalBAE (``normalbae.py``),
-ZoeDepth (``zoe.py``) and LeReS with its boost (``leres.py``,
-``leres_boost.py``), each family's detector with controlnet-aux's call
-protocol. The segmentation family (SAM) is not ported yet."""
+ZoeDepth (``zoe.py``), LeReS with its boost (``leres.py``,
+``leres_boost.py``) and SAM (``sam.py``, MobileSAM's TinyViT in
+``tiny_vit.py``, the automatic mask generator in ``sam_amg.py``), each
+family's detector with controlnet-aux's call protocol."""
 
 from pcdms_tpu_torch.pose.detectors.hed import (
     ControlNetHED, HEDdetector,
@@ -35,6 +36,14 @@ from pcdms_tpu_torch.pose.detectors.pidi import (
     PiDiNet, PidiNetDetector, pdc_transform,
 )
 from pcdms_tpu_torch.pose.detectors.rtmpose import RTMPose
+from pcdms_tpu_torch.pose.detectors.sam import (
+    SAM_CONFIGS, Sam, SamConfig, dense_pe, embed_points, sam_encode_image,
+    sam_predict_points,
+)
+from pcdms_tpu_torch.pose.detectors.sam_amg import (
+    SamAutomaticMaskGenerator, SamDetector,
+)
+from pcdms_tpu_torch.pose.detectors.tiny_vit import TinyViT
 from pcdms_tpu_torch.pose.detectors.yolox import YOLOX
 from pcdms_tpu_torch.pose.detectors.zoe import ZoeDepth, ZoeDetector
 
@@ -45,5 +54,8 @@ __all__ = [
     "LeresDetector", "RelDepthModel", "estimateboost", "pix2pix4depth",
     "LineartAnimeDetector", "UnetGenerator", "DPTHybrid", "MidasDetector",
     "MLSDdetector", "MobileV2_MLSD_Large", "decode_lines", "NNET",
-    "NormalBaeDetector", "ZoeDepth", "ZoeDetector",
+    "NormalBaeDetector", "ZoeDepth", "ZoeDetector", "SAM_CONFIGS", "Sam",
+    "SamConfig", "dense_pe", "embed_points", "sam_encode_image",
+    "sam_predict_points", "SamAutomaticMaskGenerator", "SamDetector",
+    "TinyViT",
 ]

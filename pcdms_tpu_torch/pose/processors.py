@@ -14,11 +14,10 @@
     (realistic and coarse, ``coarse_weights``), LineArt-Anime, M-LSD,
     MiDaS (depth and normals), NormalBAE, ZoeDepth and LeReS
     (``depth_leres++`` with ``pix2pix_weights``, the boost's merge
-    network);
+    network) and SAM (``sam``: ViT-H / L / B or MobileSAM, the
+    configuration inferred from the file);
   * ``mediapipe_face`` through the external ``mediapipe`` package where it
     can be imported.
-The segmentation id (``sam``) raises ``NotImplementedError``: its family is
-not ported yet.
 
 API: Processor(processor_id, params, device)(image, to_pil=True); the
 processors run on ``device`` (None: CUDA).
@@ -42,13 +41,14 @@ _IMPLEMENTED_NN = (
     "scribble_pidinet", "softedge_pidinet", "softedge_pidsafe",
     "lineart_realistic", "lineart_coarse", "lineart_anime", "mlsd",
     "midas", "depth_midas", "normal_midas", "normal_bae", "depth_zoe",
-    "depth_leres", "depth_leres++",
+    "depth_leres", "depth_leres++", "sam",
     "openpose", "openpose_face", "openpose_faceonly", "openpose_full",
     "openpose_hand",
 )
 
-# network processors whose family is not ported yet -> the family
-_NOT_PORTED = {"sam": "sam"}
+# network processors whose family is not ported yet -> the family (none
+# left: every id of the JAX facade is ported)
+_NOT_PORTED: Dict[str, str] = {}
 
 # controlnet-aux processor.py:59-63 include-flag table
 _OPENPOSE_FLAGS = {
@@ -196,7 +196,7 @@ class Processor:
         if pid in _NOT_PORTED:
             raise NotImplementedError(
                 f"processor '{pid}': the {_NOT_PORTED[pid]} family is not "
-                "ported to pcdms_tpu_torch yet (ROADMAP item 24c)")
+                "ported to pcdms_tpu_torch yet")
         if pid in _IMPLEMENTED_NN:
             return self._resolve_nn(pid)
         raise ValueError(f"unknown processor: {pid}")
@@ -233,11 +233,13 @@ class Processor:
                                 else None), device=dev)
             return lambda img, **kw: d(
                 img, coarse=kw.pop("coarse", pid == "lineart_coarse"), **kw)
-        if pid in ("lineart_anime", "mlsd", "normal_bae", "depth_zoe"):
+        if pid in ("lineart_anime", "mlsd", "normal_bae", "depth_zoe",
+                   "sam"):
             cls = {"lineart_anime": det.LineartAnimeDetector,
                    "mlsd": det.MLSDdetector,
                    "normal_bae": det.NormalBaeDetector,
-                   "depth_zoe": det.ZoeDetector}[pid]
+                   "depth_zoe": det.ZoeDetector,
+                   "sam": det.SamDetector}[pid]
             d = cls.from_pretrained(weights, device=dev)
             return lambda img, **kw: d(img, **kw)
         if pid in ("depth_leres", "depth_leres++"):

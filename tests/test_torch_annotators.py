@@ -632,19 +632,16 @@ def test_processor_refuses_without_weights_as_jax(pid):
         processors.Processor(pid, device="cpu")
 
 
-# the ids this slice left to later ones: sam still refuses (item 24c); the
-# depth, normal, M-LSD and anime line-art ids are ported since, and refuse
-# only for want of their weights, as the JAX facade does
+# the ids this slice left to later ones (the depth, normal, M-LSD, anime
+# line-art and SAM ids) are all ported since, and refuse only for want of
+# their weights, as the JAX facade does
 @pytest.mark.parametrize("pid", sorted(set(j_proc._IMPLEMENTED_NN)
                                        - set(_NET_IDS)))
 def test_processor_refuses_unported_families(pid):
-    if pid in processors._NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="24c"):
-            processors.Processor(pid, {"weights": "w.pth"}, device="cpu")
-    else:
-        assert pid in processors._IMPLEMENTED_NN
-        with pytest.raises(NotImplementedError, match="needs its pretrained"):
-            processors.Processor(pid, device="cpu")
+    assert pid not in processors._NOT_PORTED
+    assert pid in processors._IMPLEMENTED_NN
+    with pytest.raises(NotImplementedError, match="needs its pretrained"):
+        processors.Processor(pid, device="cpu")
 
 
 def test_processor_other_refusals():

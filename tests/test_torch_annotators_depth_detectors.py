@@ -193,8 +193,23 @@ def test_processor_refuses_without_weights_as_jax(pid):
         processors.Processor(pid, device="cpu")
 
 
-def test_processor_refuses_sam_naming_the_next_item():
-    assert list(processors._NOT_PORTED) == ["sam"]
-    with pytest.raises(NotImplementedError, match="24c"):
-        processors.Processor("sam", {"weights": "w.pth"}, device="cpu")
-    assert set(NEW_IDS) <= set(processors._IMPLEMENTED_NN)
+def test_processor_refuses_sam_naming_the_next_item(tmp_path, monkeypatch):
+    """The next item (SAM) is ported: no id is left unported, and
+    ``Processor("sam", {"weights": f})`` builds the configuration of ``f``'s
+    layout (vit_b by its patch embed's width; the build is stopped before
+    the model is made)."""
+    from pcdms_tpu_torch.pose.detectors import common, sam
+    assert processors._NOT_PORTED == {}
+    assert set(NEW_IDS) | {"sam"} <= set(processors._IMPLEMENTED_NN)
+    path = str(tmp_path / "sam_vit_b.pth")
+    torch.save({"image_encoder.patch_embed.proj.weight":
+                torch.zeros(768, 3, 16, 16)}, path)
+    built = []
+
+    def stop(cls, cfg):
+        built.append((cls, cfg))
+        raise RuntimeError("stopped")
+    monkeypatch.setattr(common, "empty", stop)
+    with pytest.raises(RuntimeError, match="stopped"):
+        processors.Processor("sam", {"weights": path}, device="cpu")
+    assert built == [(sam.Sam, sam.SAM_CONFIGS["vit_b"])]

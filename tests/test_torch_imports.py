@@ -35,7 +35,9 @@ CV2_FREE = ("eval/metrics.py", "eval/inception.py", "eval/lpips.py",
             "pose/detectors/lineart.py", "pose/detectors/lineart_anime.py",
             "pose/detectors/mlsd.py", "pose/detectors/midas.py",
             "pose/detectors/normalbae.py", "pose/detectors/zoe.py",
-            "pose/detectors/leres.py", "pose/detectors/leres_boost.py")
+            "pose/detectors/leres.py", "pose/detectors/leres_boost.py",
+            "pose/detectors/sam.py", "pose/detectors/sam_amg.py",
+            "pose/detectors/tiny_vit.py", "pose/detectors/sam_scene.py")
 
 
 def _imports(tree):
