@@ -1,0 +1,8 @@
+"""Share of the traced window in which no device activity ran (%)."""
+
+
+def read(run):
+    s = run.summary
+    if s is None or not s.window_s:
+        return None
+    return 100.0 * (1.0 - s.busy_s / s.window_s)
